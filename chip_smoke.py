@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``kangaroo_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card of compute capability 9.0 (H100) and ``nvcc``; it
+builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
+
+1. the card's name and power limit (nvidia-smi) and the kernels' build time;
+2. each CUDA kernel of the SGM frame against its plain PyTorch version on
+   the card, at 640x480/64 and 1242x375/128, on random inputs (NumPy seed)
+   and on the synthetic pair, plus one backward pass through each
+   autograd op against the plain version's gradient;
+3. ``sgm_pipeline`` at 640x480/64 (default SgmConfig) on the synthetic
+   pair for 3 frames: every kernel's launch count rises every frame, the
+   frame agrees with the plain path on the card, and its disparity error
+   against the ground truth is within bounds;
+4. CUDA-event times of each kernel and of the whole frame against their
+   plain versions at 640x480/64.
+
+The line before the last is a JSON object with each kernel's route,
+source, launches on the main path, error and times; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+SHAPES = (("vga", 480, 640, 64), ("kitti", 375, 1242, 128))
+FRAMES = 3
+
+# kernel -> (source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "sgm": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
+    "wta": ("kangaroo_tpu_torch/csrc/wta.cu", "kangaroo_tpu/stereo/wta_pallas.py:25"),
+    "median": ("kangaroo_tpu_torch/csrc/median.cu", "kangaroo_tpu/ops/median_pallas.py:70"),
+    "lr_check": ("kangaroo_tpu_torch/csrc/lr_check.cu", "kangaroo_tpu/stereo/lr_pallas.py:37"),
+}
+# stated tolerances of kernel vs plain on the card (max abs error)
+ATOL = {"sgm": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0}
+GRAD_ATOL = 1e-4
+
+
+def die(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+class Smoke:
+    """Runs the phases, collecting failures instead of stopping at the first."""
+
+    def __init__(self, torch, np):
+        self.torch, self.np = torch, np
+        self.failures: list[str] = []
+        self.max_err = {k: 0.0 for k in KERNELS}
+
+    def phase(self, name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception:  # a phase's failure is recorded, later phases still run
+            self.failures.append(f"{name}: exception")
+            traceback.print_exc()
+            return None
+
+    def compare(self, kernel, what, got, want, atol, mask=None):
+        """Max abs error of got vs want where both are finite; NaN (and
+        infinity) positions must agree exactly."""
+        torch = self.torch
+        g, w = got.detach().float(), want.detach().float()
+        if mask is not None:
+            g, w = g[mask], w[mask]
+        fin_g, fin_w = torch.isfinite(g), torch.isfinite(w)
+        same_nonfinite = torch.equal(fin_g, fin_w) and torch.equal(g[~fin_g].nan_to_num(7.0),
+                                                                   w[~fin_w].nan_to_num(7.0))
+        both = fin_g & fin_w
+        err = (g[both] - w[both]).abs().max().item() if bool(both.any()) else 0.0
+        ok = same_nonfinite and err <= atol
+        if kernel in self.max_err:
+            self.max_err[kernel] = max(self.max_err[kernel], err)
+        print(f"  {'ok  ' if ok else 'FAIL'} {kernel:8s} {what}: max_abs_err {err:.3g} "
+              f"(atol {atol:g}), non-finite positions {'equal' if same_nonfinite else 'DIFFER'}")
+        if not ok:
+            self.failures.append(f"{kernel} {what}")
+        return ok
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
+def main() -> int:
+    if not (HERE / "kangaroo_tpu_torch").is_dir():
+        die("the kangaroo_tpu_torch package is not beside chip_smoke.py")
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        die("torch.cuda.is_available() is false")
+    if torch.cuda.device_count() < 1:
+        die("no CUDA device")
+
+    from kangaroo_tpu_torch import _build
+    from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+    from kangaroo_tpu_torch.ops import median as median_plain
+    from kangaroo_tpu_torch.ops import median_cuda
+    from kangaroo_tpu_torch.stereo import census, costvolume, dispatch, lr_cuda
+    from kangaroo_tpu_torch.stereo import sgm as sgm_plain
+    from kangaroo_tpu_torch.stereo import sgm_cuda, wta_cuda
+    from kangaroo_tpu_torch.utils import timing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)  # exactly as nvidia-smi gives it: name, power limit
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
+          f"capability {torch.cuda.get_device_capability(0)}")
+
+    # --- phase 1: build -----------------------------------------------------
+    t0 = time.perf_counter()
+    try:
+        lib = _build.library()
+    except Exception as exc:  # the build's own message says what failed
+        die(f"kernel build failed: {exc}")
+    build_s = time.perf_counter() - t0
+    print(f"phase 1 build: {build_s:.3f} s for {len(KERNELS)} kernels "
+          f"({lib._name.rsplit('/', 1)[-1]}) [{card}]")
+    ptxas = Path(lib._name).with_suffix(".log")
+    if ptxas.exists():
+        print(ptxas.read_text(), file=sys.stderr)
+
+    smoke = Smoke(torch, np)
+    rng = np.random.default_rng(0)
+
+    def lattice(D, W, sd):
+        d = torch.arange(D, device=dev)[:, None]
+        x = torch.arange(W, device=dev)[None, :]
+        m = (d <= x) if sd < 0 else (x + d < W)
+        return m[:, None, :]
+
+    def with_bad(a, frac, inf_frac=0.0):
+        a = a.clone()
+        a[torch.from_numpy(rng.random(a.shape) < frac).to(dev)] = float("nan")
+        if inf_frac:
+            a[torch.from_numpy(rng.random(a.shape) < inf_frac).to(dev)] = float("inf")
+        return a
+
+    # --- phase 2: each kernel against its plain version -----------------------
+    def kernels_vs_plain(tag, H, W, D):
+        left, right, _ = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
+        cl, cr = census.census(left, "16x16"), census.census(right, "16x16")
+        bits = census.norm_bits("16x16")
+        imgs = {-1: stereo_sgm._intensity(left), 1: stereo_sgm._intensity(right)}
+        vols = {-1: census.census_cost_volume(cl, cr, D, -1, bits, dtype=torch.bfloat16),
+                1: census.census_cost_volume(cr, cl, D, 1, bits, dtype=torch.bfloat16)}
+        rand_vol = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
+        rand_img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+        disps = {}
+        for sd in (-1, 1):
+            m = lattice(D, W, sd)
+            for src, vol, img in (("census-bf16", vols[sd], imgs[sd]),
+                                  ("random-f32", rand_vol, rand_img)):
+                agg = sgm_cuda.semi_global_matching(vol, img, 0.01, 0.02, sd=sd)
+                ref = sgm_plain.semi_global_matching(vol, img, 0.01, 0.02, sd=sd)
+                smoke.compare("sgm", f"{tag} {src} sd={sd:+d}", agg, ref, ATOL["sgm"],
+                              m.expand_as(agg))
+                for vsrc, v in ((src, vol), (f"{src}-aggregate", agg)):
+                    got = wta_cuda.cost_vol_minimum_subpix(v, sd)
+                    smoke.compare("wta", f"{tag} {vsrc} sd={sd:+d}", got,
+                                  costvolume.cost_vol_minimum_subpix(v, sd), ATOL["wta"])
+                    if src == "census-bf16" and vsrc != src:
+                        disps[sd] = got
+        # median: the frame's disparities and a random image, with bad taps
+        med_in = {"disparity": with_bad(disps[-1], 0.1),
+                  "random": with_bad(rand_img, 0.05, inf_frac=0.02)}
+        for src, img in med_in.items():
+            for rad, max_bad in ((2, 12),) if src == "disparity" else ((1, 4), (2, 12), (3, 20)):
+                smoke.compare("median", f"{tag} {src} rad={rad} max_bad={max_bad}",
+                              median_cuda.median_filter_reject_invalid(img, max_bad, rad),
+                              median_plain.median_filter_reject_invalid(img, max_bad, rad),
+                              ATOL["median"])
+        # LR: the frame's disparities, and random ones spilling past the sweep
+        rnd = [with_bad(torch.from_numpy(rng.uniform(-3, D + 3, (H, W)).astype(np.float32))
+                        .to(dev), 0.05) for _ in range(2)]
+        for src, (a, b) in (("disparity", (disps[-1], disps[1])), ("random", rnd)):
+            for sd, (dl, dr) in ((-1, (a, b)), (1, (b, a))):
+                smoke.compare("lr_check", f"{tag} {src} sd={sd:+d}",
+                              lr_cuda.left_right_check(dl, dr, sd, 1.0, max_disp=D),
+                              costvolume.left_right_check(dl, dr, sd, 1.0, max_disp=D),
+                              ATOL["lr_check"])
+
+    def backward_vs_plain():
+        D, H, W = 16, 40, 72
+        vol = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
+        img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+        disp = torch.from_numpy(rng.uniform(0, D, (H, W)).astype(np.float32)).to(dev)
+        disp_r = disp + torch.from_numpy(rng.normal(0, 0.5, (H, W)).astype(np.float32)).to(dev)
+        cases = {
+            "sgm": (lambda v, i: dispatch.semi_global_matching(v, i),
+                    lambda v, i: sgm_plain.semi_global_matching(v, i), (vol, img)),
+            "wta": (lambda v: dispatch.cost_vol_minimum_subpix(v, -1),
+                    lambda v: costvolume.cost_vol_minimum_subpix(v, -1), (vol,)),
+            "median": (lambda d: dispatch.median_filter_reject_invalid(d, 12, 2),
+                       lambda d: median_plain.median_filter_reject_invalid(d, 12, 2),
+                       (with_bad(disp, 0.1),)),
+            "lr_check": (lambda a, b: dispatch.left_right_check(a, b, -1, 1.0, D),
+                         lambda a, b: costvolume.left_right_check(a, b, -1, 1.0, D),
+                         (disp, disp_r)),
+        }
+        for name, (op, plain, inputs) in cases.items():
+            grads = []
+            for fn in (op, plain):
+                xs = [t.clone().requires_grad_(True) for t in inputs]
+                y = fn(*xs)
+                weight = torch.linspace(0.5, 1.5, y.numel(), device=dev).reshape(y.shape)
+                (y.nan_to_num(0.0) * weight).sum().backward()
+                grads.append([x.grad if x.grad is not None else torch.zeros_like(x) for x in xs])
+            for k, (g_op, g_plain) in enumerate(zip(*grads)):
+                smoke.compare(f"{name}.grad", f"backward d/d(input {k})", g_op, g_plain,
+                              GRAD_ATOL)
+
+    for tag, H, W, D in SHAPES:
+        print(f"phase 2 kernel vs plain at {tag} {W}x{H}/{D}:")
+        smoke.phase(f"phase 2 {tag}", kernels_vs_plain, tag, H, W, D)
+        torch.cuda.synchronize()
+    print("phase 2 backward through each autograd op vs the plain gradient:")
+    smoke.phase("phase 2 backward", backward_vs_plain)
+
+    # --- phase 3: the frame ---------------------------------------------------
+    cfg = stereo_sgm.SgmConfig()
+    H, W, D = 480, 640, cfg.max_disp
+    left, right, gt = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
+    counters = {"sgm": sgm_cuda, "wta": wta_cuda, "median": median_cuda, "lr_check": lr_cuda}
+
+    def plain_frame(left, right, cfg):
+        """The default frame composed of the plain versions, called by name."""
+        bits = census.norm_bits(cfg.census_window)
+        vol = census.census_cost_volume(census.census(left, cfg.census_window),
+                                        census.census(right, cfg.census_window),
+                                        cfg.max_disp, -1, bits, dtype=torch.bfloat16)
+        agg = sgm_plain.semi_global_matching(vol, stereo_sgm._intensity(left), cfg.p1, cfg.p2)
+        dl = costvolume.cost_vol_minimum_subpix(agg, -1)
+        dr = costvolume.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
+        dl = median_plain.median_filter_reject_invalid(dl, cfg.median_max_bad, 2)
+        dr = median_plain.median_filter_reject_invalid(dr, cfg.median_max_bad, 2)
+        dr = costvolume.left_right_check(dr, dl, 1, cfg.max_disp_diff, cfg.max_disp)
+        return costvolume.left_right_check(dl, dr, -1, cfg.max_disp_diff, cfg.max_disp)
+
+    launches = {}
+
+    def frame_phase():
+        for mod in counters.values():
+            mod.launches = 0
+        prev = {k: 0 for k in counters}
+        for f in range(FRAMES):
+            disp = stereo_sgm.sgm_pipeline(left, right, cfg)
+            torch.cuda.synchronize()
+            now = {k: mod.launches for k, mod in counters.items()}
+            print(f"  frame {f}: launches so far {now}")
+            for k in counters:
+                if now[k] <= prev[k]:
+                    smoke.failures.append(f"phase 3: {k} was not launched in frame {f}")
+            prev = now
+        launches.update(prev)
+        if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
+            smoke.failures.append(f"phase 3: output {tuple(disp.shape)} {disp.dtype}")
+        ref = plain_frame(left, right, cfg)
+        both_nan = torch.isnan(disp) & torch.isnan(ref)
+        close = (disp - ref).abs() <= 1e-3
+        agree = (both_nan | close).float().mean().item()
+        print(f"  kernel path vs plain path on the card: {100 * agree:.3f} % of pixels agree "
+              f"(both NaN or |d| <= 1e-3 px; need >= 99.5 %)")
+        if agree < 0.995:
+            smoke.failures.append(f"phase 3: agreement {agree:.4f} < 0.995")
+        # bench.py disp_stats: skip the max_disp band and the borders
+        d, g = disp.cpu().numpy(), gt.cpu().numpy()
+        inner = np.zeros(d.shape, bool)
+        inner[8:-8, 72:-8] = True
+        m = np.isfinite(d) & inner
+        err = np.abs(d[m] - g[m])
+        q = {"invalid_frac": float(1.0 - m.sum() / inner.sum()),
+             "median_err_px": float(np.median(err)), "mean_err_px": float(err.mean()),
+             "bad1px_frac": float((err > 1.0).mean())}
+        print(f"  quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
+        if not (q["invalid_frac"] <= 0.03 and q["median_err_px"] <= 0.02):
+            smoke.failures.append(f"phase 3: quality {q}")
+
+    print(f"phase 3 sgm_pipeline at {W}x{H}/{D}, {FRAMES} frames:")
+    smoke.phase("phase 3", frame_phase)
+
+    # --- phase 4: times -------------------------------------------------------
+    times = {}
+
+    def timing_phase():
+        bits = census.norm_bits(cfg.census_window)
+        vol = census.census_cost_volume(census.census(left), census.census(right), D, -1, bits,
+                                        dtype=torch.bfloat16)
+        img = stereo_sgm._intensity(left)
+        agg = sgm_cuda.semi_global_matching(vol, img)
+        dl = wta_cuda.cost_vol_minimum_subpix(agg, -1)
+        dr = wta_cuda.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
+        cases = {
+            "sgm": (lambda: sgm_cuda.semi_global_matching(vol, img),
+                    lambda: sgm_plain.semi_global_matching(vol, img)),
+            "wta": (lambda: wta_cuda.cost_vol_minimum_subpix(agg, -1),
+                    lambda: costvolume.cost_vol_minimum_subpix(agg, -1)),
+            "median": (lambda: median_cuda.median_filter_reject_invalid(dl, 12, 2),
+                       lambda: median_plain.median_filter_reject_invalid(dl, 12, 2)),
+            "lr_check": (lambda: lr_cuda.left_right_check(dl, dr, -1, 1.0, D),
+                         lambda: costvolume.left_right_check(dl, dr, -1, 1.0, D)),
+            "frame": (lambda: stereo_sgm.sgm_pipeline(left, right, cfg),
+                      lambda: plain_frame(left, right, cfg)),
+        }
+        slow = {"sgm", "frame"}  # the plain versions loop in Python over the scan axis
+        for name, (kern, plain) in cases.items():
+            # plain, kernel, kernel, plain: drift over the call shows as a spread
+            p1 = timing.time_fn(plain, warmup=1, runs=3 if name in slow else 20)
+            k1 = timing.time_fn(kern, warmup=3, runs=20)
+            k2 = timing.time_fn(kern, warmup=0, runs=20)
+            p2 = timing.time_fn(plain, warmup=0, runs=3 if name in slow else 20)
+            times[name] = (min(k1["median_ms"], k2["median_ms"]),
+                           min(p1["median_ms"], p2["median_ms"]))
+            print(f"  {name:8s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, "
+                  f"plain {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms "
+                  f"(median of runs, at {W}x{H}/{D}) [{card}]")
+        k, p = times["frame"]
+        print(f"  frame: {1e3 / k:.2f} fps on the kernel path, {1e3 / p:.2f} fps on the "
+              f"plain path [{card}]")
+
+    print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
+    smoke.phase("phase 4", timing_phase)
+    torch.cuda.synchronize()
+
+    if smoke.failures:
+        for f in smoke.failures:
+            print(f"chip_smoke: FAILED {f}", file=sys.stderr)
+        return 1
+    summary = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": smoke.max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (src, replaces) in KERNELS.items()]}
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

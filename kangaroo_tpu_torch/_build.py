@@ -1,0 +1,110 @@
+"""Build ``csrc/*.cu`` into one shared library with ``nvcc`` and load it.
+
+The kernels have a plain C interface (pointers, sizes and the stream as
+integers), so the library links against nothing of PyTorch and builds in
+seconds; it is loaded with ``ctypes``. The build runs at first use, into
+``_build/`` beside this file (listed in ``.gitignore``), under a name keyed
+on a hash of the sources, the generated headers and the flags, so an edit
+to any of them rebuilds and an unchanged tree reuses the library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points (csrc/*.cu) and their argument types; every entry returns
+# cudaGetLastError() as an int
+SIGNATURES = {
+    # vol, vol_is_bf16, img, out, D, H, W, vertical, reverse, sd, P1, P2,
+    # accumulate, stream
+    "kt_sgm_direction": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # vol, vol_is_bf16, out, D, H, W, sd, stream
+    "kt_wta_subpix": [_P, _I, _P, _I, _I, _I, _I, _P],
+    # img, out, H, W, rad, max_bad, stream
+    "kt_median_reject_invalid": [_P, _P, _I, _I, _I, _I, _P],
+    # disp_l, disp_r, out, H, W, sd, max_diff, k_min, k_max, stream
+    "kt_lr_check": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+            nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def generated_headers() -> dict[str, str]:
+    """Headers written into the build directory before compiling."""
+    from .ops import median_cuda
+
+    return {"median_network.cuh": median_cuda.network_header()}
+
+
+def _key(sources, headers) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    for name, text in sorted(headers.items()):
+        h.update(name.encode())
+        h.update(text.encode())
+    return h.hexdigest()[:16]
+
+
+def _compile() -> Path:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = generated_headers()
+    lib_path = BUILD_DIR / f"libkangaroo_kernels_{_key(sources, headers)}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for name, text in headers.items():
+            (Path(tmp) / name).write_text(text)
+        tmp_lib = Path(tmp) / lib_path.name
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", tmp, "-I", str(CSRC_DIR),
+               "-o", str(tmp_lib), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        lib_path.with_suffix(".log").write_text(log)
+        # atomic publish: a concurrent build of the same key loses nothing
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first call; raises if the build fails."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_compile()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib

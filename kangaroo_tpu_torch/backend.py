@@ -1,0 +1,48 @@
+"""Where a tensor's ops run: the CUDA kernels on an sm_90 card, else plain.
+
+Counterpart of ``kangaroo_tpu/backend.py``. There is no environment
+override: a CPU tensor takes the plain PyTorch version of an op, a CUDA
+tensor takes the kernel, and a CUDA tensor on a card the kernels were not
+built for raises. Tests and comparisons call the plain versions by name.
+"""
+from __future__ import annotations
+
+import torch
+
+# the kernels are built for sm_90a only (_build.NVCC_FLAGS)
+KERNEL_CAPABILITY = (9, 0)
+
+
+def kernels_available(t: torch.Tensor) -> bool:
+    """True iff ``t`` lies on a CUDA device the kernels were built for."""
+    return t.is_cuda and torch.cuda.get_device_capability(t.device) == KERNEL_CAPABILITY
+
+
+def require_kernels(t: torch.Tensor, op: str) -> None:
+    """Raise unless ``op``'s kernel can run on ``t``'s device."""
+    if not kernels_available(t):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel needs a tensor on an sm_90 device, got "
+            f"{t.device}" + (f" (capability {torch.cuda.get_device_capability(t.device)})"
+                             if t.is_cuda else ""))
+
+
+def check_tensor(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """Validate a kernel argument: dtype, rank and contiguity."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as an integer handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(rc: int, op: str) -> None:
+    """Raise if a kernel's C entry returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{op}: kernel launch failed with cudaError {rc}")

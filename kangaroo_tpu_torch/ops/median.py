@@ -1,0 +1,45 @@
+"""Median filters (``kangaroo_tpu/ops/median.py``).
+
+The window is gathered into an (H, W, k) tensor with edge-replicated
+borders and sorted along the window axis. ``median_filter_reject_invalid``
+is the plain version of the median kernel (``ops/median_cuda.py``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import invalid as invalid_mod
+
+
+def _window_stack(img: torch.Tensor, rad: int) -> torch.Tensor:
+    """(H, W, (2r+1)**2) window taps in row-major (dy, dx) order."""
+    H, W = img.shape
+    taps = []
+    for dy in range(-rad, rad + 1):
+        ys = (torch.arange(H, device=img.device) + dy).clamp_(0, H - 1)
+        rows = img.index_select(0, ys)
+        for dx in range(-rad, rad + 1):
+            xs = (torch.arange(W, device=img.device) + dx).clamp_(0, W - 1)
+            taps.append(rows.index_select(1, xs))
+    return torch.stack(taps, dim=-1)
+
+
+def median_filter(img: torch.Tensor, rad: int = 1) -> torch.Tensor:
+    """Plain median over a (2r+1)^2 window."""
+    win = _window_stack(img, rad)
+    return torch.sort(win, dim=-1).values[..., win.shape[-1] // 2]
+
+
+def median_filter_reject_invalid(img: torch.Tensor, max_bad: int, rad: int = 2) -> torch.Tensor:
+    """Median ignoring invalid entries: they sort to the top (+inf) and the
+    output is sorted element (k + bad) // 2 (capped at k-1), or invalid when
+    bad >= max_bad or every tap is bad."""
+    win = _window_stack(img, rad)
+    k = win.shape[-1]
+    valid = invalid_mod.is_valid(win)
+    bad = (~valid).sum(dim=-1)
+    sorted_win = torch.sort(torch.where(valid, win, float("inf")), dim=-1).values
+    idx = ((k + bad) // 2).clamp(max=k - 1)
+    med = sorted_win.gather(-1, idx[..., None])[..., 0]
+    ok = (bad < max_bad) & (bad < k)
+    return torch.where(ok, med, invalid_mod.invalid_value(img.dtype))

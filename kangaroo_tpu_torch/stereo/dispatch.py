@@ -1,0 +1,82 @@
+"""Dispatch of the stereo path's four ops between kernel and plain version
+(``kangaroo_tpu/stereo/dispatch.py``).
+
+A tensor on the CPU takes the plain PyTorch version. Any other tensor goes
+through ``_KernelOp``, whose forward launches the CUDA kernel (which raises
+off an sm_90 card) and whose backward re-runs the plain version under
+autograd on the saved inputs — the JAX package's custom_vjp contract: the
+kernel computes the primal, the plain version's gradient is its gradient.
+There is no fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import median as _median
+from ..ops import median_cuda
+from . import costvolume as _cv
+from . import lr_cuda, sgm_cuda, wta_cuda
+from . import sgm as _sgm
+
+
+class _KernelOp(torch.autograd.Function):
+    """forward: ``kernel(*inputs, **kwargs)``; backward: the vector-Jacobian
+    product of ``plain(*inputs, **kwargs)``."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, kwargs, *inputs):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs, **kwargs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*leaves, **ctx.kwargs)
+        wrt = [t for t in leaves if t.requires_grad]
+        if out.requires_grad:
+            grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+        else:  # the output does not depend on the inputs asked for
+            grads = iter([None] * len(wrt))
+        return (None, None, None, *(next(grads) if n else None for n in needs))
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def semi_global_matching(vol, img, P1=0.01, P2=0.02, do_horiz=True, do_vert=True,
+                         do_reverse=True, do_diagonal=False, sd=-1):
+    if do_diagonal:
+        raise NotImplementedError("8-path SGM (do_diagonal) is not ported yet")
+    kw = dict(P1=float(P1), P2=float(P2), do_horiz=do_horiz, do_vert=do_vert,
+              do_reverse=do_reverse, sd=sd)
+    if _on_cpu(vol):
+        return _sgm.semi_global_matching(vol, img, **kw)
+    return _KernelOp.apply(sgm_cuda.semi_global_matching, _sgm.semi_global_matching,
+                           kw, vol, img)
+
+
+def cost_vol_minimum_subpix(vol, sd=-1):
+    if _on_cpu(vol):
+        return _cv.cost_vol_minimum_subpix(vol, sd)
+    return _KernelOp.apply(wta_cuda.cost_vol_minimum_subpix, _cv.cost_vol_minimum_subpix,
+                           dict(sd=sd), vol)
+
+
+def median_filter_reject_invalid(img, max_bad: int, rad: int = 2):
+    kw = dict(max_bad=int(max_bad), rad=int(rad))
+    if _on_cpu(img):
+        return _median.median_filter_reject_invalid(img, **kw)
+    return _KernelOp.apply(median_cuda.median_filter_reject_invalid,
+                           _median.median_filter_reject_invalid, kw, img)
+
+
+def left_right_check(disp_l, disp_r, sd: int = -1, max_diff=1.0, max_disp: int = 192):
+    kw = dict(sd=sd, max_diff=float(max_diff), max_disp=int(max_disp))
+    if _on_cpu(disp_l):
+        return _cv.left_right_check(disp_l, disp_r, **kw)
+    return _KernelOp.apply(lr_cuda.left_right_check, _cv.left_right_check, kw,
+                           disp_l, disp_r)

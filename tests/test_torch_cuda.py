@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device of compute capability 9.0 and nvcc; it
+skips elsewhere. The file imports nothing of JAX, so it also runs on a
+machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest configures JAX.) Tolerances: SGM
+1e-4 on the disparity lattice (one float32 recurrence, the same operation
+order, but the compiler may differ); WTA 1e-5; median and LR check exact,
+NaN positions included.
+"""
+import numpy as np
+import pytest
+import torch
+
+from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+from kangaroo_tpu_torch.ops import median as median_plain
+from kangaroo_tpu_torch.ops import median_cuda
+from kangaroo_tpu_torch.stereo import costvolume, lr_cuda, sgm_cuda, wta_cuda
+from kangaroo_tpu_torch.stereo import sgm as sgm_plain
+
+pytestmark = pytest.mark.cuda
+SHAPES = [(16, 16, 128), (200, 37, 61)]  # (D, H, W): one small, one odd
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a CUDA device of compute capability 9.0 (H100)")
+    return torch.device("cuda:0")
+
+
+def _lattice(D, W, sd, dev):
+    d = torch.arange(D, device=dev)[:, None, None]
+    x = torch.arange(W, device=dev)[None, None, :]
+    return (d <= x) if sd < 0 else (x + d < W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sgm_kernel_matches_plain(dev, shape, sd, dtype):
+    D, H, W = shape
+    rng = np.random.default_rng(0)
+    vol = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dtype)
+    img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    m = _lattice(D, W, sd, dev).expand(shape)
+    got = sgm_cuda.semi_global_matching(vol, img, 0.01, 0.02, sd=sd)
+    want = sgm_plain.semi_global_matching(vol, img, 0.01, 0.02, sd=sd)
+    torch.testing.assert_close(got[m], want[m], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("do_horiz,do_vert,do_reverse",
+                         [(True, False, True), (False, True, False), (False, False, True)])
+def test_sgm_direction_flags(dev, do_horiz, do_vert, do_reverse):
+    rng = np.random.default_rng(1)
+    vol = torch.from_numpy(rng.random((8, 12, 40), dtype=np.float32)).to(dev)
+    img = torch.from_numpy(rng.random((12, 40), dtype=np.float32)).to(dev)
+    args = (vol, img, 0.05, 0.1, do_horiz, do_vert, do_reverse)
+    m = _lattice(8, 40, -1, dev).expand(vol.shape)
+    torch.testing.assert_close(sgm_cuda.semi_global_matching(*args)[m],
+                               sgm_plain.semi_global_matching(*args)[m], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wta_kernel_matches_plain(dev, shape, sd, dtype):
+    rng = np.random.default_rng(2)
+    # multiples of 1/64: exact in bfloat16 and full of ties
+    vol = torch.from_numpy((rng.integers(0, 64, shape) / 64.0).astype(np.float32)).to(dev, dtype)
+    torch.testing.assert_close(wta_cuda.cost_vol_minimum_subpix(vol, sd),
+                               costvolume.cost_vol_minimum_subpix(vol, sd), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rad,max_bad", [(1, 4), (2, 12), (3, 20)])
+def test_median_kernel_matches_plain(dev, rad, max_bad):
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 16, (37, 61)).astype(np.float32)
+    img[rng.random(img.shape) < 0.15] = np.nan
+    img[rng.random(img.shape) < 0.03] = np.inf
+    img[4:12, 6:16] = np.nan
+    img = torch.from_numpy(img).to(dev)
+    torch.testing.assert_close(median_cuda.median_filter_reject_invalid(img, max_bad, rad),
+                               median_plain.median_filter_reject_invalid(img, max_bad, rad),
+                               atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("sd", [-1, 1])
+def test_lr_kernel_matches_plain(dev, sd):
+    rng = np.random.default_rng(4)
+    D, H, W = 16, 37, 61
+    dl = rng.uniform(-3, D + 3, (H, W)).astype(np.float32)
+    dr = (dl + rng.normal(0, 0.8, (H, W))).astype(np.float32)
+    dl[rng.random((H, W)) < 0.1] = np.nan
+    dr[rng.random((H, W)) < 0.1] = np.nan
+    dl, dr = torch.from_numpy(dl).to(dev), torch.from_numpy(dr).to(dev)
+    torch.testing.assert_close(lr_cuda.left_right_check(dl, dr, sd, 1.0, max_disp=D),
+                               costvolume.left_right_check(dl, dr, sd, 1.0, max_disp=D),
+                               atol=0, rtol=0, equal_nan=True)
+
+
+def test_pipeline_on_card_matches_cpu(dev):
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0)
+    cfg = stereo_sgm.SgmConfig(max_disp=16)
+    counts = [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)]
+    got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
+    assert [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)] == \
+        [c + n for c, n in zip(counts, (4, 2, 2, 2))]
+    want = stereo_sgm.sgm_pipeline(left, right, cfg)
+    agree = (torch.isnan(got) & torch.isnan(want)) | ((got - want).abs() <= 1e-3)
+    assert agree.float().mean().item() >= 0.995
+
+
+def test_wrappers_check_their_arguments(dev):
+    vol = torch.zeros(8, 12, 40, device=dev)
+    with pytest.raises(TypeError):
+        wta_cuda.cost_vol_minimum_subpix(vol.to(torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        wta_cuda.cost_vol_minimum_subpix(vol.transpose(1, 2))
+    with pytest.raises(ValueError):
+        sgm_cuda.semi_global_matching(torch.zeros(300, 4, 4, device=dev),
+                                      torch.zeros(4, 4, device=dev))
+    with pytest.raises(ValueError):
+        median_cuda.median_filter_reject_invalid(torch.zeros(8, 8, device=dev), 12, rad=5)

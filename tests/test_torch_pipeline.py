@@ -1,0 +1,147 @@
+"""The SGM frame: kangaroo_tpu_torch.apps.stereo_sgm.sgm_pipeline against
+kangaroo_tpu's on one configuration, plus the port's contracts: it never
+imports JAX, the CPU path launches no kernel, the unported options raise,
+and the autograd op's backward is the plain version's gradient.
+
+The frames are held to >= 99.5 % of pixels agreeing (both NaN, or within
+1e-4 px): the SGM aggregates differ in the last bits (sum order), and the
+port's LR check keeps the TPU kernel's sweep bound, which the JAX XLA twin
+lacks, so a rare pixel may flip.
+"""
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kangaroo_tpu.apps import stereo_sgm as jss
+from kangaroo_tpu.apps import synthetic as jsyn
+from kangaroo_tpu_torch import _build
+from kangaroo_tpu_torch.apps import stereo_sgm as tss
+from kangaroo_tpu_torch.apps import synthetic as tsyn
+from kangaroo_tpu_torch.ops import median_cuda
+from kangaroo_tpu_torch.stereo import costvolume as tcv
+from kangaroo_tpu_torch.stereo import dispatch, lr_cuda, sgm_cuda, wta_cuda
+
+W, H, D = 96, 32, 16
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _agreement(a, b, tol):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(((np.isnan(a) & np.isnan(b)) | (np.abs(a - b) <= tol)).mean())
+
+
+def test_synthetic_pair_matches():
+    for got, want in zip(tsyn.stereo_pair(W, H, D, seed=3), jsyn.stereo_pair(W, H, D, seed=3)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("overrides", [dict(lr_from_left=True), dict(lr_from_left=False),
+                                       dict(subpix=False, median_its=2)])
+def test_pipeline_matches_jax(overrides):
+    jcfg = jss.SgmConfig(max_disp=D, **overrides)
+    cfg = tss.SgmConfig.from_dict(dataclasses.asdict(jcfg))
+    left, right, gt = jsyn.stereo_pair(W, H, D, seed=0)
+    want = np.asarray(jax.jit(lambda a, b: jss.sgm_pipeline(a, b, jcfg))(left, right))
+    got = tss.sgm_pipeline(torch.from_numpy(np.array(left)), torch.from_numpy(np.array(right)),
+                           cfg)
+    assert got.dtype == torch.float32 and got.shape == (H, W)
+    assert _agreement(got.numpy(), want, 1e-4) >= 0.995
+    # and the frame is a disparity map, not noise
+    g = np.asarray(gt)
+    ok = np.isfinite(got.numpy())
+    assert ok.mean() > 0.8 and np.median(np.abs(got.numpy()[ok] - g[ok])) < 0.5
+
+
+def test_config_from_dict_carries_every_field():
+    jcfg = jss.SgmConfig(max_disp=32, census_window="9x7", p1=0.02, median_its=2,
+                         lr_from_left=False)
+    cfg = tss.SgmConfig.from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tss.SgmConfig()) == dataclasses.asdict(jss.SgmConfig())
+
+
+@pytest.mark.parametrize("cfg,mesh,piece", [
+    (tss.SgmConfig(), object(), "mesh"),
+    (tss.SgmConfig(guided_filter=True), None, "guided_filter"),
+    (tss.SgmConfig(bilateral_filter=True), None, "bilateral_filter"),
+    (tss.SgmConfig(do_diagonal=True), None, "do_diagonal"),
+])
+def test_unported_options_raise(cfg, mesh, piece):
+    left = torch.zeros(8, 16, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match=piece):
+        tss.sgm_pipeline(left, left, cfg, mesh=mesh)
+
+
+def test_cpu_path_launches_no_kernel():
+    mods = (sgm_cuda, wta_cuda, median_cuda, lr_cuda)
+    before = [m.launches for m in mods]
+    left, right, _ = tsyn.stereo_pair(48, 16, 8, seed=1)
+    tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=8))
+    assert [m.launches for m in mods] == before
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports, and a tiny frame runs, with JAX and
+    the JAX package made unimportable."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["kangaroo_tpu"] = None
+        import kangaroo_tpu_torch
+        for m in pkgutil.walk_packages(kangaroo_tpu_torch.__path__, "kangaroo_tpu_torch."):
+            importlib.import_module(m.name)
+        from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+        left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0)
+        disp = stereo_sgm.sgm_pipeline(left, right, stereo_sgm.SgmConfig(max_disp=8))
+        assert disp.shape == (16, 48)
+        assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_kernel_op_backward_is_the_plain_gradient():
+    """_KernelOp's forward takes the kernel's output as it is; its backward
+    replays the plain version under autograd. A stand-in kernel that returns
+    the plain output detached shows the plumbing on the CPU."""
+    rng = np.random.default_rng(0)
+    dl = torch.from_numpy(rng.uniform(0, 8, (6, 24)).astype(np.float32))
+    dr = dl + torch.from_numpy(rng.normal(0, 0.7, (6, 24)).astype(np.float32))
+    kw = dict(sd=-1, max_diff=1.0, max_disp=8)
+
+    def stand_in(a, b, **k):
+        return tcv.left_right_check(a, b, **k).detach()
+
+    grads = []
+    for run in (lambda a, b: dispatch._KernelOp.apply(stand_in, tcv.left_right_check, kw, a, b),
+                lambda a, b: tcv.left_right_check(a, b, **kw)):
+        a, b = dl.clone().requires_grad_(True), dr.clone().requires_grad_(True)
+        out = run(a, b)
+        out.nan_to_num(0.0).sum().backward()
+        grads.append((a.grad, b.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0])
+    assert grads[0][0].abs().sum() > 0
+    assert grads[0][1] is None or not grads[0][1].any()
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No compiler, no kernels: the build raises instead of falling back."""
+    import torch.utils.cpp_extension
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._compile()
+
