@@ -7,19 +7,25 @@ Needs one CUDA card of compute capability 9.0 (H100) and ``nvcc``; it
 builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 
 1. the card's name and power limit (nvidia-smi) and the kernels' build time;
-2. each CUDA kernel of the SGM frame against its plain PyTorch version on
-   the card, at 640x480/64 and 1242x375/128, on random inputs (NumPy seed)
-   and on the synthetic pair, plus one backward pass through each
-   autograd op against the plain version's gradient;
-3. ``sgm_pipeline`` at 640x480/64 (default SgmConfig) on the synthetic
-   pair for 3 frames: every kernel's launch count rises every frame, the
-   frame agrees with the plain path on the card, and its disparity error
-   against the ground truth is within bounds;
-4. CUDA-event times of each kernel and of the whole frame against their
-   plain versions at 640x480/64.
+2. each CUDA kernel against its plain PyTorch version on the card: the SGM
+   frame's kernels (4- and 8-path) at 640x480/64 and 1242x375/128 on random
+   inputs (NumPy seed) and on the synthetic pair, the ROF (tv, huber,
+   lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
+   and 375x1242, plus one backward pass through each autograd op against
+   the plain version's gradient;
+3. the main paths, each run with every launch count set to 0 just before
+   and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
+   and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
+   (every kernel of the frame is launched every frame, the frame agrees
+   with the plain frame on the card, its disparity error against the
+   ground truth is within bounds), then ``rof.denoise``, ``tgv.denoise``
+   and ``deconvolution.inpaint`` on a seeded noisy 640x480 image (each
+   brings the error against the clean image down);
+4. CUDA-event times of each kernel, of both frames and of the 100-iteration
+   solves against their plain versions at 640x480(/64).
 
 The line before the last is a JSON object with each kernel's route,
-source, launches on the main path, error and times; the last line is
+source, launches on its main path, error and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Imports nothing of JAX.
 """
@@ -34,18 +40,31 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SHAPES = (("vga", 480, 640, 64), ("kitti", 375, 1242, 128))
+# (H, W) of the solver checks: VGA, KITTI-sized, and KITTI-sized standing up
+SOLVER_SHAPES = ((480, 640), (375, 1242), (1242, 375))
 FRAMES = 3
+SOLVER_ITERS = 100
 
 # kernel -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
     "sgm": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
+    "sgm_8path": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:504"),
     "wta": ("kangaroo_tpu_torch/csrc/wta.cu", "kangaroo_tpu/stereo/wta_pallas.py:25"),
     "median": ("kangaroo_tpu_torch/csrc/median.cu", "kangaroo_tpu/ops/median_pallas.py:70"),
     "lr_check": ("kangaroo_tpu_torch/csrc/lr_check.cu", "kangaroo_tpu/stereo/lr_pallas.py:37"),
+    "rof": ("kangaroo_tpu_torch/csrc/rof.cu",
+            "kangaroo_tpu/variational/pallas_solvers.py:55"),
+    "tgv": ("kangaroo_tpu_torch/csrc/tgv.cu",
+            "kangaroo_tpu/variational/pallas_solvers.py:120"),
 }
 # stated tolerances of kernel vs plain on the card (max abs error)
-ATOL = {"sgm": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0}
+ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
+        "rof": 1e-4, "tgv": 1e-4}
 GRAD_ATOL = 1e-4
+# quality limits of both frames on stereo_pair(640, 480, 64, seed=0): the JAX
+# package reaches invalid 0.0206 / median error 0.0091 px with 4 paths and
+# 0.0206 / 0.0091 px with 8 (CPU-JAX), so the limits catch a broken port
+MAX_INVALID, MAX_MEDIAN_ERR = 0.03, 0.02
 
 
 def die(msg: str) -> None:
@@ -84,7 +103,7 @@ class Smoke:
         ok = same_nonfinite and err <= atol
         if kernel in self.max_err:
             self.max_err[kernel] = max(self.max_err[kernel], err)
-        print(f"  {'ok  ' if ok else 'FAIL'} {kernel:8s} {what}: max_abs_err {err:.3g} "
+        print(f"  {'ok  ' if ok else 'FAIL'} {kernel:9s} {what}: max_abs_err {err:.3g} "
               f"(atol {atol:g}), non-finite positions {'equal' if same_nonfinite else 'DIFFER'}")
         if not ok:
             self.failures.append(f"{kernel} {what}")
@@ -117,6 +136,7 @@ def main() -> int:
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
     from kangaroo_tpu_torch.stereo import sgm_cuda, wta_cuda
     from kangaroo_tpu_torch.utils import timing
+    from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -142,6 +162,18 @@ def main() -> int:
 
     smoke = Smoke(torch, np)
     rng = np.random.default_rng(0)
+    # kernel -> (module, attribute) of its launch count
+    counters = {"sgm": (sgm_cuda, "launches"), "sgm_8path": (sgm_cuda, "diagonal_launches"),
+                "wta": (wta_cuda, "launches"), "median": (median_cuda, "launches"),
+                "lr_check": (lr_cuda, "launches"), "rof": (solvers_cuda, "rof_launches"),
+                "tgv": (solvers_cuda, "tgv_launches")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     def lattice(D, W, sd):
         d = torch.arange(D, device=dev)[:, None]
@@ -155,6 +187,16 @@ def main() -> int:
         if inf_frac:
             a[torch.from_numpy(rng.random(a.shape) < inf_frac).to(dev)] = float("inf")
         return a
+
+    def noisy_image(H, W, seed):
+        """A bright rectangle on black with Gaussian noise, and a mask that
+        keeps four pixels in five."""
+        r = np.random.default_rng(seed)
+        clean = np.zeros((H, W), np.float32)
+        clean[H // 4:H // 2, W // 4:W // 2] = 0.8
+        noisy = clean + 0.15 * r.standard_normal((H, W)).astype(np.float32)
+        keep = (r.random((H, W)) > 0.2).astype(np.float32)
+        return tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy, keep))
 
     # --- phase 2: each kernel against its plain version -----------------------
     def kernels_vs_plain(tag, H, W, D):
@@ -175,6 +217,12 @@ def main() -> int:
                 ref = sgm_plain.semi_global_matching(vol, img, 0.01, 0.02, sd=sd)
                 smoke.compare("sgm", f"{tag} {src} sd={sd:+d}", agg, ref, ATOL["sgm"],
                               m.expand_as(agg))
+                smoke.compare("sgm_8path", f"{tag} {src} sd={sd:+d}",
+                              sgm_cuda.semi_global_matching(vol, img, 0.01, 0.02,
+                                                            do_diagonal=True, sd=sd),
+                              sgm_plain.semi_global_matching(vol, img, 0.01, 0.02,
+                                                             do_diagonal=True, sd=sd),
+                              ATOL["sgm_8path"], m.expand_as(agg))
                 for vsrc, v in ((src, vol), (f"{src}-aggregate", agg)):
                     got = wta_cuda.cost_vol_minimum_subpix(v, sd)
                     smoke.compare("wta", f"{tag} {vsrc} sd={sd:+d}", got,
@@ -200,6 +248,23 @@ def main() -> int:
                               costvolume.left_right_check(dl, dr, sd, 1.0, max_disp=D),
                               ATOL["lr_check"])
 
+    def solvers_vs_plain(H, W):
+        """The solves on a noisy image and on uniform noise (bench.py's input)."""
+        _, noisy, keep = noisy_image(H, W, seed=1)
+        uniform = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+        for src, g in (("noisy", noisy), ("uniform", uniform)):
+            for mode in ("tv", "huber", "lambda-weight"):
+                weight = keep if mode == "lambda-weight" else None
+                model = "tv" if mode == "tv" else "huber"
+                smoke.compare("rof", f"{W}x{H} {src} {mode} {SOLVER_ITERS} it",
+                              solvers_cuda.rof_denoise(g, 8.0, iterations=SOLVER_ITERS,
+                                                       model=model, lam_weight=weight),
+                              rof.denoise_plain(g, 8.0, iterations=SOLVER_ITERS, model=model,
+                                                lam_weight=weight), ATOL["rof"])
+            smoke.compare("tgv", f"{W}x{H} {src} {SOLVER_ITERS} it",
+                          solvers_cuda.tgv_denoise(g, iterations=SOLVER_ITERS),
+                          tgv.denoise_plain(g, iterations=SOLVER_ITERS), ATOL["tgv"])
+
     def backward_vs_plain():
         D, H, W = 16, 40, 72
         vol = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
@@ -209,6 +274,9 @@ def main() -> int:
         cases = {
             "sgm": (lambda v, i: dispatch.semi_global_matching(v, i),
                     lambda v, i: sgm_plain.semi_global_matching(v, i), (vol, img)),
+            "sgm_8path": (lambda v, i: dispatch.semi_global_matching(v, i, do_diagonal=True),
+                          lambda v, i: sgm_plain.semi_global_matching(v, i, do_diagonal=True),
+                          (vol, img)),
             "wta": (lambda v: dispatch.cost_vol_minimum_subpix(v, -1),
                     lambda v: costvolume.cost_vol_minimum_subpix(v, -1), (vol,)),
             "median": (lambda d: dispatch.median_filter_reject_invalid(d, 12, 2),
@@ -234,22 +302,28 @@ def main() -> int:
         print(f"phase 2 kernel vs plain at {tag} {W}x{H}/{D}:")
         smoke.phase(f"phase 2 {tag}", kernels_vs_plain, tag, H, W, D)
         torch.cuda.synchronize()
+    for H, W in SOLVER_SHAPES:
+        print(f"phase 2 solver kernels vs plain at {W}x{H}, {SOLVER_ITERS} iterations:")
+        smoke.phase(f"phase 2 solvers {W}x{H}", solvers_vs_plain, H, W)
     print("phase 2 backward through each autograd op vs the plain gradient:")
     smoke.phase("phase 2 backward", backward_vs_plain)
 
-    # --- phase 3: the frame ---------------------------------------------------
-    cfg = stereo_sgm.SgmConfig()
-    H, W, D = 480, 640, cfg.max_disp
+    # --- phase 3: the main paths ----------------------------------------------
+    cfgs = {"4-path": stereo_sgm.SgmConfig(),
+            "8-path": stereo_sgm.SgmConfig(do_diagonal=True)}
+    H, W, D = 480, 640, cfgs["4-path"].max_disp
     left, right, gt = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
-    counters = {"sgm": sgm_cuda, "wta": wta_cuda, "median": median_cuda, "lr_check": lr_cuda}
+    frame_kernels = {"4-path": ("sgm", "wta", "median", "lr_check"),
+                     "8-path": ("sgm", "sgm_8path", "wta", "median", "lr_check")}
 
     def plain_frame(left, right, cfg):
-        """The default frame composed of the plain versions, called by name."""
+        """The frame composed of the plain versions, called by name."""
         bits = census.norm_bits(cfg.census_window)
         vol = census.census_cost_volume(census.census(left, cfg.census_window),
                                         census.census(right, cfg.census_window),
                                         cfg.max_disp, -1, bits, dtype=torch.bfloat16)
-        agg = sgm_plain.semi_global_matching(vol, stereo_sgm._intensity(left), cfg.p1, cfg.p2)
+        agg = sgm_plain.semi_global_matching(vol, stereo_sgm._intensity(left), cfg.p1, cfg.p2,
+                                             do_diagonal=cfg.do_diagonal)
         dl = costvolume.cost_vol_minimum_subpix(agg, -1)
         dr = costvolume.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
         dl = median_plain.median_filter_reject_invalid(dl, cfg.median_max_bad, 2)
@@ -259,30 +333,32 @@ def main() -> int:
 
     launches = {}
 
-    def frame_phase():
-        for mod in counters.values():
-            mod.launches = 0
-        prev = {k: 0 for k in counters}
+    def frame_phase(name):
+        cfg = cfgs[name]
+        reset_counts()
+        prev = read_counts()
         for f in range(FRAMES):
             disp = stereo_sgm.sgm_pipeline(left, right, cfg)
             torch.cuda.synchronize()
-            now = {k: mod.launches for k, mod in counters.items()}
-            print(f"  frame {f}: launches so far {now}")
-            for k in counters:
+            now = read_counts()
+            print(f"  {name} frame {f}: launches so far "
+                  f"{ {k: now[k] for k in frame_kernels[name]} }")
+            for k in frame_kernels[name]:
                 if now[k] <= prev[k]:
-                    smoke.failures.append(f"phase 3: {k} was not launched in frame {f}")
+                    smoke.failures.append(f"phase 3 {name}: {k} was not launched in frame {f}")
             prev = now
-        launches.update(prev)
+        for k in frame_kernels[name]:
+            launches.setdefault(k, prev[k])
         if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
-            smoke.failures.append(f"phase 3: output {tuple(disp.shape)} {disp.dtype}")
+            smoke.failures.append(f"phase 3 {name}: output {tuple(disp.shape)} {disp.dtype}")
         ref = plain_frame(left, right, cfg)
         both_nan = torch.isnan(disp) & torch.isnan(ref)
         close = (disp - ref).abs() <= 1e-3
         agree = (both_nan | close).float().mean().item()
-        print(f"  kernel path vs plain path on the card: {100 * agree:.3f} % of pixels agree "
-              f"(both NaN or |d| <= 1e-3 px; need >= 99.5 %)")
+        print(f"  {name} kernel path vs plain path on the card: {100 * agree:.3f} % of pixels "
+              f"agree (both NaN or |d| <= 1e-3 px; need >= 99.5 %)")
         if agree < 0.995:
-            smoke.failures.append(f"phase 3: agreement {agree:.4f} < 0.995")
+            smoke.failures.append(f"phase 3 {name}: agreement {agree:.4f} < 0.995")
         # bench.py disp_stats: skip the max_disp band and the borders
         d, g = disp.cpu().numpy(), gt.cpu().numpy()
         inner = np.zeros(d.shape, bool)
@@ -292,17 +368,45 @@ def main() -> int:
         q = {"invalid_frac": float(1.0 - m.sum() / inner.sum()),
              "median_err_px": float(np.median(err)), "mean_err_px": float(err.mean()),
              "bad1px_frac": float((err > 1.0).mean())}
-        print(f"  quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
-        if not (q["invalid_frac"] <= 0.03 and q["median_err_px"] <= 0.02):
-            smoke.failures.append(f"phase 3: quality {q}")
+        print(f"  {name} quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
+        if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
+            smoke.failures.append(f"phase 3 {name}: quality {q}")
 
-    print(f"phase 3 sgm_pipeline at {W}x{H}/{D}, {FRAMES} frames:")
-    smoke.phase("phase 3", frame_phase)
+    def denoise_phase():
+        clean, noisy, keep = noisy_image(H, W, seed=2)
+        reset_counts()
+        outs = {"rof": rof.denoise(noisy, 8.0, iterations=SOLVER_ITERS),
+                "tgv": tgv.denoise(noisy, iterations=SOLVER_ITERS),
+                "inpaint": deconvolution.inpaint(noisy * keep, keep, iterations=SOLVER_ITERS)}
+        torch.cuda.synchronize()
+        now = read_counts()
+        print(f"  solves launched: rof {now['rof']} (denoise + inpaint), tgv {now['tgv']}")
+        for k, want in (("rof", 2), ("tgv", 1)):
+            if now[k] != want:
+                smoke.failures.append(f"phase 3 denoise: {k} launched {now[k]} times, not {want}")
+            launches[k] = now[k]
+        err_in = (noisy - clean).abs().mean().item()
+        for name, out in outs.items():
+            err_in_k = ((noisy * keep - clean).abs().mean().item() if name == "inpaint"
+                        else err_in)
+            err = (out - clean).abs().mean().item()
+            ok = tuple(out.shape) == (H, W) and bool(torch.isfinite(out).all()) and err < err_in_k
+            print(f"  {'ok  ' if ok else 'FAIL'} {name}: mean error against the clean image "
+                  f"{err_in_k:.6f} -> {err:.6f}")
+            if not ok:
+                smoke.failures.append(f"phase 3 denoise: {name} error {err_in_k} -> {err}")
+
+    for name in cfgs:
+        print(f"phase 3 sgm_pipeline ({name}) at {W}x{H}/{D}, {FRAMES} frames:")
+        smoke.phase(f"phase 3 {name}", frame_phase, name)
+    print(f"phase 3 rof / tgv / inpaint at {W}x{H}, {SOLVER_ITERS} iterations:")
+    smoke.phase("phase 3 denoise", denoise_phase)
 
     # --- phase 4: times -------------------------------------------------------
     times = {}
 
     def timing_phase():
+        cfg = cfgs["4-path"]
         bits = census.norm_bits(cfg.census_window)
         vol = census.census_cost_volume(census.census(left), census.census(right), D, -1, bits,
                                         dtype=torch.bfloat16)
@@ -310,19 +414,30 @@ def main() -> int:
         agg = sgm_cuda.semi_global_matching(vol, img)
         dl = wta_cuda.cost_vol_minimum_subpix(agg, -1)
         dr = wta_cuda.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
+        # bench.py bench_variational's input and parameters
+        u01 = torch.from_numpy(np.random.default_rng(0).random((H, W)).astype(np.float32)).to(dev)
         cases = {
             "sgm": (lambda: sgm_cuda.semi_global_matching(vol, img),
                     lambda: sgm_plain.semi_global_matching(vol, img)),
+            "sgm_8path": (lambda: sgm_cuda.semi_global_matching(vol, img, do_diagonal=True),
+                          lambda: sgm_plain.semi_global_matching(vol, img, do_diagonal=True)),
             "wta": (lambda: wta_cuda.cost_vol_minimum_subpix(agg, -1),
                     lambda: costvolume.cost_vol_minimum_subpix(agg, -1)),
             "median": (lambda: median_cuda.median_filter_reject_invalid(dl, 12, 2),
                        lambda: median_plain.median_filter_reject_invalid(dl, 12, 2)),
             "lr_check": (lambda: lr_cuda.left_right_check(dl, dr, -1, 1.0, D),
                          lambda: costvolume.left_right_check(dl, dr, -1, 1.0, D)),
-            "frame": (lambda: stereo_sgm.sgm_pipeline(left, right, cfg),
-                      lambda: plain_frame(left, right, cfg)),
+            "rof": (lambda: rof.denoise(u01, 8.0, iterations=SOLVER_ITERS),
+                    lambda: rof.denoise_plain(u01, 8.0, iterations=SOLVER_ITERS)),
+            "tgv": (lambda: tgv.denoise(u01, iterations=SOLVER_ITERS),
+                    lambda: tgv.denoise_plain(u01, iterations=SOLVER_ITERS)),
+            "frame": (lambda: stereo_sgm.sgm_pipeline(left, right, cfgs["4-path"]),
+                      lambda: plain_frame(left, right, cfgs["4-path"])),
+            "frame_8path": (lambda: stereo_sgm.sgm_pipeline(left, right, cfgs["8-path"]),
+                            lambda: plain_frame(left, right, cfgs["8-path"])),
         }
-        slow = {"sgm", "frame"}  # the plain versions loop in Python over the scan axis
+        # the plain versions loop in Python over the scan axis or the iterations
+        slow = {"sgm", "sgm_8path", "frame", "frame_8path", "rof", "tgv"}
         for name, (kern, plain) in cases.items():
             # plain, kernel, kernel, plain: drift over the call shows as a spread
             p1 = timing.time_fn(plain, warmup=1, runs=3 if name in slow else 20)
@@ -331,12 +446,13 @@ def main() -> int:
             p2 = timing.time_fn(plain, warmup=0, runs=3 if name in slow else 20)
             times[name] = (min(k1["median_ms"], k2["median_ms"]),
                            min(p1["median_ms"], p2["median_ms"]))
-            print(f"  {name:8s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, "
+            print(f"  {name:11s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, "
                   f"plain {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms "
                   f"(median of runs, at {W}x{H}/{D}) [{card}]")
-        k, p = times["frame"]
-        print(f"  frame: {1e3 / k:.2f} fps on the kernel path, {1e3 / p:.2f} fps on the "
-              f"plain path [{card}]")
+        for name in ("frame", "frame_8path"):
+            k, p = times[name]
+            print(f"  {name}: {1e3 / k:.2f} fps on the kernel path, {1e3 / p:.2f} fps on the "
+                  f"plain path [{card}]")
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)

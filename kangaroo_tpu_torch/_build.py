@@ -28,15 +28,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
-    # vol, vol_is_bf16, img, out, D, H, W, vertical, reverse, sd, P1, P2,
-    # accumulate, stream
-    "kt_sgm_direction": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # vol, vol_is_bf16, img, out, D, H, W, sx, sy, sd, P1, P2, accumulate,
+    # stream
+    "kt_sgm_path": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # vol, vol_is_bf16, out, D, H, W, sd, stream
     "kt_wta_subpix": [_P, _I, _P, _I, _I, _I, _I, _P],
     # img, out, H, W, rad, max_bad, stream
     "kt_median_reject_invalid": [_P, _P, _I, _I, _I, _I, _P],
     # disp_l, disp_r, out, H, W, sd, max_diff, k_min, k_max, stream
     "kt_lr_check": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # g, lam_weight (or null), u, p, H, W, lam, sigma, tau, alpha, huber,
+    # iterations, stream
+    "kt_rof_denoise": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    # f, u, state, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
+    "kt_tgv_denoise": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,11 @@
 """SGM stereo frame (``kangaroo_tpu/apps/stereo_sgm.py``, single device).
 
-census volumes -> 4-path semi-global matching -> WTA + subpixel -> the
-right disparity from the re-anchored left aggregate (or a second
-aggregation) -> reject-invalid median on both images -> LR check both
-ways. Not ported yet, and refused with ``NotImplementedError``: the
-multi-device ``mesh``, the guided and bilateral volume filters, and 8-path
-aggregation (``do_diagonal``).
+census volumes -> 4-path (8-path with ``do_diagonal``) semi-global
+matching -> WTA + subpixel -> the right disparity from the re-anchored left
+aggregate (or a second aggregation) -> reject-invalid median on both images
+-> LR check both ways. Not ported yet, and refused with
+``NotImplementedError``: the multi-device ``mesh`` and the guided and
+bilateral volume filters.
 """
 from __future__ import annotations
 
@@ -66,8 +66,7 @@ class SgmConfig:
 def _check_supported(cfg: SgmConfig, mesh) -> None:
     for unported, name in ((mesh is not None, "mesh (multi-device SGM)"),
                            (cfg.guided_filter, "guided_filter"),
-                           (cfg.bilateral_filter, "bilateral_filter"),
-                           (cfg.do_diagonal, "do_diagonal (8-path SGM)")):
+                           (cfg.bilateral_filter, "bilateral_filter")):
         if unported:
             raise NotImplementedError(f"sgm_pipeline: {name} is not ported yet")
 
@@ -85,7 +84,7 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
 
     vol_l = census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype)
     agg_l = fast.semi_global_matching(vol_l, _intensity(left), cfg.p1, cfg.p2, cfg.do_horiz,
-                                      cfg.do_vert, cfg.do_reverse)
+                                      cfg.do_vert, cfg.do_reverse, cfg.do_diagonal)
     if cfg.subpix:
         disp_l = fast.cost_vol_minimum_subpix(agg_l, -1)
     else:
@@ -97,7 +96,8 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
         else:
             vol_r = census_mod.census_cost_volume(cr, cl, cfg.max_disp, 1, bits, dtype=vol_dtype)
             agg_r = fast.semi_global_matching(vol_r, _intensity(right), cfg.p1, cfg.p2,
-                                              cfg.do_horiz, cfg.do_vert, cfg.do_reverse, sd=1)
+                                              cfg.do_horiz, cfg.do_vert, cfg.do_reverse,
+                                              cfg.do_diagonal, sd=1)
         if cfg.subpix:
             disp_r = fast.cost_vol_minimum_subpix(agg_r, 1)
         else:

@@ -49,10 +49,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def semi_global_matching(vol, img, P1=0.01, P2=0.02, do_horiz=True, do_vert=True,
                          do_reverse=True, do_diagonal=False, sd=-1):
-    if do_diagonal:
-        raise NotImplementedError("8-path SGM (do_diagonal) is not ported yet")
     kw = dict(P1=float(P1), P2=float(P2), do_horiz=do_horiz, do_vert=do_vert,
-              do_reverse=do_reverse, sd=sd)
+              do_reverse=do_reverse, do_diagonal=do_diagonal, sd=sd)
     if _on_cpu(vol):
         return _sgm.semi_global_matching(vol, img, **kw)
     return _KernelOp.apply(sgm_cuda.semi_global_matching, _sgm.semi_global_matching,

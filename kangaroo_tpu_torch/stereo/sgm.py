@@ -10,7 +10,9 @@ over the scan axis. Per path step, with adaptive P2' = P2 / (1 + |dI|):
 The first pixel of a path contributes C(p,d) directly with lastBest = 0.
 Entries off the disparity lattice (d <= x for sd=-1, x + d < W for sd=+1)
 carry 1e30 and contribute 0. Paths are independent and summed in the order
-((vertical fwd + vertical rev) + horizontal fwd) + horizontal rev.
+((vertical fwd + vertical rev) + horizontal fwd) + horizontal rev, then the
+four diagonals (8-path, ``do_diagonal``): down-right, down-left, up-right,
+up-left.
 """
 from __future__ import annotations
 
@@ -28,11 +30,29 @@ def _shift_min(prev: torch.Tensor, P1: float) -> torch.Tensor:
     return torch.minimum(prev, torch.minimum(below + P1, above + P1))
 
 
+def _shift_lines(a: torch.Tensor, dx: int, fill: float) -> torch.Tensor:
+    """a[..., n - dx] at position n along the last axis, ``fill`` where
+    n - dx is off the line (dx in {-1, 0, 1})."""
+    if dx == 0:
+        return a
+    edge = torch.full_like(a[..., :1], fill)
+    if dx > 0:
+        return torch.cat([edge, a[..., :-1]], dim=-1)
+    return torch.cat([a[..., 1:], edge], dim=-1)
+
+
 def _scan_direction(vol: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
-                    P1: float, P2: float, reverse: bool) -> torch.Tensor:
+                    P1: float, P2: float, reverse: bool, dx: int = 0) -> torch.Tensor:
     """Aggregate along axis 0 of vol (L, D, N); img is (L, N), mask
-    (L, D, N) the lattice. Returns Lr (L, D, N) with masked entries 0."""
-    L = vol.shape[0]
+    (L, D, N) the lattice. Returns Lr (L, D, N) with masked entries 0.
+
+    ``dx`` makes the path diagonal (``_scan_diagonal`` of the JAX package):
+    position n continues the path from position n - dx of the previous
+    scan step, and a position whose predecessor is off the line starts a
+    fresh path there (Lr = C, lastBest = 0), as the first step does."""
+    L, N = vol.shape[0], vol.shape[2]
+    n = torch.arange(N, device=vol.device)
+    has_pred = (n - dx >= 0) & (n - dx < N)  # (N,): all True for dx = 0
     order = range(L - 1, -1, -1) if reverse else range(L)
     out = [None] * L
     prev = last_best = last_c = None
@@ -43,12 +63,19 @@ def _scan_direction(vol: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
             prev = torch.where(m, cost, _MAX_ERROR)
             last_best = torch.zeros_like(c)  # the seed does not update lastBest
         else:
-            p2 = P2 / (1.0 + (last_c - c).abs())
-            cm = torch.minimum(_shift_min(prev, P1), (last_best + p2)[None])
-            cr = torch.where(m, cm + cost - last_best[None], _MAX_ERROR)
+            prev_s = _shift_lines(prev, dx, _MAX_ERROR)
+            best_s = _shift_lines(last_best, dx, 0.0)
+            p2 = P2 / (1.0 + (_shift_lines(last_c, dx, 0.0) - c).abs())
+            cm = torch.minimum(_shift_min(prev_s, P1), (best_s + p2)[None])
+            cr = cm + cost - best_s[None]
+            if dx:
+                cr = torch.where(has_pred[None], cr, cost)
+            cr = torch.where(m, cr, _MAX_ERROR)
             out[s] = torch.where(m, cr, 0.0)
             prev = cr
             last_best = cr.min(dim=0).values
+            if dx:
+                last_best = torch.where(has_pred, last_best, 0.0)
         last_c = c
     return torch.stack(out, dim=0)
 
@@ -57,11 +84,11 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
                          P2: float = 0.02, do_horiz: bool = True, do_vert: bool = True,
                          do_reverse: bool = True, do_diagonal: bool = False,
                          sd: int = -1) -> torch.Tensor:
-    """4-path SGM aggregation of a (D, H, W) cost volume guided by the (H, W)
-    image; returns the float32 aggregate (D, H, W). ``sd`` selects the
-    lattice: -1 for a left-anchored volume, +1 for a right-anchored one."""
-    if do_diagonal:
-        raise NotImplementedError("8-path SGM (do_diagonal) is not ported yet")
+    """4-path (8-path with ``do_diagonal``) SGM aggregation of a (D, H, W)
+    cost volume guided by the (H, W) image; returns the float32 aggregate
+    (D, H, W). ``sd`` selects the lattice: -1 for a left-anchored volume,
+    +1 for a right-anchored one. The four diagonals always run when
+    ``do_diagonal`` is set; the flags select only the straight pairs."""
     D, H, W = vol.shape
     v = vol.to(torch.float32)
     img = img.to(torch.float32)
@@ -70,10 +97,10 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
     lattice = (d <= x) if sd < 0 else (x + d < W)  # (D, W)
 
     out = torch.zeros_like(v)
+    # scan along y: (H, D, W), lines are columns
+    vv = v.permute(1, 0, 2)
+    mv = lattice[None].expand(H, D, W)
     if do_vert:
-        # scan along y: (H, D, W), lines are columns
-        vv = v.permute(1, 0, 2)
-        mv = lattice[None].expand(H, D, W)
         for rev in ((False, True) if do_reverse else (False,)):
             out = out + _scan_direction(vv, img, mv, P1, P2, rev).permute(1, 0, 2)
     if do_horiz:
@@ -82,4 +109,8 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
         mh = lattice.T[:, :, None].expand(W, D, H)
         for rev in ((False, True) if do_reverse else (False,)):
             out = out + _scan_direction(vh, img.T, mh, P1, P2, rev).permute(1, 2, 0)
+    if do_diagonal:
+        for rev in (False, True):
+            for dx in (1, -1):
+                out = out + _scan_direction(vv, img, mv, P1, P2, rev, dx).permute(1, 0, 2)
     return out

@@ -1,0 +1,78 @@
+"""The ROF and TGV kernels (``csrc/rof.cu``, ``csrc/tgv.cu``) and their wrappers.
+
+Counterpart of ``kangaroo_tpu/variational/pallas_solvers.py``
+(``rof_denoise``, ``tgv_denoise``): one C call runs a whole solve, two
+kernel launches per iteration on the current stream. The plain versions
+are ``rof.denoise_plain`` and ``tgv.denoise_plain``. The kernels have no
+gradient (the JAX package's solvers have none either), so an input that
+requires grad is refused rather than cut from the graph.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build, backend
+
+# solves launched since the last reset (each is 2 * iterations kernel launches;
+# a solve of 0 iterations launches none and is not counted)
+rof_launches = 0
+tgv_launches = 0
+
+
+def _check_image(t: torch.Tensor, name: str, op: str) -> None:
+    backend.require_kernels(t, op)
+    backend.check_tensor(t, name, (torch.float32,), 2)
+    if t.requires_grad:
+        raise RuntimeError(f"{op}: the kernel has no gradient; {name} requires grad")
+
+
+def rof_denoise(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
+                iterations: int = 100, model: str = "huber",
+                lam_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Whole ROF / Huber-ROF solve on the card: g (H, W) float32 -> u (H, W)
+    float32. ``lam_weight`` (H, W) float32 makes the data weight pixelwise
+    (lam * weight), the inpainting mode."""
+    global rof_launches
+    _check_image(g, "g", "rof")
+    if lam_weight is not None:
+        _check_image(lam_weight, "lam_weight", "rof")
+        if lam_weight.shape != g.shape or lam_weight.device != g.device:
+            raise ValueError(f"lam_weight {tuple(lam_weight.shape)} on {lam_weight.device} "
+                             f"does not match g {tuple(g.shape)} on {g.device}")
+    if model not in ("tv", "huber"):
+        raise ValueError(f"model must be 'tv' or 'huber', got {model!r}")
+    if iterations < 0:
+        raise ValueError(f"iterations must be >= 0, got {iterations}")
+    H, W = g.shape
+    u = torch.empty_like(g)
+    p = torch.empty((2, H, W), dtype=torch.float32, device=g.device)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        rc = lib.kt_rof_denoise(
+            g.data_ptr(), None if lam_weight is None else lam_weight.data_ptr(), u.data_ptr(),
+            p.data_ptr(), H, W, float(lam), float(sigma), float(tau), float(alpha),
+            int(model == "huber"), int(iterations), backend.stream_handle(g))
+        backend.check_launch(rc, "rof")
+        rof_launches += int(iterations > 0)
+    return u
+
+
+def tgv_denoise(f: torch.Tensor, alpha0=2.0, alpha1=1.0, sigma=0.5, tau=0.25, delta=0.1,
+                iterations: int = 100) -> torch.Tensor:
+    """Whole TGV-L1 solve on the card: f (H, W) float32 -> u (H, W) float32."""
+    global tgv_launches
+    _check_image(f, "f", "tgv")
+    if iterations < 0:
+        raise ValueError(f"iterations must be >= 0, got {iterations}")
+    H, W = f.shape
+    u = torch.empty_like(f)
+    # v0, v1, p0, p1, q0, q1, q2, r
+    state = torch.empty((8, H, W), dtype=torch.float32, device=f.device)
+    lib = _build.library()
+    with torch.cuda.device(f.device):
+        rc = lib.kt_tgv_denoise(
+            f.data_ptr(), u.data_ptr(), state.data_ptr(), H, W, float(alpha0), float(alpha1),
+            float(sigma), float(tau), float(delta), int(iterations), backend.stream_handle(f))
+        backend.check_launch(rc, "tgv")
+        tgv_launches += int(iterations > 0)
+    return u

@@ -8,8 +8,10 @@ machine without it:
 
 (``--noconftest``: the suite's conftest configures JAX.) Tolerances: SGM
 1e-4 on the disparity lattice (one float32 recurrence, the same operation
-order, but the compiler may differ); WTA 1e-5; median and LR check exact,
-NaN positions included.
+order, but the compiler may differ), 8-path too; WTA 1e-5; median and LR
+check exact, NaN positions included; ROF and TGV 1e-4 max abs after 100
+iterations (the same operations in the same order as the plain version,
+but TGV amplifies any last-bit difference).
 """
 import numpy as np
 import pytest
@@ -20,9 +22,14 @@ from kangaroo_tpu_torch.ops import median as median_plain
 from kangaroo_tpu_torch.ops import median_cuda
 from kangaroo_tpu_torch.stereo import costvolume, lr_cuda, sgm_cuda, wta_cuda
 from kangaroo_tpu_torch.stereo import sgm as sgm_plain
+from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(16, 16, 128), (200, 37, 61)]  # (D, H, W): one small, one odd
+# (D, H, W) of the 8-path kernel tests: VGA and KITTI-sized
+FRAME_SHAPES = [(64, 480, 640), (128, 375, 1242)]
+# (H, W) of the solver tests: VGA, KITTI-sized, and KITTI-sized transposed
+IMAGE_SHAPES = [(480, 640), (375, 1242), (1242, 375)]
 
 
 @pytest.fixture
@@ -114,6 +121,88 @@ def test_pipeline_on_card_matches_cpu(dev):
     assert agree.float().mean().item() >= 0.995
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", FRAME_SHAPES)
+def test_sgm_eight_path_kernel_matches_plain(dev, shape, sd, dtype):
+    D, H, W = shape
+    rng = np.random.default_rng(5)
+    vol = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dtype)
+    img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    m = _lattice(D, W, sd, dev).expand(shape)
+    got = sgm_cuda.semi_global_matching(vol, img, 0.01, 0.02, do_diagonal=True, sd=sd)
+    want = sgm_plain.semi_global_matching(vol, img, 0.01, 0.02, do_diagonal=True, sd=sd)
+    torch.testing.assert_close(got[m], want[m], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("do_horiz,do_vert,do_reverse",
+                         [(True, False, True), (True, True, False), (False, False, False)])
+def test_sgm_eight_path_flags(dev, do_horiz, do_vert, do_reverse):
+    rng = np.random.default_rng(6)
+    vol = torch.from_numpy(rng.random((8, 12, 40), dtype=np.float32)).to(dev)
+    img = torch.from_numpy(rng.random((12, 40), dtype=np.float32)).to(dev)
+    args = (vol, img, 0.05, 0.1, do_horiz, do_vert, do_reverse, True)
+    m = _lattice(8, 40, -1, dev).expand(vol.shape)
+    before = sgm_cuda.diagonal_launches
+    got = sgm_cuda.semi_global_matching(*args)
+    assert sgm_cuda.diagonal_launches == before + 4
+    torch.testing.assert_close(got[m], sgm_plain.semi_global_matching(*args)[m], atol=1e-4,
+                               rtol=0)
+
+
+def _noisy_image(shape, dev, seed=7):
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    clean = np.zeros(shape, np.float32)
+    clean[H // 4:H // 2, W // 4:W // 2] = 0.8
+    noisy = clean + 0.15 * rng.standard_normal(shape).astype(np.float32)
+    keep = (rng.random(shape) > 0.2).astype(np.float32)
+    return (torch.from_numpy(noisy).to(dev), torch.from_numpy(keep).to(dev))
+
+
+@pytest.mark.parametrize("mode", ["tv", "huber", "lambda_weight"])
+@pytest.mark.parametrize("shape", IMAGE_SHAPES)
+def test_rof_kernel_matches_plain(dev, shape, mode):
+    g, keep = _noisy_image(shape, dev)
+    weight = keep if mode == "lambda_weight" else None
+    model = "tv" if mode == "tv" else "huber"
+    got = solvers_cuda.rof_denoise(g, 8.0, model=model, lam_weight=weight)
+    want = rof.denoise_plain(g, 8.0, model=model, lam_weight=weight)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", IMAGE_SHAPES)
+def test_tgv_kernel_matches_plain(dev, shape):
+    f, _ = _noisy_image(shape, dev)
+    torch.testing.assert_close(solvers_cuda.tgv_denoise(f), tgv.denoise_plain(f), atol=1e-4,
+                               rtol=0)
+
+
+def test_solver_entry_points_launch_the_kernels(dev):
+    g, keep = _noisy_image((37, 61), dev)
+    before = (solvers_cuda.rof_launches, solvers_cuda.tgv_launches)
+    outs = (rof.denoise(g, 8.0, iterations=10), tgv.denoise(g, iterations=10),
+            deconvolution.inpaint(g, keep, iterations=10))
+    assert (solvers_cuda.rof_launches, solvers_cuda.tgv_launches) == (before[0] + 2,
+                                                                      before[1] + 1)
+    for out in outs:
+        assert out.shape == g.shape and bool(torch.isfinite(out).all())
+    # zero iterations return the input and count no launch
+    torch.testing.assert_close(solvers_cuda.tgv_denoise(g, iterations=0), g, atol=0, rtol=0)
+    assert solvers_cuda.tgv_launches == before[1] + 1
+
+
+def test_eight_path_pipeline_on_card_matches_cpu(dev):
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0)
+    cfg = stereo_sgm.SgmConfig(max_disp=16, do_diagonal=True)
+    counts = (sgm_cuda.launches, sgm_cuda.diagonal_launches)
+    got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
+    assert (sgm_cuda.launches, sgm_cuda.diagonal_launches) == (counts[0] + 4, counts[1] + 4)
+    want = stereo_sgm.sgm_pipeline(left, right, cfg)
+    agree = (torch.isnan(got) & torch.isnan(want)) | ((got - want).abs() <= 1e-3)
+    assert agree.float().mean().item() >= 0.995
+
+
 def test_wrappers_check_their_arguments(dev):
     vol = torch.zeros(8, 12, 40, device=dev)
     with pytest.raises(TypeError):
@@ -125,3 +214,12 @@ def test_wrappers_check_their_arguments(dev):
                                       torch.zeros(4, 4, device=dev))
     with pytest.raises(ValueError):
         median_cuda.median_filter_reject_invalid(torch.zeros(8, 8, device=dev), 12, rad=5)
+    g = torch.zeros(8, 12, device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        solvers_cuda.rof_denoise(g.clone().requires_grad_(True), 8.0)
+    with pytest.raises(ValueError, match="lam_weight"):
+        solvers_cuda.rof_denoise(g, 8.0, lam_weight=torch.zeros(8, 13, device=dev))
+    with pytest.raises(ValueError, match="model"):
+        solvers_cuda.rof_denoise(g, 8.0, model="l1")
+    with pytest.raises(TypeError):
+        solvers_cuda.tgv_denoise(g.double())

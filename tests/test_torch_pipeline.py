@@ -1,5 +1,5 @@
 """The SGM frame: kangaroo_tpu_torch.apps.stereo_sgm.sgm_pipeline against
-kangaroo_tpu's on one configuration, plus the port's contracts: it never
+kangaroo_tpu's on 4- and 8-path configurations, plus the port's contracts: it never
 imports JAX, the CPU path launches no kernel, the unported options raise,
 and the autograd op's backward is the plain version's gradient.
 
@@ -43,7 +43,9 @@ def test_synthetic_pair_matches():
 
 
 @pytest.mark.parametrize("overrides", [dict(lr_from_left=True), dict(lr_from_left=False),
-                                       dict(subpix=False, median_its=2)])
+                                       dict(subpix=False, median_its=2),
+                                       dict(do_diagonal=True),
+                                       dict(do_diagonal=True, lr_from_left=False)])
 def test_pipeline_matches_jax(overrides):
     jcfg = jss.SgmConfig(max_disp=D, **overrides)
     cfg = tss.SgmConfig.from_dict(dataclasses.asdict(jcfg))
@@ -71,7 +73,6 @@ def test_config_from_dict_carries_every_field():
     (tss.SgmConfig(), object(), "mesh"),
     (tss.SgmConfig(guided_filter=True), None, "guided_filter"),
     (tss.SgmConfig(bilateral_filter=True), None, "bilateral_filter"),
-    (tss.SgmConfig(do_diagonal=True), None, "do_diagonal"),
 ])
 def test_unported_options_raise(cfg, mesh, piece):
     left = torch.zeros(8, 16, dtype=torch.uint8)
@@ -81,15 +82,17 @@ def test_unported_options_raise(cfg, mesh, piece):
 
 def test_cpu_path_launches_no_kernel():
     mods = (sgm_cuda, wta_cuda, median_cuda, lr_cuda)
-    before = [m.launches for m in mods]
+    before = [m.launches for m in mods] + [sgm_cuda.diagonal_launches]
     left, right, _ = tsyn.stereo_pair(48, 16, 8, seed=1)
-    tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=8))
-    assert [m.launches for m in mods] == before
+    for diagonal in (False, True):
+        tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=8, do_diagonal=diagonal))
+    assert [m.launches for m in mods] + [sgm_cuda.diagonal_launches] == before
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a tiny frame runs, with JAX and
-    the JAX package made unimportable."""
+    """Every module of the port imports, and a tiny 4- and 8-path frame and
+    the three variational solves run, with JAX and the JAX package made
+    unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -98,9 +101,16 @@ def test_port_imports_no_jax():
         for m in pkgutil.walk_packages(kangaroo_tpu_torch.__path__, "kangaroo_tpu_torch."):
             importlib.import_module(m.name)
         from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+        from kangaroo_tpu_torch.variational import deconvolution, rof, tgv
         left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0)
-        disp = stereo_sgm.sgm_pipeline(left, right, stereo_sgm.SgmConfig(max_disp=8))
-        assert disp.shape == (16, 48)
+        for diagonal in (False, True):
+            cfg = stereo_sgm.SgmConfig(max_disp=8, do_diagonal=diagonal)
+            disp = stereo_sgm.sgm_pipeline(left, right, cfg)
+            assert disp.shape == (16, 48)
+        img = left.float() / 255.0
+        for out in (rof.denoise(img, 8.0, iterations=3), tgv.denoise(img, iterations=3),
+                    deconvolution.inpaint(img, (img > 0.5).float(), iterations=3)):
+            assert out.shape == (16, 48)
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

@@ -70,11 +70,58 @@ def test_direction_flags_match_scan_twin(do_horiz, do_vert, do_reverse):
     np.testing.assert_allclose(got[m], want[m], atol=1e-5)
 
 
-def test_diagonal_is_not_ported():
-    vol, img = _inputs(3, (8, 8, 16))
-    for fn in (tsgm.semi_global_matching, dispatch.semi_global_matching):
-        with pytest.raises(NotImplementedError, match="do_diagonal"):
-            fn(torch.from_numpy(vol), torch.from_numpy(img), do_diagonal=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sd", [-1, 1])
+def test_eight_path_matches_scan_twin(sd, dtype):
+    vol, img = _inputs(3)
+    vj = jnp.asarray(vol).astype(getattr(jnp, dtype))
+    want = np.asarray(jsgm.semi_global_matching(vj, jnp.asarray(img), 0.01, 0.02,
+                                                do_diagonal=True, sd=sd))
+    got = tsgm.semi_global_matching(torch.from_numpy(vol).to(getattr(torch, dtype)),
+                                    torch.from_numpy(img), 0.01, 0.02, do_diagonal=True,
+                                    sd=sd).numpy()
+    m = _lattice(sd)
+    np.testing.assert_allclose(got[m], want[m], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sd", [-1, 1])
+def test_eight_path_matches_pallas_kernel(interpret, sd, dtype):
+    """The Pallas 8-path kernel sums per row, the vertical and diagonal
+    directions first; the port sums direction by direction."""
+    vol, img = _inputs(5)
+    vj = jnp.asarray(vol).astype(getattr(jnp, dtype))
+    want = np.asarray(sgm_pallas.semi_global_matching(vj, jnp.asarray(img), 0.01, 0.02,
+                                                      do_diagonal=True, sd=sd))
+    got = dispatch.semi_global_matching(torch.from_numpy(vol).to(getattr(torch, dtype)),
+                                        torch.from_numpy(img), 0.01, 0.02,
+                                        do_diagonal=True, sd=sd).numpy()
+    m = _lattice(sd)
+    np.testing.assert_allclose(got[m], want[m], atol=1e-5)
+
+
+@pytest.mark.parametrize("do_horiz,do_vert,do_reverse",
+                         [(True, False, True), (True, True, False), (False, False, False)])
+def test_eight_path_flags_match_both_twins(interpret, do_horiz, do_vert, do_reverse):
+    """The four diagonals run whatever do_vert and do_reverse say; only the
+    straight pairs follow the flags."""
+    vol, img = _inputs(6)
+    args = (0.05, 0.1, do_horiz, do_vert, do_reverse, True)
+    got = tsgm.semi_global_matching(torch.from_numpy(vol), torch.from_numpy(img), *args).numpy()
+    m = _lattice(-1)
+    for twin in (jsgm.semi_global_matching, sgm_pallas.semi_global_matching):
+        want = np.asarray(twin(jnp.asarray(vol), jnp.asarray(img), *args))
+        np.testing.assert_allclose(got[m], want[m], atol=1e-5)
+
+
+def test_diagonal_paths_reseed_at_the_image_edge():
+    """A single diagonal direction on a volume one pixel wide: every pixel's
+    predecessor is off the image, so every pixel starts a path (Lr = C)."""
+    vol, img = _inputs(7, (4, 9, 1))
+    agg = tsgm.semi_global_matching(torch.from_numpy(vol), torch.from_numpy(img),
+                                    do_horiz=False, do_vert=False, do_diagonal=True).numpy()
+    m = _lattice(-1, vol.shape)
+    np.testing.assert_allclose(agg[m], 4 * vol[m], rtol=1e-6)
 
 
 def test_kernel_wrapper_refuses_cpu_tensor():
