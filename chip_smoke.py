@@ -8,8 +8,11 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 
 1. the card's name and power limit (nvidia-smi) and the kernels' build time;
 2. each CUDA kernel against its plain PyTorch version on the card: the SGM
-   frame's kernels (4- and 8-path) at 640x480/64 and 1242x375/128 on random
-   inputs (NumPy seed) and on the synthetic pair, the ROF (tv, huber,
+   frame's kernels (4- and 8-path) and the DTAM auxiliary search (theta
+   100, 1, 1e-3) at 640x480/64 and 1242x375/128 on random inputs (NumPy
+   seed) and on the synthetic pair, the DTAM alternation (a 50-iteration
+   cold solve, and 3 + 3 incremental steps against 6) on the synthetic
+   pair's census volumes at both shapes, the ROF (tv, huber,
    lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
    and 375x1242, plus one backward pass through each autograd op against
    the plain version's gradient;
@@ -18,14 +21,26 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
    (every kernel of the frame is launched every frame, the frame agrees
    with the plain frame on the card, its disparity error against the
-   ground truth is within bounds), then ``rof.denoise``, ``tgv.denoise``
-   and ``deconvolution.inpaint`` on a seeded noisy 640x480 image (each
-   brings the error against the clean image down);
-4. CUDA-event times of each kernel, of both frames and of the 100-iteration
-   solves against their plain versions at 640x480(/64).
+   ground truth is within bounds); DTAM stereo: ``stereo_pipeline`` (the
+   cold 50-iteration solve, 16x16 census) for 3 frames and
+   ``VariationalStereo(its_per_frame=5)`` for 10 frames on the same pair
+   (the alternation, the auxiliary search, WTA, median and LR check
+   launched every frame, the cold frame agreeing with the plain frame on
+   the card, both within limits set from the JAX package's CPU-JAX quality
+   on this pair); then ``rof.denoise``, ``tgv.denoise`` and
+   ``deconvolution.inpaint`` on a seeded noisy 640x480 image (each brings
+   the error against the clean image down);
+4. CUDA-event times of each kernel, of both SGM frames, of the
+   100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
+   frame and one incremental DTAM frame against their plain versions at
+   640x480(/64); each kernel's bound; the device time by kernel of one
+   DTAM solve and one cold DTAM frame (torch.profiler), and the auxiliary
+   search on the volume as float32.
 
 The line before the last is a JSON object with each kernel's route,
-source, launches on its main path, error and times; the last line is
+source, launches on its main path, error, times and bound (the larger of
+the bytes its call must move over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Imports nothing of JAX.
 """
@@ -56,15 +71,34 @@ KERNELS = {
             "kangaroo_tpu/variational/pallas_solvers.py:55"),
     "tgv": ("kangaroo_tpu_torch/csrc/tgv.cu",
             "kangaroo_tpu/variational/pallas_solvers.py:120"),
+    "wta_sq": ("kangaroo_tpu_torch/csrc/wta_sq.cuh", "kangaroo_tpu/stereo/wta_pallas.py:82"),
+    "dtam": ("kangaroo_tpu_torch/csrc/dtam.cu", "kangaroo_tpu/stereo/dtam_pallas.py:71"),
 }
 # stated tolerances of kernel vs plain on the card (max abs error)
 ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
-        "rof": 1e-4, "tgv": 1e-4}
+        "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4}
 GRAD_ATOL = 1e-4
+# lam, sigma_q, sigma_d, huber_alpha: the StereoConfig defaults
+DTAM_ARGS = (20.0, 0.7, 0.7, 0.002)
 # quality limits of both frames on stereo_pair(640, 480, 64, seed=0): the JAX
 # package reaches invalid 0.0206 / median error 0.0091 px with 4 paths and
 # 0.0206 / 0.0091 px with 8 (CPU-JAX), so the limits catch a broken port
 MAX_INVALID, MAX_MEDIAN_ERR = 0.03, 0.02
+# DTAM on the same pair, StereoConfig(max_disp=64, census_window="16x16",
+# dtam_iterations=50): the JAX package's CPU-JAX figures (invalid fraction,
+# median error px; `PYTHONPATH=. python tests/test_torch_dtam.py`) for the
+# cold solve and for the incremental schedule after 10 frames of 5
+# iterations. The limits allow 0.01 over each, so they catch a broken port,
+# not a last-bit flip.
+DTAM_JAX = {"cold50": {"invalid_frac": 0.05723907019704433,
+                       "median_err_px": 0.03482341766357422},
+            "incremental_10": {"invalid_frac": 0.05726600985221675,
+                               "median_err_px": 0.03482389450073242}}
+DTAM_SLACK = 0.01
+DTAM_FRAMES, DTAM_INCR_FRAMES, DTAM_ITERS = 3, 10, 50
+# H100 SXM published peaks: HBM bytes/s, float32 operations/s outside the
+# tensor cores
+HBM_BPS, F32_OPS = 3.35e12, 67e12
 
 
 def die(msg: str) -> None:
@@ -129,12 +163,12 @@ def main() -> int:
         die("no CUDA device")
 
     from kangaroo_tpu_torch import _build
-    from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+    from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
     from kangaroo_tpu_torch.stereo import census, costvolume, dispatch, lr_cuda
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
-    from kangaroo_tpu_torch.stereo import sgm_cuda, wta_cuda
+    from kangaroo_tpu_torch.stereo import dtam_cuda, sgm_cuda, wta_cuda
     from kangaroo_tpu_torch.utils import timing
     from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
@@ -166,7 +200,8 @@ def main() -> int:
     counters = {"sgm": (sgm_cuda, "launches"), "sgm_8path": (sgm_cuda, "diagonal_launches"),
                 "wta": (wta_cuda, "launches"), "median": (median_cuda, "launches"),
                 "lr_check": (lr_cuda, "launches"), "rof": (solvers_cuda, "rof_launches"),
-                "tgv": (solvers_cuda, "tgv_launches")}
+                "tgv": (solvers_cuda, "tgv_launches"), "wta_sq": (wta_cuda, "sq_launches"),
+                "dtam": (dtam_cuda, "launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -229,6 +264,40 @@ def main() -> int:
                                   costvolume.cost_vol_minimum_subpix(v, sd), ATOL["wta"])
                     if src == "census-bf16" and vsrc != src:
                         disps[sd] = got
+        # the DTAM auxiliary search around the volume's WTA disparity
+        for sd in (-1, 1):
+            for src, vol in (("census-bf16", vols[sd]), ("random-f32", rand_vol)):
+                noise = torch.from_numpy(rng.normal(0, 1.5, (H, W)).astype(np.float32)).to(dev)
+                last = costvolume.cost_vol_minimum_subpix(vol, sd) + noise
+                for theta in (100.0, 1.0, 1e-3):
+                    smoke.compare(
+                        "wta_sq", f"{tag} {src} sd={sd:+d} theta={theta:g}",
+                        wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta, sd),
+                        costvolume.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta,
+                                                                          sd),
+                        ATOL["wta_sq"])
+        # the DTAM alternation on the census volumes: the cold solve, and
+        # 3 + 3 incremental steps against 6 (beta 1e-3 makes the anneal show)
+        for sd in (-1, 1):
+            g = costvolume.exponential_edge_weight(imgs[sd], 14.0, 2.5)
+            d0 = costvolume.cost_vol_minimum_subpix(vols[sd], sd)
+            q0 = torch.zeros((H, W, 2), device=dev)
+            cold = (100.0, 1.0, *DTAM_ARGS, 1e-5, DTAM_ITERS, sd)
+            for name, a, b in zip(("d", "a", "q", "theta"),
+                                  dtam_cuda.dtam_run(vols[sd], g, d0, d0, q0, *cold),
+                                  stereo.dtam_iterate_plain(vols[sd], g, d0, d0, q0, *cold)):
+                smoke.compare("dtam", f"{tag} census-bf16 sd={sd:+d} cold {DTAM_ITERS} it {name}",
+                              a, b, ATOL["dtam"])
+            state = (d0, d0, q0, 100.0, 7.0)
+            six = dtam_cuda.dtam_step(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=6, sd=sd)
+            s1 = dtam_cuda.dtam_step(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
+            s2 = dtam_cuda.dtam_step(vols[sd], g, *s1, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
+            plain = stereo.dtam_increment(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=6,
+                                          sd=sd)
+            for name, a, b, p in zip(("d", "a", "q", "theta", "n"), six, s2, plain):
+                smoke.compare("dtam", f"{tag} sd={sd:+d} steps 3+3 vs 6 {name}", b, a, 0.0)
+                smoke.compare("dtam", f"{tag} sd={sd:+d} steps 6 vs plain {name}", a, p,
+                              ATOL["dtam"])
         # median: the frame's disparities and a random image, with bad taps
         med_in = {"disparity": with_bad(disps[-1], 0.1),
                   "random": with_bad(rand_img, 0.05, inf_frac=0.02)}
@@ -285,6 +354,10 @@ def main() -> int:
             "lr_check": (lambda a, b: dispatch.left_right_check(a, b, -1, 1.0, D),
                          lambda a, b: costvolume.left_right_check(a, b, -1, 1.0, D),
                          (disp, disp_r)),
+            "wta_sq": (lambda v, d: dispatch.cost_vol_minimum_square_penalty_subpix(v, d, 2.0, 0.5),
+                       lambda v, d: costvolume.cost_vol_minimum_square_penalty_subpix(v, d, 2.0,
+                                                                                      0.5),
+                       (vol, disp)),
         }
         for name, (op, plain, inputs) in cases.items():
             grads = []
@@ -351,7 +424,13 @@ def main() -> int:
             launches.setdefault(k, prev[k])
         if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
             smoke.failures.append(f"phase 3 {name}: output {tuple(disp.shape)} {disp.dtype}")
-        ref = plain_frame(left, right, cfg)
+        check_agreement(name, disp, plain_frame(left, right, cfg))
+        q = disp_quality(disp)
+        print(f"  {name} quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
+        if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
+            smoke.failures.append(f"phase 3 {name}: quality {q}")
+
+    def check_agreement(name, disp, ref):
         both_nan = torch.isnan(disp) & torch.isnan(ref)
         close = (disp - ref).abs() <= 1e-3
         agree = (both_nan | close).float().mean().item()
@@ -359,18 +438,91 @@ def main() -> int:
               f"agree (both NaN or |d| <= 1e-3 px; need >= 99.5 %)")
         if agree < 0.995:
             smoke.failures.append(f"phase 3 {name}: agreement {agree:.4f} < 0.995")
-        # bench.py disp_stats: skip the max_disp band and the borders
+
+    def disp_quality(disp):
+        """bench.py disp_stats: skip the max_disp band and the borders."""
         d, g = disp.cpu().numpy(), gt.cpu().numpy()
         inner = np.zeros(d.shape, bool)
-        inner[8:-8, 72:-8] = True
+        inner[8:-8, D + 8:-8] = True
         m = np.isfinite(d) & inner
         err = np.abs(d[m] - g[m])
-        q = {"invalid_frac": float(1.0 - m.sum() / inner.sum()),
-             "median_err_px": float(np.median(err)), "mean_err_px": float(err.mean()),
-             "bad1px_frac": float((err > 1.0).mean())}
-        print(f"  {name} quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
-        if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
+        return {"invalid_frac": float(1.0 - m.sum() / inner.sum()),
+                "median_err_px": float(np.median(err)), "mean_err_px": float(err.mean()),
+                "bad1px_frac": float((err > 1.0).mean())}
+
+    dcfg = stereo.StereoConfig(max_disp=D, census_window="16x16", dtam_iterations=DTAM_ITERS)
+    dtam_kernels = ("dtam", "wta_sq", "wta", "median", "lr_check")
+
+    def plain_dtam(left, right, cfg, state=None, iterations=None):
+        """The DTAM frame composed of the plain versions, called by name:
+        the cold solve, or ``iterations`` steps resumed from ``state``."""
+        left_p = stereo.preprocess_intensity(left, cfg)
+        right_p = stereo.preprocess_intensity(right, cfg)
+        vol = stereo.cost_volume(left_p, right_p, cfg, -1)
+        g = costvolume.exponential_edge_weight(left_p, cfg.g_alpha, cfg.g_beta)
+        if state is None:
+            d0 = costvolume.cost_vol_minimum_subpix(vol, -1)
+            state = (d0, d0, torch.zeros(d0.shape + (2,), device=d0.device), cfg.theta_start,
+                     1.0)
+            iterations = cfg.dtam_iterations
+        d = stereo.dtam_iterate_plain(vol, g, *state, cfg.lam, cfg.sigma_q, cfg.sigma_d,
+                                      cfg.huber_alpha, cfg.beta, iterations)[0]
+        disp_r = costvolume.cost_vol_minimum_subpix(stereo.cost_volume(left_p, right_p, cfg, 1),
+                                                    1)
+        d = median_plain.median_filter_reject_invalid(d, cfg.median_max_bad, 2)
+        return costvolume.left_right_check(d, disp_r, -1, cfg.max_disp_diff, cfg.max_disp)
+
+    def check_dtam_quality(name, disp, ref):
+        q = disp_quality(disp)
+        lim = {k: ref[k] + DTAM_SLACK for k in ("invalid_frac", "median_err_px")}
+        ok = all(q[k] <= lim[k] for k in lim)
+        print(f"  {'ok  ' if ok else 'FAIL'} {name} quality on stereo_pair(640, 480, 64, seed=0): "
+              f"{json.dumps(q)}; the JAX package on CPU-JAX: {json.dumps(ref)}; limits "
+              f"{json.dumps(lim)}")
+        if not ok:
             smoke.failures.append(f"phase 3 {name}: quality {q}")
+
+    def dtam_launched(name, frame, prev, now, want=None):
+        """Every kernel of the DTAM path was launched in this frame; the
+        auxiliary search once per iteration."""
+        print(f"  {name} frame {frame}: launches so far { {k: now[k] for k in dtam_kernels} }")
+        for k in dtam_kernels:
+            if now[k] <= prev[k]:
+                smoke.failures.append(f"phase 3 {name}: {k} was not launched in frame {frame}")
+        if want is not None and now["wta_sq"] - prev["wta_sq"] != want:
+            smoke.failures.append(f"phase 3 {name}: wta_sq launched "
+                                  f"{now['wta_sq'] - prev['wta_sq']} times in frame {frame}, "
+                                  f"not {want}")
+
+    def dtam_phase():
+        reset_counts()
+        prev = read_counts()
+        for f in range(DTAM_FRAMES):
+            disp = stereo.stereo_pipeline(left, right, dcfg)
+            torch.cuda.synchronize()
+            now = read_counts()
+            dtam_launched("DTAM cold", f, prev, now, DTAM_ITERS)
+            prev = now
+        for k in ("dtam", "wta_sq"):
+            launches[k] = prev[k]
+        if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
+            smoke.failures.append(f"phase 3 DTAM: output {tuple(disp.shape)} {disp.dtype}")
+        check_agreement("DTAM cold", disp, plain_dtam(left, right, dcfg))
+        check_dtam_quality(f"DTAM cold {DTAM_ITERS}", disp, DTAM_JAX["cold50"])
+
+    def dtam_incremental_phase():
+        vs = stereo.VariationalStereo(dcfg, its_per_frame=5)
+        reset_counts()
+        prev = read_counts()
+        for f in range(DTAM_INCR_FRAMES):
+            disp = vs.process_frame(left, right)
+            torch.cuda.synchronize()
+            now = read_counts()
+            dtam_launched("DTAM incremental", f, prev, now, vs.its_per_frame)
+            prev = now
+        print(f"  theta {vs.theta!r}, n {float(vs.state[4])!r} after {DTAM_INCR_FRAMES} frames")
+        check_dtam_quality(f"DTAM incremental after {DTAM_INCR_FRAMES} frames", disp,
+                           DTAM_JAX["incremental_10"])
 
     def denoise_phase():
         clean, noisy, keep = noisy_image(H, W, seed=2)
@@ -399,11 +551,17 @@ def main() -> int:
     for name in cfgs:
         print(f"phase 3 sgm_pipeline ({name}) at {W}x{H}/{D}, {FRAMES} frames:")
         smoke.phase(f"phase 3 {name}", frame_phase, name)
+    print(f"phase 3 DTAM stereo_pipeline (cold, {DTAM_ITERS} iterations) at {W}x{H}/{D}, "
+          f"{DTAM_FRAMES} frames:")
+    smoke.phase("phase 3 DTAM cold", dtam_phase)
+    print(f"phase 3 DTAM VariationalStereo (5 iterations per frame) at {W}x{H}/{D}, "
+          f"{DTAM_INCR_FRAMES} frames:")
+    smoke.phase("phase 3 DTAM incremental", dtam_incremental_phase)
     print(f"phase 3 rof / tgv / inpaint at {W}x{H}, {SOLVER_ITERS} iterations:")
     smoke.phase("phase 3 denoise", denoise_phase)
 
     # --- phase 4: times -------------------------------------------------------
-    times = {}
+    times, bound = {}, {}
 
     def timing_phase():
         cfg = cfgs["4-path"]
@@ -416,6 +574,14 @@ def main() -> int:
         dr = wta_cuda.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
         # bench.py bench_variational's input and parameters
         u01 = torch.from_numpy(np.random.default_rng(0).random((H, W)).astype(np.float32)).to(dev)
+        # the DTAM solve's inputs as the cold frame makes them
+        left_p = stereo.preprocess_intensity(left, dcfg)
+        g = costvolume.exponential_edge_weight(left_p, dcfg.g_alpha, dcfg.g_beta)
+        d0 = wta_cuda.cost_vol_minimum_subpix(vol, -1)
+        q0 = torch.zeros((H, W, 2), device=dev)
+        solve = (dcfg.lam, dcfg.theta_start, dcfg.sigma_q, dcfg.sigma_d, dcfg.huber_alpha,
+                 dcfg.beta)
+        _, state = stereo.dtam_frame(left, right, None, dcfg)  # a running app's state
         cases = {
             "sgm": (lambda: sgm_cuda.semi_global_matching(vol, img),
                     lambda: sgm_plain.semi_global_matching(vol, img)),
@@ -435,9 +601,20 @@ def main() -> int:
                       lambda: plain_frame(left, right, cfgs["4-path"])),
             "frame_8path": (lambda: stereo_sgm.sgm_pipeline(left, right, cfgs["8-path"]),
                             lambda: plain_frame(left, right, cfgs["8-path"])),
+            "wta_sq": (lambda: wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, dl, 20.0, 1.0),
+                       lambda: costvolume.cost_vol_minimum_square_penalty_subpix(vol, dl, 20.0,
+                                                                                 1.0)),
+            "dtam": (lambda: dtam_cuda.dtam_solve(vol, g, d0, *solve, iterations=DTAM_ITERS),
+                     lambda: stereo.dtam_iterate_plain(vol, g, d0, d0, q0, solve[1], 1.0,
+                                                       solve[0], *solve[2:], DTAM_ITERS)[0]),
+            "dtam_frame": (lambda: stereo.stereo_pipeline(left, right, dcfg),
+                           lambda: plain_dtam(left, right, dcfg)),
+            "dtam_incremental": (lambda: stereo.dtam_frame(left, right, state, dcfg, 5),
+                                 lambda: plain_dtam(left, right, dcfg, state, 5)),
         }
         # the plain versions loop in Python over the scan axis or the iterations
-        slow = {"sgm", "sgm_8path", "frame", "frame_8path", "rof", "tgv"}
+        slow = {"sgm", "sgm_8path", "frame", "frame_8path", "rof", "tgv", "dtam", "dtam_frame",
+                "dtam_incremental"}
         for name, (kern, plain) in cases.items():
             # plain, kernel, kernel, plain: drift over the call shows as a spread
             p1 = timing.time_fn(plain, warmup=1, runs=3 if name in slow else 20)
@@ -449,10 +626,77 @@ def main() -> int:
             print(f"  {name:11s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, "
                   f"plain {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms "
                   f"(median of runs, at {W}x{H}/{D}) [{card}]")
-        for name in ("frame", "frame_8path"):
+        for name in ("frame", "frame_8path", "dtam_frame", "dtam_incremental"):
             k, p = times[name]
             print(f"  {name}: {1e3 / k:.2f} fps on the kernel path, {1e3 / p:.2f} fps on the "
                   f"plain path [{card}]")
+        # each timed kernel call's bound: (bytes, float32 operations), each
+        # input read once and each output written once. Operations per
+        # element, counted from the kernels' formulas (a min, compare,
+        # square root or division counts one): SGM 9 per (d, pixel,
+        # direction); WTA 2 per volume element; the median 2 per
+        # compare-exchange of its sorting network plus 1 per tap; the LR
+        # check 8 per pixel; ROF 27 and TGV 72 per pixel and iteration; the
+        # auxiliary search 7 per volume element plus 18 per pixel; DTAM that
+        # search plus 30 per pixel (dual 18, primal 12), per iteration.
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        HW, DHW = H * W, vol.numel()
+        taps = 25  # rad 2
+        work = {
+            "sgm": (nbytes(vol, img, agg), 4 * 9 * DHW),
+            "sgm_8path": (nbytes(vol, img, agg), 8 * 9 * DHW),
+            "wta": (nbytes(agg, dl), 2 * DHW),
+            "median": (2 * nbytes(dl), (2 * len(median_cuda.batcher_pairs(taps)) + taps) * HW),
+            "lr_check": (3 * nbytes(dl), 8 * HW),
+            "rof": (2 * nbytes(u01), 27 * HW * SOLVER_ITERS),
+            "tgv": (2 * nbytes(u01), 72 * HW * SOLVER_ITERS),
+            "wta_sq": (nbytes(vol, dl, dl), 7 * DHW + 18 * HW),
+            "dtam": (nbytes(vol, g, d0, d0), DTAM_ITERS * (7 * DHW + 48 * HW)),
+        }
+        for name, (b, ops) in work.items():
+            t_bytes, t_ops = 1e3 * b / HBM_BPS, 1e3 * ops / F32_OPS
+            bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            print(f"  bound {name:9s} {b / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP -> "
+                  f"{bound[name][0]:.5f} ms ({bound[name][1]}); kernel {times[name][0]:.4f} ms")
+
+        # where the DTAM time goes: device time by kernel (torch.profiler) in
+        # one solve and in one cold frame, whose busy share is that time over
+        # the frame's wall time under the profiler; and the search on the
+        # volume as float32, twice the bytes in the same number of loads
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def device_us(run):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            kernels = {e.key: (e.count, e.self_device_time_total)
+                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            return kernels, wall_us
+
+        for what, run in (("dtam_solve", cases["dtam"][0]), ("dtam_frame", cases["dtam_frame"][0])):
+            run()
+            kernels, wall_us = device_us(run)
+            busy = sum(us for _, us in kernels.values())
+            n_launches = sum(n for n, _ in kernels.values())
+            print(f"  profile {what}: {len(kernels)} kernels, {n_launches} launches, device "
+                  f"{busy / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms wall "
+                  f"(busy share {busy / wall_us:.3f}) [{card}]")
+            for part in ("dtam_dual_kernel", "dtam_primal_kernel", "wta_sq_kernel"):
+                hits = [(n, us) for k, (n, us) in kernels.items() if part in k]
+                if hits:
+                    n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
+                    print(f"    {part}: {n} launches, {us / n:.2f} us each, {us / 1e3:.4f} ms")
+        vol32 = vol.float()
+        t32 = timing.time_fn(wta_cuda.cost_vol_minimum_square_penalty_subpix, vol32, dl, 20.0,
+                             1.0)["median_ms"]
+        print(f"  wta_sq on the float32 volume: {t32:.4f} ms "
+              f"({nbytes(vol32) / t32 / 1e9:.3f} TB/s) against {times['wta_sq'][0]:.4f} ms on bf16 "
+              f"({nbytes(vol) / times['wta_sq'][0] / 1e9:.3f} TB/s) [{card}]")
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)
@@ -465,7 +709,10 @@ def main() -> int:
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": smoke.max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound[name][0],
+         "bound_by": bound[name][1],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for name, (src, replaces) in KERNELS.items()]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

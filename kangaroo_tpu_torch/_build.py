@@ -4,8 +4,9 @@ The kernels have a plain C interface (pointers, sizes and the stream as
 integers), so the library links against nothing of PyTorch and builds in
 seconds; it is loaded with ``ctypes``. The build runs at first use, into
 ``_build/`` beside this file (listed in ``.gitignore``), under a name keyed
-on a hash of the sources, the generated headers and the flags, so an edit
-to any of them rebuilds and an unchanged tree reuses the library.
+on a hash of the sources and headers (``csrc/*.cu``, ``*.cuh``), the
+generated headers and the flags, so an edit to any of them rebuilds and an
+unchanged tree reuses the library.
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ SIGNATURES = {
     "kt_rof_denoise": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P],
     # f, u, state, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
     "kt_tgv_denoise": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P],
+    # vol, vol_is_bf16, last, out, D, H, W, sd, lam, theta, stream
+    "kt_wta_sq": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # vol, vol_is_bf16, g, d, a, q, thetas (host), D, H, W, sd, lam, sigma_q,
+    # sigma_d, huber_alpha, iterations, stream
+    "kt_dtam_run": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -69,7 +75,7 @@ def generated_headers() -> dict[str, str]:
 
 def _key(sources, headers) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cuh")) + list(sources):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     for name, text in sorted(headers.items()):

@@ -3,9 +3,10 @@
 census volumes -> 4-path (8-path with ``do_diagonal``) semi-global
 matching -> WTA + subpixel -> the right disparity from the re-anchored left
 aggregate (or a second aggregation) -> reject-invalid median on both images
--> LR check both ways. Not ported yet, and refused with
-``NotImplementedError``: the multi-device ``mesh`` and the guided and
-bilateral volume filters.
+-> LR check both ways, with the optional guided filter of each census
+volume before aggregation. Not ported yet, and refused with
+``NotImplementedError``: the multi-device ``mesh`` and the bilateral
+volume filter.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..ops import integral_image as ii
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
@@ -65,10 +67,17 @@ class SgmConfig:
 
 def _check_supported(cfg: SgmConfig, mesh) -> None:
     for unported, name in ((mesh is not None, "mesh (multi-device SGM)"),
-                           (cfg.guided_filter, "guided_filter"),
                            (cfg.bilateral_filter, "bilateral_filter")):
         if unported:
             raise NotImplementedError(f"sgm_pipeline: {name} is not ported yet")
+
+
+def _filter_volume(vol: torch.Tensor, img: torch.Tensor, cfg: SgmConfig) -> torch.Tensor:
+    """The guided filter of every volume slice against the image's
+    intensity, when ``cfg.guided_filter`` is set."""
+    if not cfg.guided_filter:
+        return vol
+    return ii.guided_filter_volume(vol, _intensity(img), cfg.filter_rad, cfg.filter_eps)
 
 
 def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmConfig(),
@@ -79,10 +88,14 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
     cl = census_mod.census(left, cfg.census_window)
     cr = census_mod.census(right, cfg.census_window)
     bits = census_mod.norm_bits(cfg.census_window)
-    # power-of-two normalisers make every cost k/bits exact in bfloat16
-    vol_dtype = torch.bfloat16 if bits & (bits - 1) == 0 else torch.float32
+    # power-of-two normalisers make every cost k/bits exact in bfloat16; the
+    # guided filter's arithmetic is not, so a filtered volume stays float32
+    vol_dtype = (torch.float32 if cfg.guided_filter
+                 else torch.bfloat16 if bits & (bits - 1) == 0 else torch.float32)
 
-    vol_l = census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype)
+    vol_l = _filter_volume(
+        census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype),
+        left, cfg)
     agg_l = fast.semi_global_matching(vol_l, _intensity(left), cfg.p1, cfg.p2, cfg.do_horiz,
                                       cfg.do_vert, cfg.do_reverse, cfg.do_diagonal)
     if cfg.subpix:
@@ -94,7 +107,9 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
         if cfg.lr_from_left:
             agg_r = cv.reanchor_right(agg_l)
         else:
-            vol_r = census_mod.census_cost_volume(cr, cl, cfg.max_disp, 1, bits, dtype=vol_dtype)
+            vol_r = _filter_volume(
+                census_mod.census_cost_volume(cr, cl, cfg.max_disp, 1, bits, dtype=vol_dtype),
+                right, cfg)
             agg_r = fast.semi_global_matching(vol_r, _intensity(right), cfg.p1, cfg.p2,
                                               cfg.do_horiz, cfg.do_vert, cfg.do_reverse,
                                               cfg.do_diagonal, sd=1)

@@ -6,12 +6,13 @@ import torch
 
 
 def stereo_pair(w: int = 640, h: int = 480, max_disp: int = 64, seed: int = 0,
-                device=None):
+                device="cuda"):
     """Textured fronto-parallel-slab stereo pair with ground-truth disparity:
     a box at disparity 3D/4 floating over a background plane at D/4.
 
     Built with NumPy from ``seed`` (the same arrays as ``kangaroo_tpu``);
-    returns (left uint8, right uint8, gt float32) tensors on ``device``.
+    returns (left uint8, right uint8, gt float32) tensors on ``device``: the
+    card unless the caller asks for another device (``device="cpu"``).
     """
     rng = np.random.default_rng(seed)
     # smooth texture: low-frequency noise + speckle so census has signal

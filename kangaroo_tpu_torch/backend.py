@@ -46,3 +46,13 @@ def check_launch(rc: int, op: str) -> None:
     """Raise if a kernel's C entry returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{op}: kernel launch failed with cudaError {rc}")
+
+
+def f32_scalars(device, *values) -> list[torch.Tensor]:
+    """Scalars as float32 tensors on ``device``, so that their products
+    round in float32 as the JAX package's traced constants (and the
+    kernels) do; a tensor is cast and moved. On the device, not the CPU:
+    PyTorch divides a CUDA tensor by a CPU scalar as a multiply by its
+    reciprocal, which rounds differently from the kernels' division."""
+    return [v.to(device=device, dtype=torch.float32) if isinstance(v, torch.Tensor)
+            else torch.tensor(float(v), dtype=torch.float32, device=device) for v in values]

@@ -1,15 +1,18 @@
 """Cost-volume reductions (``kangaroo_tpu/stereo/costvolume.py``): WTA
-disparity, subpixel refinement, right re-anchoring and the LR check.
+disparity, subpixel refinement, the DTAM auxiliary search, edge weights,
+right re-anchoring, the LR check and the truncated abs-and-gradient volume.
 
 Volumes are (D, H, W); disparity images are (H, W) float32 with NaN for
-invalid, or int32. ``cost_vol_minimum_subpix`` and ``left_right_check`` are
-the plain versions of the WTA and LR-check kernels (``stereo/dispatch.py``
-picks between them).
+invalid, or int32. ``cost_vol_minimum_subpix``,
+``cost_vol_minimum_square_penalty_subpix`` and ``left_right_check`` are the
+plain versions of the WTA, auxiliary-search and LR-check kernels
+(``stereo/dispatch.py`` picks between them).
 """
 from __future__ import annotations
 
 import torch
 
+from ..backend import f32_scalars
 from ..core import invalid as invalid_mod
 
 _BIG = 1e10
@@ -54,6 +57,104 @@ def cost_vol_minimum_subpix(vol: torch.Tensor, sd: int = -1) -> torch.Tensor:
     interior = (bestxr > 0) & (bestxr < W - 1)
     sensible = (subpix > bestd - 1) & (subpix < bestd + 1)
     return torch.where(interior & sensible, subpix, bestd.to(torch.float32))
+
+
+def cost_vol_minimum_square_penalty_subpix(vol: torch.Tensor, last_disp: torch.Tensor, lam,
+                                           theta, sd: int = -1) -> torch.Tensor:
+    """The DTAM auxiliary search: argmin_d (last - d)^2 / (2 theta) + lam C(d)
+    over the d with x + sd*d in the image, then the parabola step through the
+    penalised costs at bestd-1 and bestd+1 (the volume read clamped to
+    [0, D-1], the penalty at the unclamped index), kept where the match is
+    strictly interior and the step stays within (best-1, best+1).
+
+    The plain version of the ``wta_sq`` kernel. ``lam`` and ``theta`` are
+    numbers or 0-dim tensors; both are taken as float32, and 1/(2 theta)
+    is a float32 division, as in ``kangaroo_tpu``."""
+    vol = vol.to(torch.float32)
+    D, H, W = vol.shape
+    lam, theta = f32_scalars(vol.device, lam, theta)
+    last = last_disp.to(torch.float32)
+    inv2theta = 1.0 / (2.0 * theta)
+    d = torch.arange(D, dtype=torch.float32, device=vol.device)[:, None, None]
+    dd = last[None] - d
+    cost = inv2theta * (dd * dd) + lam * vol
+    ok = _xr_valid(W, D, sd, vol.device)[:, None, :]
+    masked = torch.where(ok, cost, _BIG)
+    bestd = torch.argmin(masked, dim=0)  # first index attaining the min
+    bestc = masked.gather(0, bestd[None])[0]
+
+    bf = bestd.to(torch.float32)
+    dlf, drf = bf - 1.0, bf + 1.0
+    vl = vol.gather(0, (bestd - 1).clamp(0, D - 1)[None])[0]
+    vr = vol.gather(0, (bestd + 1).clamp(0, D - 1)[None])[0]
+    el, er = last - dlf, last - drf
+    cl = inv2theta * (el * el) + lam * vl
+    cr = inv2theta * (er * er) + lam * vr
+    subpix = bf - (cr - cl) / (2.0 * (cr - 2.0 * bestc + cl))
+
+    bestxr = torch.arange(W, device=vol.device)[None, :] + sd * bestd
+    interior = (bestxr > 0) & (bestxr < W - 1)
+    sensible = (subpix > dlf) & (subpix < drf)
+    return torch.where(interior & sensible, subpix, bf)
+
+
+def exponential_edge_weight(img: torch.Tensor, alpha, beta) -> torch.Tensor:
+    """g = exp(-alpha |grad I|^beta) with central differences, zero on the
+    image border."""
+    H, W = img.shape
+    alpha, beta = f32_scalars(img.device, alpha, beta)
+    gx = (torch.roll(img, -1, 1) - torch.roll(img, 1, 1)) / 2.0
+    gy = (torch.roll(img, -1, 0) - torch.roll(img, 1, 0)) / 2.0
+    x = torch.arange(W, device=img.device)[None, :]
+    y = torch.arange(H, device=img.device)[:, None]
+    gx = torch.where((x > 0) & (x < W - 1), gx, 0.0)
+    gy = torch.where((y > 0) & (y < H - 1), gy, 0.0)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    return torch.exp(-alpha * torch.pow(mag, beta))
+
+
+def _central_diff_image(img: torch.Tensor):
+    """Central differences (dx, dy) with the reference's clamped-neighbour
+    one-sided halves on the border."""
+    dx = (torch.roll(img, -1, 1) - torch.roll(img, 1, 1)) / 2.0
+    dy = (torch.roll(img, -1, 0) - torch.roll(img, 1, 0)) / 2.0
+    dx[:, 0] = (img[:, 1] - img[:, 0]) / 2.0
+    dx[:, -1] = (img[:, -1] - img[:, -2]) / 2.0
+    dy[0] = (img[1] - img[0]) / 2.0
+    dy[-1] = (img[-1] - img[-2]) / 2.0
+    return dx, dy
+
+
+def filter_disp_grad(disp: torch.Tensor, threshold) -> torch.Tensor:
+    """Set to -1 the pixels whose squared disparity gradient reaches
+    ``threshold``."""
+    dx, dy = _central_diff_image(disp)
+    (threshold,) = f32_scalars(disp.device, threshold)
+    return torch.where(dx * dx + dy * dy < threshold, disp, -1.0)
+
+
+def cost_volume_from_stereo_truncated_abs_and_grad(img_l: torch.Tensor, img_r: torch.Tensor,
+                                                   max_disp: int, sd: int = -1, alpha=0.0,
+                                                   r1=1e37, r2=1e37) -> torch.Tensor:
+    """(max_disp, H, W) float32 volume of the truncated intensity and
+    x-gradient differences (1 - alpha) min(|dI|, r1) + alpha min(|dgx|, r2),
+    (1 - alpha) r1 + alpha r2 where x + sd*d leaves the image."""
+    H, W = img_l.shape
+    gx_l, _ = _central_diff_image(img_l)
+    gx_r, _ = _central_diff_image(img_r)
+    alpha, r1, r2 = f32_scalars(img_l.device, alpha, r1, r2)
+    oob = (1.0 - alpha) * r1 + alpha * r2
+    x = torch.arange(W, device=img_l.device)
+    slices = []
+    for d in range(max_disp):
+        xr = x + sd * d
+        ok = (xr >= 0) & (xr < W)
+        xi = xr.clamp(0, W - 1)
+        abs_i = (img_r[:, xi] - img_l).abs()
+        abs_g = (gx_r[:, xi] - gx_l).abs()
+        cost = (1.0 - alpha) * torch.minimum(abs_i, r1) + alpha * torch.minimum(abs_g, r2)
+        slices.append(torch.where(ok[None, :], cost, oob))
+    return torch.stack(slices, dim=0)
 
 
 def reanchor_right(agg_l: torch.Tensor) -> torch.Tensor:

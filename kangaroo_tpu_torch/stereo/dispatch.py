@@ -1,4 +1,4 @@
-"""Dispatch of the stereo path's four ops between kernel and plain version
+"""Dispatch of the stereo paths' five ops between kernel and plain version
 (``kangaroo_tpu/stereo/dispatch.py``).
 
 A tensor on the CPU takes the plain PyTorch version. Any other tensor goes
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..backend import f32_scalars
 from ..ops import median as _median
 from ..ops import median_cuda
 from . import costvolume as _cv
@@ -62,6 +63,17 @@ def cost_vol_minimum_subpix(vol, sd=-1):
         return _cv.cost_vol_minimum_subpix(vol, sd)
     return _KernelOp.apply(wta_cuda.cost_vol_minimum_subpix, _cv.cost_vol_minimum_subpix,
                            dict(sd=sd), vol)
+
+
+def cost_vol_minimum_square_penalty_subpix(vol, last_disp, lam, theta, sd=-1):
+    """The DTAM auxiliary search; ``lam`` and ``theta`` are differentiable
+    inputs too, as in the JAX package's custom_vjp."""
+    if _on_cpu(vol):
+        return _cv.cost_vol_minimum_square_penalty_subpix(vol, last_disp, lam, theta, sd)
+    lam, theta = f32_scalars(vol.device, lam, theta)
+    return _KernelOp.apply(wta_cuda.cost_vol_minimum_square_penalty_subpix,
+                           _cv.cost_vol_minimum_square_penalty_subpix, dict(sd=sd),
+                           vol, last_disp, lam, theta)
 
 
 def median_filter_reject_invalid(img, max_bad: int, rad: int = 2):

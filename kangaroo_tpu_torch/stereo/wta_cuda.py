@@ -1,8 +1,10 @@
-"""The WTA + subpixel kernel (``csrc/wta.cu``) and its Python wrapper.
+"""The WTA + subpixel kernel (``csrc/wta.cu``), the DTAM auxiliary-search
+kernel (``csrc/wta_sq.cuh``) and their Python wrappers.
 
-Counterpart of ``kangaroo_tpu/stereo/wta_pallas.py`` (``_wta_kernel``,
-``cost_vol_minimum_subpix``). The plain version is
-``stereo/costvolume.cost_vol_minimum_subpix``.
+Counterparts of ``kangaroo_tpu/stereo/wta_pallas.py`` (``_wta_kernel``,
+``cost_vol_minimum_subpix``; ``_wta_sq_kernel``,
+``cost_vol_minimum_square_penalty_subpix``). The plain versions are the
+functions of the same names in ``stereo/costvolume.py``.
 """
 from __future__ import annotations
 
@@ -10,8 +12,11 @@ import torch
 
 from .. import _build, backend
 
-# kernel launches since the last reset
+# kernel launches since the last reset: the WTA kernel, and the auxiliary
+# search (here and once per iteration inside the DTAM alternation,
+# stereo/dtam_cuda.py)
 launches = 0
+sq_launches = 0
 
 
 def cost_vol_minimum_subpix(vol: torch.Tensor, sd: int = -1) -> torch.Tensor:
@@ -28,4 +33,34 @@ def cost_vol_minimum_subpix(vol: torch.Tensor, sd: int = -1) -> torch.Tensor:
                                out.data_ptr(), D, H, W, int(sd), backend.stream_handle(vol))
         backend.check_launch(rc, "wta")
         launches += 1
+    return out
+
+
+def check_volume_and_plane(vol: torch.Tensor, plane: torch.Tensor, name: str, op: str) -> None:
+    """A (D, H, W) float32/bfloat16 volume and an (H, W) float32 plane on
+    the same card."""
+    backend.require_kernels(vol, op)
+    backend.check_tensor(vol, "vol", (torch.float32, torch.bfloat16), 3)
+    backend.check_tensor(plane, name, (torch.float32,), 2)
+    if plane.shape != vol.shape[1:] or plane.device != vol.device:
+        raise ValueError(f"{op}: {name} {tuple(plane.shape)} on {plane.device} does not match "
+                         f"vol {tuple(vol.shape)} on {vol.device}")
+
+
+def cost_vol_minimum_square_penalty_subpix(vol: torch.Tensor, last_disp: torch.Tensor, lam,
+                                           theta, sd: int = -1) -> torch.Tensor:
+    """The DTAM auxiliary search on the card: vol (D, H, W) float32 or
+    bfloat16, last_disp (H, W) float32 -> (H, W) float32. ``lam`` and
+    ``theta`` are numbers or 0-dim tensors (read on the host)."""
+    global sq_launches
+    check_volume_and_plane(vol, last_disp, "last_disp", "wta_sq")
+    D, H, W = vol.shape
+    out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
+    lib = _build.library()
+    with torch.cuda.device(vol.device):
+        rc = lib.kt_wta_sq(vol.data_ptr(), int(vol.dtype == torch.bfloat16), last_disp.data_ptr(),
+                           out.data_ptr(), D, H, W, int(sd), float(lam), float(theta),
+                           backend.stream_handle(vol))
+        backend.check_launch(rc, "wta_sq")
+        sq_launches += 1
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..backend import f32_scalars
 from ..ops.convolution import convolve
 from . import ops, rof, solvers_cuda
 
@@ -32,8 +33,8 @@ def primal_u_descent(u, p, ATq, tau, lam):
 def deconvolve(g, kernel, lam=10.0, sigma_q=0.2, sigma_p=0.2, tau=0.05,
                alpha=0.002, iterations: int = 200):
     """Recover u from the blurry (H, W) image g with blur kernel ``kernel``."""
-    lam, sigma_q, sigma_p, tau, alpha = rof.f32_scalars(g.device, lam, sigma_q, sigma_p,
-                                                        tau, alpha)
+    lam, sigma_q, sigma_p, tau, alpha = f32_scalars(g.device, lam, sigma_q, sigma_p, tau,
+                                                    alpha)
     g = g.to(torch.float32)
     kernel = torch.as_tensor(kernel, dtype=torch.float32, device=g.device)
     kT = torch.flip(kernel, dims=(0, 1))

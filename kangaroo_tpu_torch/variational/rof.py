@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..backend import f32_scalars
 from . import ops, solvers_cuda
 
 
@@ -43,15 +44,6 @@ def weighted_l2_primal_descent(u, p, g, w, tau, lam):
     (1 + tau lambda)."""
     divp = ops.divergence(p)
     return (u + tau * (w * divp + lam * g)) / (1.0 + tau * lam)
-
-
-def f32_scalars(device, *values) -> list[torch.Tensor]:
-    """Solver constants as float32 scalars on ``device``, so that their
-    products round in float32 as the JAX package's traced constants (and
-    the kernels) do. On the device, not the CPU: PyTorch divides a CUDA
-    tensor by a CPU scalar as a multiply by its reciprocal, which rounds
-    differently from the kernels' division."""
-    return [torch.tensor(float(v), dtype=torch.float32, device=device) for v in values]
 
 
 def denoise(g, lam, sigma=0.5, tau=0.25, alpha=0.002, iterations: int = 100,

@@ -12,8 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..backend import f32_scalars
 from . import ops, solvers_cuda
-from .rof import f32_scalars
 
 
 class TgvState(NamedTuple):

@@ -11,16 +11,18 @@ machine without it:
 order, but the compiler may differ), 8-path too; WTA 1e-5; median and LR
 check exact, NaN positions included; ROF and TGV 1e-4 max abs after 100
 iterations (the same operations in the same order as the plain version,
-but TGV amplifies any last-bit difference).
+but TGV amplifies any last-bit difference); the DTAM auxiliary search
+1e-5 and the DTAM alternation 1e-4 px (the same operations in the same
+order, each rounded on its own, so 0 is expected).
 """
 import numpy as np
 import pytest
 import torch
 
-from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
 from kangaroo_tpu_torch.ops import median as median_plain
 from kangaroo_tpu_torch.ops import median_cuda
-from kangaroo_tpu_torch.stereo import costvolume, lr_cuda, sgm_cuda, wta_cuda
+from kangaroo_tpu_torch.stereo import costvolume, dispatch, dtam_cuda, lr_cuda, sgm_cuda, wta_cuda
 from kangaroo_tpu_torch.stereo import sgm as sgm_plain
 from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
@@ -110,7 +112,7 @@ def test_lr_kernel_matches_plain(dev, sd):
 
 
 def test_pipeline_on_card_matches_cpu(dev):
-    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0)
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
     cfg = stereo_sgm.SgmConfig(max_disp=16)
     counts = [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)]
     got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
@@ -193,7 +195,7 @@ def test_solver_entry_points_launch_the_kernels(dev):
 
 
 def test_eight_path_pipeline_on_card_matches_cpu(dev):
-    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0)
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
     cfg = stereo_sgm.SgmConfig(max_disp=16, do_diagonal=True)
     counts = (sgm_cuda.launches, sgm_cuda.diagonal_launches)
     got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
@@ -223,3 +225,116 @@ def test_wrappers_check_their_arguments(dev):
         solvers_cuda.rof_denoise(g, 8.0, model="l1")
     with pytest.raises(TypeError):
         solvers_cuda.tgv_denoise(g.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", SHAPES + FRAME_SHAPES)
+def test_wta_sq_kernel_matches_plain(dev, shape, sd, dtype):
+    D, H, W = shape
+    rng = np.random.default_rng(8)
+    # costs k/256: exact in bfloat16, with ties
+    vol = torch.from_numpy((rng.integers(0, 257, shape) / 256.0).astype(np.float32)).to(dev, dtype)
+    last = torch.from_numpy(rng.uniform(-2, D + 2, (H, W)).astype(np.float32)).to(dev)
+    for theta in (100.0, 1.0, 1e-3):
+        torch.testing.assert_close(
+            wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta, sd),
+            costvolume.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta, sd),
+            atol=1e-5, rtol=0)
+
+
+def _dtam_inputs(shape, dev, seed=9):
+    D, H, W = shape
+    rng = np.random.default_rng(seed)
+    vol = torch.from_numpy((rng.integers(0, 257, shape) / 256.0).astype(np.float32))
+    img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    g = costvolume.exponential_edge_weight(img, 14.0, 2.5)
+    vol = vol.to(dev, torch.bfloat16)
+    return vol, g, costvolume.cost_vol_minimum_subpix(vol, -1)
+
+
+DTAM_ARGS = (20.0, 0.7, 0.7, 0.002)  # lam, sigma_q, sigma_d, huber_alpha
+
+
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", FRAME_SHAPES)
+def test_dtam_kernel_matches_plain(dev, shape, sd):
+    vol, g, d0 = _dtam_inputs(shape, dev)
+    q0 = torch.zeros(d0.shape + (2,), device=dev)
+    got = dtam_cuda.dtam_run(vol, g, d0, d0, q0, 100.0, 1.0, *DTAM_ARGS, 1e-5, 50, sd)
+    want = stereo.dtam_iterate_plain(vol, g, d0, d0, q0, 100.0, 1.0, *DTAM_ARGS, 1e-5, 50, sd)
+    for name, a, b in zip("d a q theta".split(), got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("shape", FRAME_SHAPES)
+def test_dtam_steps_chain_and_match_plain(dev, shape):
+    vol, g, d0 = _dtam_inputs(shape, dev, seed=10)
+    state = (d0, d0, torch.zeros(d0.shape + (2,), device=dev), 100.0, 0.0)
+    six = dtam_cuda.dtam_step(vol, g, *state, *DTAM_ARGS, 1e-3, iterations=6)
+    s1 = dtam_cuda.dtam_step(vol, g, *state, *DTAM_ARGS, 1e-3, iterations=3)
+    s2 = dtam_cuda.dtam_step(vol, g, *s1, *DTAM_ARGS, 1e-3, iterations=3)
+    plain = stereo.dtam_increment(vol.cpu(), g.cpu(), d0.cpu(), d0.cpu(),
+                                  torch.zeros(d0.shape + (2,)), 100.0, 0.0, *DTAM_ARGS, 1e-3,
+                                  iterations=6)
+    for name, a, b, p in zip("d a q theta n".split(), six, s2, plain):
+        torch.testing.assert_close(b, a, atol=0, rtol=0, msg=name)
+        # the CPU's plain version: the same formula, other sqrt/division units
+        torch.testing.assert_close(a.cpu(), p, atol=1e-4, rtol=0, msg=name)
+
+
+def test_dtam_wrappers_check_their_arguments(dev):
+    vol, g, d0 = _dtam_inputs((8, 12, 40), dev)
+    q = torch.zeros(12, 40, 2, device=dev)
+    args = (100.0, 1.0, *DTAM_ARGS, 1e-5, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        dtam_cuda.dtam_run(vol, g, d0.clone().requires_grad_(True), d0, q, *args)
+    with pytest.raises(ValueError, match="does not match"):
+        dtam_cuda.dtam_run(vol, g[:, :39].contiguous(), d0, d0, q, *args)
+    with pytest.raises(ValueError, match="q"):
+        dtam_cuda.dtam_run(vol, g, d0, d0, q[..., :1], *args)
+    with pytest.raises(TypeError):
+        dtam_cuda.dtam_run(vol.to(torch.float16), g, d0, d0, q, *args)
+    with pytest.raises(ValueError, match="iterations"):
+        dtam_cuda.dtam_run(vol, g, d0, d0, q, 100.0, 1.0, *DTAM_ARGS, 1e-5, -1)
+    with pytest.raises(ValueError, match="does not match"):
+        wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, d0[:6].contiguous(), 20.0, 1.0)
+    # zero iterations: the state comes back, nothing is launched or counted
+    before = (dtam_cuda.launches, wta_cuda.sq_launches)
+    d, a, qq, theta = dtam_cuda.dtam_run(vol, g, d0, d0, q, 100.0, 1.0, *DTAM_ARGS, 1e-5, 0)
+    assert torch.equal(d, d0) and torch.equal(qq, q) and float(theta) == 100.0
+    assert (dtam_cuda.launches, wta_cuda.sq_launches) == before
+
+
+def test_wta_sq_backward_is_the_plain_gradient(dev):
+    rng = np.random.default_rng(11)
+    vol = torch.from_numpy(rng.random((8, 12, 40), dtype=np.float32)).to(dev)
+    last = torch.from_numpy(rng.uniform(0, 8, (12, 40)).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (dispatch.cost_vol_minimum_square_penalty_subpix,
+               costvolume.cost_vol_minimum_square_penalty_subpix):
+        xs = [vol.clone().requires_grad_(True), last.clone().requires_grad_(True)]
+        fn(*xs, 2.0, 0.5).sum().backward()
+        grads.append([x.grad for x in xs])
+    for g_op, g_plain in zip(*grads):
+        torch.testing.assert_close(g_op, g_plain, atol=1e-4, rtol=0)
+
+
+def test_dtam_pipeline_on_card_matches_cpu(dev):
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
+    cfg = stereo.StereoConfig(max_disp=16, census_window="9x7", dtam_iterations=10)
+    mods = (dtam_cuda, wta_cuda, median_cuda, lr_cuda)
+    counts = [m.launches for m in mods] + [wta_cuda.sq_launches]
+    got = stereo.stereo_pipeline(left.to(dev), right.to(dev), cfg).cpu()
+    assert [m.launches for m in mods] + [wta_cuda.sq_launches] == \
+        [c + n for c, n in zip(counts, (1, 2, 1, 1, 10))]
+    want = stereo.stereo_pipeline(left, right, cfg)
+    agree = (torch.isnan(got) & torch.isnan(want)) | ((got - want).abs() <= 1e-3)
+    assert agree.float().mean().item() >= 0.99
+    # the incremental schedule launches the alternation every frame
+    vs = stereo.VariationalStereo(cfg, its_per_frame=2)
+    for frame in range(3):
+        before = dtam_cuda.launches
+        assert vs.process_frame(left.to(dev), right.to(dev)).shape == (32, 96)
+        assert dtam_cuda.launches == before + 1, frame
+    assert float(vs.state[4]) == 6.0

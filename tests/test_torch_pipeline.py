@@ -1,5 +1,6 @@
 """The SGM frame: kangaroo_tpu_torch.apps.stereo_sgm.sgm_pipeline against
-kangaroo_tpu's on 4- and 8-path configurations, plus the port's contracts: it never
+kangaroo_tpu's on 4- and 8-path configurations and with the guided volume
+filter, plus the port's contracts: it never
 imports JAX, the CPU path launches no kernel, the unported options raise,
 and the autograd op's backward is the plain version's gradient.
 
@@ -38,14 +39,15 @@ def _agreement(a, b, tol):
 
 
 def test_synthetic_pair_matches():
-    for got, want in zip(tsyn.stereo_pair(W, H, D, seed=3), jsyn.stereo_pair(W, H, D, seed=3)):
+    for got, want in zip(tsyn.stereo_pair(W, H, D, seed=3, device="cpu"), jsyn.stereo_pair(W, H, D, seed=3)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("overrides", [dict(lr_from_left=True), dict(lr_from_left=False),
                                        dict(subpix=False, median_its=2),
                                        dict(do_diagonal=True),
-                                       dict(do_diagonal=True, lr_from_left=False)])
+                                       dict(do_diagonal=True, lr_from_left=False),
+                                       dict(guided_filter=True, filter_rad=4, lr_from_left=False)])
 def test_pipeline_matches_jax(overrides):
     jcfg = jss.SgmConfig(max_disp=D, **overrides)
     cfg = tss.SgmConfig.from_dict(dataclasses.asdict(jcfg))
@@ -71,7 +73,6 @@ def test_config_from_dict_carries_every_field():
 
 @pytest.mark.parametrize("cfg,mesh,piece", [
     (tss.SgmConfig(), object(), "mesh"),
-    (tss.SgmConfig(guided_filter=True), None, "guided_filter"),
     (tss.SgmConfig(bilateral_filter=True), None, "bilateral_filter"),
 ])
 def test_unported_options_raise(cfg, mesh, piece):
@@ -83,16 +84,16 @@ def test_unported_options_raise(cfg, mesh, piece):
 def test_cpu_path_launches_no_kernel():
     mods = (sgm_cuda, wta_cuda, median_cuda, lr_cuda)
     before = [m.launches for m in mods] + [sgm_cuda.diagonal_launches]
-    left, right, _ = tsyn.stereo_pair(48, 16, 8, seed=1)
+    left, right, _ = tsyn.stereo_pair(48, 16, 8, seed=1, device="cpu")
     for diagonal in (False, True):
         tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=8, do_diagonal=diagonal))
     assert [m.launches for m in mods] + [sgm_cuda.diagonal_launches] == before
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a tiny 4- and 8-path frame and
-    the three variational solves run, with JAX and the JAX package made
-    unimportable."""
+    """Every module of the port imports, and a tiny 4- and 8-path frame, the
+    three variational solves and a cold and an incremental DTAM frame run,
+    with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -100,9 +101,9 @@ def test_port_imports_no_jax():
         import kangaroo_tpu_torch
         for m in pkgutil.walk_packages(kangaroo_tpu_torch.__path__, "kangaroo_tpu_torch."):
             importlib.import_module(m.name)
-        from kangaroo_tpu_torch.apps import stereo_sgm, synthetic
+        from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
         from kangaroo_tpu_torch.variational import deconvolution, rof, tgv
-        left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0)
+        left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0, device="cpu")
         for diagonal in (False, True):
             cfg = stereo_sgm.SgmConfig(max_disp=8, do_diagonal=diagonal)
             disp = stereo_sgm.sgm_pipeline(left, right, cfg)
@@ -111,6 +112,9 @@ def test_port_imports_no_jax():
         for out in (rof.denoise(img, 8.0, iterations=3), tgv.denoise(img, iterations=3),
                     deconvolution.inpaint(img, (img > 0.5).float(), iterations=3)):
             assert out.shape == (16, 48)
+        dcfg = stereo.StereoConfig(max_disp=8, census_window="9x7", dtam_iterations=3)
+        assert stereo.stereo_pipeline(left, right, dcfg).shape == (16, 48)
+        assert stereo.VariationalStereo(dcfg, 2).process_frame(left, right).shape == (16, 48)
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
