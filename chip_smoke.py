@@ -15,7 +15,10 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    pair's census volumes at both shapes, the ROF (tv, huber,
    lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
    and 375x1242, plus one backward pass through each autograd op against
-   the plain version's gradient;
+   the plain version's gradient; the plane-sweep TSDF fuse at 256^3 with
+   640x480 depth and at (200, 136, 248) with 1242x375 depth, on the three
+   sweep axes, an empty and a fused volume, three plane windows, and
+   enable=False (a bit-exact passthrough);
 3. the main paths, each run with every launch count set to 0 just before
    and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
@@ -29,13 +32,22 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    the card, both within limits set from the JAX package's CPU-JAX quality
    on this pair); then ``rof.denoise``, ``tgv.denoise`` and
    ``deconvolution.inpaint`` on a seeded noisy 640x480 image (each brings
-   the error against the clean image down);
+   the error against the clean image down); KinectFusion at bench.py's
+   config (256^3 TSDF, 640x480, its (1, 0, 2, 3)) on the synthetic orbit:
+   frame 0 seeded at the true pose, 8 frames of ``process_frame`` (the
+   fuse kernel launched once per frame, every frame tracked), the same 8
+   through ``run_sequence`` and through a frame of plain versions (poses
+   within 1e-4), and ATE and final rmse within limits set from the JAX
+   package's CPU-JAX figures;
 4. CUDA-event times of each kernel, of both SGM frames, of the
    100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
    frame and one incremental DTAM frame against their plain versions at
    640x480(/64); each kernel's bound; the device time by kernel of one
    DTAM solve and one cold DTAM frame (torch.profiler), and the auxiliary
-   search on the volume as float32.
+   search on the volume as float32; the fuse kernel (the frame's window and
+   every plane), one KinectFusion frame against the frame of plain
+   versions, the sequence replay per frame, the frame's host
+   synchronisations and its device time by stage (torch.profiler).
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound (the larger of
@@ -73,10 +85,16 @@ KERNELS = {
             "kangaroo_tpu/variational/pallas_solvers.py:120"),
     "wta_sq": ("kangaroo_tpu_torch/csrc/wta_sq.cuh", "kangaroo_tpu/stereo/wta_pallas.py:82"),
     "dtam": ("kangaroo_tpu_torch/csrc/dtam.cu", "kangaroo_tpu/stereo/dtam_pallas.py:71"),
+    "separable_fuse": ("kangaroo_tpu_torch/csrc/separable_fuse.cu",
+                       "kangaroo_tpu/fusion/separable_pallas.py:39"),
 }
-# stated tolerances of kernel vs plain on the card (max abs error)
+# stated tolerances of kernel vs plain on the card (max abs error); the fuse:
+# val 1e-5 and weight 1e-4 where both updated (tests/test_separable.py's own
+# for the Pallas kernel against the XLA scan), voxels updated on one side
+# only counted and held to 1e-5 of the volume
 ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
-        "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4}
+        "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5}
+FUSE_WEIGHT_ATOL, FUSE_MAX_FLIP_SHARE = 1e-4, 1e-5
 GRAD_ATOL = 1e-4
 # lam, sigma_q, sigma_d, huber_alpha: the StereoConfig defaults
 DTAM_ARGS = (20.0, 0.7, 0.7, 0.002)
@@ -96,6 +114,23 @@ DTAM_JAX = {"cold50": {"invalid_frac": 0.05723907019704433,
                                "median_err_px": 0.03482389450073242}}
 DTAM_SLACK = 0.01
 DTAM_FRAMES, DTAM_INCR_FRAMES, DTAM_ITERS = 3, 10, 50
+# KinectFusion at bench.py's config (256^3 TSDF, 640x480, its=(1, 0, 2, 3))
+# on synthetic.depth_sequence(9, ...): frame 0 seeded at the true pose, the
+# other 8 tracked. The JAX package's CPU-JAX ATE (m) and final ICP rmse for
+# the frame loop and the sequence replay
+# (`PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_kinectfusion.py`);
+# the limits allow 1 mm of ATE (a tenth of a voxel) and 0.001 of rmse over
+# each, so they catch a broken port, not a last-bit flip
+KF_JAX = {"loop": {"ate_rmse_m": 0.0043184165842831135, "final_rmse": 0.0006290000164881349},
+          "sequence": {"ate_rmse_m": 0.004318505525588989,
+                       "final_rmse": 0.0006289670709520578}}
+KF_ATE_SLACK, KF_RMSE_SLACK = 0.001, 0.001
+KF_FRAMES = 8
+# fuse checks: (tag, (D, H, W) volume, (W, H) depth, focal length)
+FUSE_SHAPES = (("vga", (256, 256, 256), (640, 480), 550.0),
+               ("kitti", (200, 136, 248), (1242, 375), 1068.0))
+# cameras whose views pick the z, y and x sweeps
+SWEEP_EYES = {0: (0.3, -0.2, -3.0), 1: (0.2, 3.0, 0.4), 2: (-3.0, 0.3, -0.2)}
 # H100 SXM published peaks: HBM bytes/s, float32 operations/s outside the
 # tensor cores
 HBM_BPS, F32_OPS = 3.35e12, 67e12
@@ -163,7 +198,11 @@ def main() -> int:
         die("no CUDA device")
 
     from kangaroo_tpu_torch import _build
+    from kangaroo_tpu_torch.apps import kinectfusion as kf
     from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
+    from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume
+    from kangaroo_tpu_torch.core import se3
+    from kangaroo_tpu_torch.fusion import raycast, separable, separable_cuda
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
     from kangaroo_tpu_torch.stereo import census, costvolume, dispatch, lr_cuda
@@ -201,7 +240,7 @@ def main() -> int:
                 "wta": (wta_cuda, "launches"), "median": (median_cuda, "launches"),
                 "lr_check": (lr_cuda, "launches"), "rof": (solvers_cuda, "rof_launches"),
                 "tgv": (solvers_cuda, "tgv_launches"), "wta_sq": (wta_cuda, "sq_launches"),
-                "dtam": (dtam_cuda, "launches")}
+                "dtam": (dtam_cuda, "launches"), "separable_fuse": (separable_cuda, "launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -380,6 +419,85 @@ def main() -> int:
         smoke.phase(f"phase 2 solvers {W}x{H}", solvers_vs_plain, H, W)
     print("phase 2 backward through each autograd op vs the plain gradient:")
     smoke.phase("phase 2 backward", backward_vs_plain)
+
+    def look_at(eye):
+        """T_wc of a camera at ``eye`` looking at the origin (y down)."""
+        z = -np.asarray(eye, np.float64)
+        z /= np.linalg.norm(z)
+        x = np.cross(z, [0.0, -1.0, 0.0])
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z], 1)
+        return torch.from_numpy(np.concatenate([R, np.asarray(eye)[:, None]], 1)
+                                .astype(np.float32)).to(dev)
+
+    def fuse_vs_plain(tag, vol_shape, wh, f):
+        """The fuse kernel against fuse_planes_plain on the three sweep axes,
+        an empty and a fused volume, the full window, the frame's near/far
+        window and a tight one, and enable=False."""
+        Wi, Hi = wh
+        K = Intrinsics.centered(f, Wi, Hi)
+        cfg = kf.KinectFusionConfig(w=Wi, h=Hi)
+        scene = synthetic.sphere_scene(res=128, device=dev)
+        D, Hv, Wv = vol_shape
+        bbox = BoundingBox.create((-1.2,) * 3, (1.2,) * 3, device=dev)
+        vol = TsdfVolume.create(Wv, Hv, D, bbox, trunc_dist=float("nan"))
+        trunc = 2.0 * float(np.linalg.norm(vol.voxel_size_units().cpu().numpy()))
+        views = {}
+        for axis, eye in SWEEP_EYES.items():
+            T_wc = look_at(eye)
+            depth, _, _ = raycast.raycast_sdf(scene, T_wc, K, Wi, Hi, 0.5, 8.0)
+            _, v, n = kf.preprocess_depth(torch.nan_to_num(depth, 0.0), K, cfg)
+            views[axis] = (v[0][..., 2], n[0], se3.inverse(T_wc))
+        fused = TsdfVolume(vol.val.clone(), vol.weight.clone(), bbox)
+        for axis in (0, 2):
+            d, n, T_cw = views[axis]
+            fused = separable.sdf_fuse_separable(fused, d, n, T_cw, K, trunc, inplace=True)
+        for axis, (d, n, T_cw) in views.items():
+            if separable._view_axis_index(T_cw) != axis:
+                smoke.failures.append(f"phase 2 fuse {tag}: the pose for axis {axis} sweeps "
+                                      f"{separable._view_axis_index(T_cw)}")
+            for state, v in (("empty", vol), ("fused", fused)):
+                for win, nf in (("full", None), ("near-far", (0.5, 6.0)),
+                                ("tight", (2.2, 3.2))):
+                    near, far = nf or (None, None)
+                    gmd, gct, params, window = separable.fuse_inputs(
+                        v, d, n, T_cw, K, trunc, 1000.0, 0.1, axis, clip_planes=nf is not None,
+                        near=near, far=far)
+                    got = (v.val.clone(), v.weight.clone())
+                    want = (v.val.clone(), v.weight.clone())
+                    separable_cuda.fuse_planes(*got, gmd, gct, params, window, axis, Wi, Hi)
+                    separable.fuse_planes_plain(*want, gmd, gct, params, window, axis, Wi, Hi)
+                    what = f"{tag} axis {axis} {state} window {win} {window.tolist()}"
+                    gu, wu = got[1] > 0, want[1] > 0
+                    flips = int((gu != wu).sum())
+                    both = gu & wu
+                    ok = flips <= FUSE_MAX_FLIP_SHARE * gu.numel() and int(both.sum()) > 1000
+                    print(f"  {'ok  ' if ok else 'FAIL'} separable_fuse {what}: {int(wu.sum())} "
+                          f"voxels updated, {flips} updated on one side only (limit "
+                          f"{FUSE_MAX_FLIP_SHARE * gu.numel():.0f})")
+                    if not ok:
+                        smoke.failures.append(f"separable_fuse {what}: flips {flips}")
+                    smoke.compare("separable_fuse", f"{what} val", got[0], want[0],
+                                  ATOL["separable_fuse"], both)
+                    smoke.compare("separable_fuse", f"{what} weight", got[1], want[1],
+                                  FUSE_WEIGHT_ATOL, both)
+                    smoke.compare("separable_fuse", f"{what} untouched val", got[0], want[0],
+                                  0.0, ~gu & ~wu)
+            # enable=False passes the volume through bit for bit
+            gmd, gct, params, window = separable.fuse_inputs(
+                fused, d, n, T_cw, K, trunc, 1000.0, 0.1, axis, enable=False, near=0.5, far=6.0)
+            got = (fused.val.clone(), fused.weight.clone())
+            separable_cuda.fuse_planes(*got, gmd, gct, params, window, axis, Wi, Hi)
+            smoke.compare("separable_fuse", f"{tag} axis {axis} enable=False val", got[0],
+                          fused.val, 0.0)
+            smoke.compare("separable_fuse", f"{tag} axis {axis} enable=False weight", got[1],
+                          fused.weight, 0.0)
+
+    for tag, vol_shape, wh, f in FUSE_SHAPES:
+        print(f"phase 2 separable_fuse vs plain at {tag}: volume {vol_shape}, depth "
+              f"{wh[0]}x{wh[1]}:")
+        smoke.phase(f"phase 2 fuse {tag}", fuse_vs_plain, tag, vol_shape, wh, f)
+        torch.cuda.synchronize()
 
     # --- phase 3: the main paths ----------------------------------------------
     cfgs = {"4-path": stereo_sgm.SgmConfig(),
@@ -560,6 +678,109 @@ def main() -> int:
     print(f"phase 3 rof / tgv / inpaint at {W}x{H}, {SOLVER_ITERS} iterations:")
     smoke.phase("phase 3 denoise", denoise_phase)
 
+    # KinectFusion at bench.py's config on the synthetic orbit
+    kf_K = Intrinsics.centered(550.0, W, H)
+    kf_cfg = kf.KinectFusionConfig(w=W, h=H, vol_res=256, vol_extent=1.2, max_levels=4,
+                                   its=(1, 0, 2, 3), near=0.5, far=6.0)
+    kf_data = {}
+
+    def kf_seeded():
+        """A KinectFusion pipeline seeded with frame 0 at the true pose."""
+        pipe = kf.KinectFusion(kf_K, kf_cfg, device=dev)
+        pipe.T_wl = kf_data["poses"][0].clone()
+        pipe.process_frame(kf_data["depths"][0])
+        return pipe
+
+    def plain_kf_frame(vol, T_wl, depth, first):
+        """The frame composed of the plain versions, called by name; fuses
+        into ``vol`` in place and returns (T_wl', rmse)."""
+        _, kin_v, kin_n = kf.preprocess_depth(depth, kf_K, kf_cfg)
+        trunc = kf_cfg.trunc_dist_factor * float(np.linalg.norm(
+            vol.voxel_size_units().cpu().numpy()))
+        _, ray_v, ray_n = kf.raycast_model(vol, T_wl, kf_K, kf_cfg, levels=kf_cfg.its,
+                                           trunc=trunc, cloud=True)
+        T_lp, rmse = kf.icp_refine(kin_v, ray_v, ray_n, kf_K, kf_cfg)
+        first = torch.tensor(first, device=dev)
+        good = torch.isfinite(rmse) & (rmse < kf_cfg.max_rmse)
+        T_new = torch.where(good & ~first, se3.compose(T_wl, se3.inverse(T_lp)), T_wl)
+        T_cw = se3.inverse(T_new)
+        axis = separable._view_axis_index(T_cw)
+        gmd, gct, params, window = separable.fuse_inputs(
+            vol, kin_v[0][..., 2], kin_n[0], T_cw, kf_K, trunc, kf_cfg.max_w,
+            kf_cfg.min_cos_theta, axis, enable=good | first, near=kf_cfg.near, far=kf_cfg.far)
+        separable.fuse_planes_plain(vol.val, vol.weight, gmd, gct, params, window, axis, W, H)
+        return T_new, rmse
+
+    def kf_ate(poses):
+        """bench.py's ATE: the RMS of the translation errors (float32)."""
+        est = torch.stack(list(poses))[:, :, 3].cpu().numpy()
+        ref = torch.stack(kf_data["poses"][1:])[:, :, 3].cpu().numpy()
+        return float(np.sqrt(np.mean(np.sum((est - ref) ** 2, axis=1))))
+
+    def check_kf_quality(name, ate, rmse, ref):
+        lim = {"ate_rmse_m": ref["ate_rmse_m"] + KF_ATE_SLACK,
+               "final_rmse": ref["final_rmse"] + KF_RMSE_SLACK}
+        q = {"ate_rmse_m": ate, "final_rmse": rmse}
+        ok = all(np.isfinite(q[k]) and q[k] <= lim[k] for k in lim)
+        print(f"  {'ok  ' if ok else 'FAIL'} KinectFusion {name}: {json.dumps(q)}; the JAX package "
+              f"on CPU-JAX: {json.dumps(ref)}; limits {json.dumps(lim)}")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion {name}: quality {q}")
+
+    def kf_phase():
+        frames = list(synthetic.depth_sequence(
+            KF_FRAMES + 1, kf_K, W, H, scene=synthetic.sphere_scene(res=128, device=dev),
+            step=0.01))
+        kf_data["poses"] = [T for T, _ in frames]
+        kf_data["depths"] = [torch.where(torch.isfinite(d), d, 0.0) for _, d in frames]
+        pipe = kf_seeded()
+        torch.cuda.synchronize()
+        reset_counts()
+        prev = read_counts()
+        loop_poses = []
+        for f, depth in enumerate(kf_data["depths"][1:], 1):
+            loop_poses.append(pipe.process_frame(depth).clone())
+            torch.cuda.synchronize()
+            now = read_counts()
+            n = now["separable_fuse"] - prev["separable_fuse"]
+            print(f"  frame {f}: separable_fuse launched {n}, rmse {pipe.rmse:.6g}, tracking "
+                  f"{pipe.tracking_good}")
+            if n != 1 or not pipe.tracking_good:
+                smoke.failures.append(f"phase 3 KinectFusion frame {f}: fuse launched {n} "
+                                      f"times, tracking_good {pipe.tracking_good}")
+            prev = now
+        launches["separable_fuse"] = prev["separable_fuse"]
+        loop_rmse = pipe.rmse
+        if not (bool(torch.isfinite(torch.stack(loop_poses)).all())
+                and float(pipe.vol.weight.max()) > 0):
+            smoke.failures.append("phase 3 KinectFusion: non-finite poses or an empty volume")
+        seq = kf_seeded()
+        seq_poses, seq_rmses = seq.run_sequence(torch.stack(kf_data["depths"][1:]))
+        err = (seq_poses - torch.stack(loop_poses)).abs().max().item()
+        print(f"  {'ok  ' if err <= 1e-4 else 'FAIL'} run_sequence vs the frame loop: max pose "
+              f"difference {err:.3g} (limit 1e-4), sweep axis {seq._seq_axis}")
+        if not err <= 1e-4:
+            smoke.failures.append(f"phase 3 KinectFusion: sequence vs loop {err}")
+        # the frame composed of the plain versions, from the same seed
+        vol = kf.KinectFusion(kf_K, kf_cfg, device=dev).vol
+        T = kf_data["poses"][0].clone()
+        T, _ = plain_kf_frame(vol, T, kf_data["depths"][0], True)
+        errs = []
+        for depth, T_kernel in zip(kf_data["depths"][1:], loop_poses):
+            T, _ = plain_kf_frame(vol, T, depth, False)
+            errs.append((T - T_kernel).abs().max().item())
+        print(f"  {'ok  ' if max(errs) <= 1e-4 else 'FAIL'} kernel path vs plain path on the "
+              f"card: max pose difference per frame {[f'{e:.2g}' for e in errs]} (limit 1e-4)")
+        if not max(errs) <= 1e-4:
+            smoke.failures.append(f"phase 3 KinectFusion: kernel vs plain path {max(errs)}")
+        check_kf_quality("frame loop", kf_ate(loop_poses), loop_rmse, KF_JAX["loop"])
+        check_kf_quality("sequence", kf_ate(seq_poses), float(seq_rmses[-1]),
+                         KF_JAX["sequence"])
+
+    print(f"phase 3 KinectFusion (256^3 TSDF, {W}x{H}, its (1, 0, 2, 3)): frame 0 seeded, "
+          f"{KF_FRAMES} frames:")
+    smoke.phase("phase 3 KinectFusion", kf_phase)
+
     # --- phase 4: times -------------------------------------------------------
     times, bound = {}, {}
 
@@ -700,6 +921,160 @@ def main() -> int:
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)
+
+    def kf_timing_phase():
+        """The fuse kernel and its plain version on a running model at
+        256^3/VGA, the frame and the sequence replay, and where the frame's
+        device time goes."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        depths = kf_data["depths"]
+        pipe = kf_seeded()
+        for depth in depths[1:3]:
+            pipe.process_frame(depth)
+        depth = depths[3]
+        T_cw = se3.inverse(pipe.T_wl)
+        trunc = pipe.trunc_dist
+        _, kin_v, kin_n = kf.preprocess_depth(depth, kf_K, kf_cfg)
+        axis = separable._view_axis_index(T_cw)
+        gmd, gct, params, window = separable.fuse_inputs(
+            pipe.vol, kin_v[0][..., 2], kin_n[0], T_cw, kf_K, trunc, kf_cfg.max_w,
+            kf_cfg.min_cos_theta, axis, near=kf_cfg.near, far=kf_cfg.far)
+        full = torch.tensor([0, kf_cfg.vol_res], dtype=torch.int32, device=dev)
+        kvol = (pipe.vol.val.clone(), pipe.vol.weight.clone())
+        pvol = (pipe.vol.val.clone(), pipe.vol.weight.clone())
+        fuse_cases = {
+            "separable_fuse": (
+                lambda: separable_cuda.fuse_planes(*kvol, gmd, gct, params, window, axis, W, H),
+                lambda: separable.fuse_planes_plain(*pvol, gmd, gct, params, window, axis, W, H)),
+            "separable_fuse_full": (
+                lambda: separable_cuda.fuse_planes(*kvol, gmd, gct, params, full, axis, W, H),
+                lambda: separable.fuse_planes_plain(*pvol, gmd, gct, params, full, axis, W, H)),
+        }
+        for name, (kern, plain) in fuse_cases.items():
+            p1 = timing.time_fn(plain, warmup=1, runs=5)
+            k1 = timing.time_fn(kern, warmup=3, runs=20)
+            k2 = timing.time_fn(kern, warmup=0, runs=20)
+            p2 = timing.time_fn(plain, warmup=0, runs=5)
+            times[name] = (min(k1["median_ms"], k2["median_ms"]),
+                           min(p1["median_ms"], p2["median_ms"]))
+            print(f"  {name:19s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, plain "
+                  f"{p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms (256^3, {W}x{H} depth, "
+                  f"axis {axis}) [{card}]")
+        # the bound of what this run's data needs: the weight of every voxel
+        # of the window read (its limit applies to all), val read and val
+        # and weight written for the voxels updated, the two grids read;
+        # about 80 float32 operations per voxel of the window (geometry 30,
+        # four-tap samples 24, gate and blend 26). Beside it, a read and a
+        # write of val and weight of the window (16 bytes a voxel).
+        plane = kf_cfg.vol_res ** 2
+        for name, win in (("separable_fuse", window), ("separable_fuse_full", full)):
+            before = pipe.vol.weight.clone()
+            after = before.clone()
+            separable_cuda.fuse_planes(pipe.vol.val.clone(), after, gmd, gct, params, win, axis,
+                                       W, H)
+            n_upd = int((after != before).sum())
+            k_lo, k_hi = win.tolist()
+            nvox = (k_hi - k_lo) * plane
+            b, ops = 4 * nvox + 12 * n_upd + 2 * gmd.numel() * 4, 80 * nvox
+            t_bytes, t_ops = 1e3 * b / HBM_BPS, 1e3 * ops / F32_OPS
+            bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            print(f"  bound {name}: planes [{k_lo}, {k_hi}) of {kf_cfg.vol_res}, {n_upd} voxels "
+                  f"updated, {b / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP -> {bound[name][0]:.5f} ms "
+                  f"({bound[name][1]}); a read and write of the window's val and weight "
+                  f"{16 * nvox / 1e6:.1f} MB -> {1e3 * 16 * nvox / HBM_BPS:.5f} ms; kernel "
+                  f"{times[name][0]:.4f} ms [{card}]")
+
+        # the frame (process_frame) against the frame of plain versions, and
+        # the sequence replay per frame
+        pvol_frame = TsdfVolume(pipe.vol.val.clone(), pipe.vol.weight.clone(), pipe.vol.bbox)
+        T_plain = pipe.T_wl.clone()
+        p1 = timing.time_fn(lambda: plain_kf_frame(pvol_frame, T_plain, depth, False), warmup=1,
+                            runs=5)
+        k1 = timing.time_fn(pipe.process_frame, depth, warmup=2, runs=10)
+        k2 = timing.time_fn(pipe.process_frame, depth, warmup=0, runs=10)
+        p2 = timing.time_fn(lambda: plain_kf_frame(pvol_frame, T_plain, depth, False), warmup=0,
+                            runs=5)
+        times["kf_frame"] = (min(k1["median_ms"], k2["median_ms"]),
+                             min(p1["median_ms"], p2["median_ms"]))
+        print(f"  kf_frame   kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, plain "
+              f"{p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms (process_frame, 256^3, "
+              f"{W}x{H}) [{card}]")
+        stack = torch.stack(depths[1:])
+        seq_ms = []
+        for _ in range(3):
+            seq = kf_seeded()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            seq.run_sequence(stack)
+            end.record()
+            torch.cuda.synchronize()
+            seq_ms.append(start.elapsed_time(end) / len(stack))
+        print(f"  kf_sequence run_sequence of {len(stack)} frames: "
+              f"{', '.join(f'{m:.4f}' for m in seq_ms)} ms per frame [{card}]")
+
+        # host synchronisations per frame: torch's sync debug mode warns on
+        # each; the innermost lines of the port on the stack say where
+        import collections
+        import traceback
+        import warnings
+
+        sites = collections.Counter()
+
+        def record(*_args, **_kwargs):
+            stack = [f for f in traceback.extract_stack() if "kangaroo_tpu_torch" in f.filename]
+            sites[" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                              for f in stack[::-1][:2]) or "(outside the port)"] += 1
+
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            pipe.process_frame(depth)
+        torch.cuda.set_sync_debug_mode("default")
+        print(f"  kf_frame host synchronisations: {sum(sites.values())}, by site "
+              f"{json.dumps(dict(sites.most_common()))}")
+
+        # device time by stage and for the whole frame (torch.profiler)
+        def device_profile(run):
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            return (sum(e.self_device_time_total for e in ev), sum(e.count for e in ev), wall_us,
+                    sorted(((e.self_device_time_total, e.count, e.key) for e in ev),
+                           reverse=True))
+
+        _, kin_v, kin_n = kf.preprocess_depth(depth, kf_K, kf_cfg)
+        _, ray_v, ray_n = kf.raycast_model(pipe.vol, pipe.T_wl, kf_K, kf_cfg, levels=kf_cfg.its,
+                                           trunc=trunc, cloud=True)
+        fvol = TsdfVolume(pipe.vol.val.clone(), pipe.vol.weight.clone(), pipe.vol.bbox)
+        stages = {
+            "preprocess": lambda: kf.preprocess_depth(depth, kf_K, kf_cfg),
+            "raycasts (levels 0, 2, 3)": lambda: kf.raycast_model(
+                pipe.vol, pipe.T_wl, kf_K, kf_cfg, levels=kf_cfg.its, trunc=trunc, cloud=True),
+            "icp (6 iterations)": lambda: kf.icp_refine(kin_v, ray_v, ray_n, kf_K, kf_cfg),
+            "fuse (inputs + kernel)": lambda: separable.sdf_fuse_separable(
+                fvol, kin_v[0][..., 2], kin_n[0], T_cw, kf_K, trunc, kf_cfg.max_w,
+                kf_cfg.min_cos_theta, near=kf_cfg.near, far=kf_cfg.far, inplace=True),
+            "whole frame": lambda: pipe.process_frame(depth),
+        }
+        for name, run in stages.items():
+            busy, n, wall, top = device_profile(run)
+            print(f"  profile {name}: {n} kernel launches, device {busy / 1e3:.4f} ms of "
+                  f"{wall / 1e3:.4f} ms wall (busy share {busy / wall:.3f}, idle "
+                  f"{1 - busy / wall:.3f}) [{card}]")
+            for us, count, key in top[:4]:
+                print(f"    {us / 1e3:.4f} ms in {count} launches: {key[:90]}")
+
+    print(f"phase 4 KinectFusion times at 256^3, {W}x{H}:")
+    smoke.phase("phase 4 KinectFusion", kf_timing_phase)
     torch.cuda.synchronize()
 
     if smoke.failures:
@@ -711,7 +1086,9 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": smoke.max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1],
-         # no single PyTorch call computes any of these functions
+         # no single PyTorch call computes any of these functions (for the
+         # fuse, F.grid_sample computes only the interpolation: none of the
+         # update gate, the blend or the 1e-6 weight snap)
          "library_ms": None}
         for name, (src, replaces) in KERNELS.items()]}
     print(json.dumps(summary))

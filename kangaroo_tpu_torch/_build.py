@@ -2,7 +2,9 @@
 
 The kernels have a plain C interface (pointers, sizes and the stream as
 integers), so the library links against nothing of PyTorch and builds in
-seconds; it is loaded with ``ctypes``. The build runs at first use, into
+seconds; it is loaded with ``ctypes``. Each source compiles to an object in
+its own ``nvcc`` process, all started together, and one more links them.
+The build runs at first use, into
 ``_build/`` beside this file (listed in ``.gitignore``), under a name keyed
 on a hash of the sources and headers (``csrc/*.cu``, ``*.cuh``), the
 generated headers and the flags, so an edit to any of them rebuilds and an
@@ -23,7 +25,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu) and their argument types; every entry returns
@@ -48,6 +50,9 @@ SIGNATURES = {
     # vol, vol_is_bf16, g, d, a, q, thetas (host), D, H, W, sd, lam, sigma_q,
     # sigma_d, huber_alpha, iterations, stream
     "kt_dtam_run": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    # val, weight, gmd, gct, params, window, D, H, W, axis, gh, gw, Wi, Hi,
+    # stream
+    "kt_separable_fuse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -90,18 +95,27 @@ def _compile() -> Path:
     lib_path = BUILD_DIR / f"libkangaroo_kernels_{_key(sources, headers)}.so"
     if lib_path.exists():
         return lib_path
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         for name, text in headers.items():
             (Path(tmp) / name).write_text(text)
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        jobs = [([nvcc, *NVCC_FLAGS, "-I", tmp, "-I", str(CSRC_DIR), "-c", "-o", str(obj),
+                  str(src)]) for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(jobs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
         tmp_lib = Path(tmp) / lib_path.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", tmp, "-I", str(CSRC_DIR),
-               "-o", str(tmp_lib), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        lib_path.with_suffix(".log").write_text(log)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        lib_path.with_suffix(".log").write_text("".join(logs))
         # atomic publish: a concurrent build of the same key loses nothing
         os.replace(tmp_lib, lib_path)
     return lib_path

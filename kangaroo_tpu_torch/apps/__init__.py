@@ -1,1 +1,1 @@
-"""Applications: the SGM stereo frame and synthetic input."""
+"""Applications: the SGM and DTAM stereo frames, KinectFusion, and synthetic input."""

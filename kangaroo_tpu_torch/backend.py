@@ -7,6 +7,8 @@ built for raises. Tests and comparisons call the plain versions by name.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # the kernels are built for sm_90a only (_build.NVCC_FLAGS)
@@ -53,6 +55,24 @@ def f32_scalars(device, *values) -> list[torch.Tensor]:
     round in float32 as the JAX package's traced constants (and the
     kernels) do; a tensor is cast and moved. On the device, not the CPU:
     PyTorch divides a CUDA tensor by a CPU scalar as a multiply by its
-    reciprocal, which rounds differently from the kernels' division."""
+    reciprocal, which rounds differently from the kernels' division. Made
+    by a fill, not a copy from the host, so the stream is not waited for."""
     return [v.to(device=device, dtype=torch.float32) if isinstance(v, torch.Tensor)
-            else torch.tensor(float(v), dtype=torch.float32, device=device) for v in values]
+            else torch.full((), float(v), dtype=torch.float32, device=device) for v in values]
+
+
+def _hashable(values):
+    return tuple(map(_hashable, values)) if isinstance(values, (list, tuple)) else values
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """A small constant tensor on ``device``, made once and then reused: a
+    tensor made from host data on the card is a copy from pageable memory,
+    which first waits for everything queued on the stream. Callers must
+    not write to it."""
+    return _constant(_hashable(values), dtype, str(torch.device(device)))

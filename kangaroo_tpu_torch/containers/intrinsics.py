@@ -1,0 +1,61 @@
+"""Pinhole camera intrinsics (``kangaroo_tpu/containers/intrinsics.py``).
+
+The four parameters are Python floats holding float32 values, as the JAX
+package's are float32 scalars: ``create`` rounds them, and ``level``
+scales them with float32 arithmetic. Tensors they produce (``matrix``,
+``unproject_grid``) are made on the device the caller names. Points are
+(..., 3) ordered (x, y, z); pixels (u, v). ``project``, ``unproject``,
+``scale`` and ``inverse_matrix`` have no caller on the ported paths yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..backend import constant
+
+
+@dataclasses.dataclass(frozen=True)
+class Intrinsics:
+    """fu, fv focal lengths; u0, v0 principal point (pixels)."""
+
+    fu: float
+    fv: float
+    u0: float
+    v0: float
+
+    @classmethod
+    def create(cls, fu, fv=None, u0=0.0, v0=0.0) -> "Intrinsics":
+        if fv is None:
+            fv = fu
+        return cls(*(float(np.float32(v)) for v in (fu, fv, u0, v0)))
+
+    @classmethod
+    def centered(cls, f, w: int, h: int) -> "Intrinsics":
+        """Focal f with the principal point at the image centre."""
+        return cls.create(f, f, w / 2.0 - 0.5, h / 2.0 - 0.5)
+
+    def level(self, l: int) -> "Intrinsics":
+        """Intrinsics of power-of-two pyramid level ``l``, in float32."""
+        s, half = np.float32(1.0 / (1 << l)), np.float32(0.5)
+        fu, fv, u0, v0 = (np.float32(v) for v in (self.fu, self.fv, self.u0, self.v0))
+        return Intrinsics(float(s * fu), float(s * fv), float(s * (u0 + half) - half),
+                          float(s * (v0 + half) - half))
+
+    def matrix(self, device="cuda") -> torch.Tensor:
+        """The 3x3 K matrix, float32 (a shared constant: do not write to it)."""
+        return constant(((self.fu, 0.0, self.u0), (0.0, self.fv, self.v0), (0.0, 0.0, 1.0)),
+                        device=device)
+
+    def unproject_grid(self, w: int, h: int, z=None, device="cuda") -> torch.Tensor:
+        """Rays (x, y, 1) of every pixel of an (h, w) image -> (h, w, 3),
+        scaled by the depth image ``z`` if given (on ``z``'s device)."""
+        if z is not None:
+            device = z.device
+        v, u = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                              torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+        ray = torch.stack([(u - self.u0) / self.fu, (v - self.v0) / self.fv, torch.ones_like(u)],
+                          dim=-1)
+        return ray if z is None else ray * z.to(torch.float32)[..., None]

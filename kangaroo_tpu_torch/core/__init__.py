@@ -1,2 +1,3 @@
-"""Core helpers: invalid-value sentinels."""
-from . import invalid
+"""Core helpers: invalid-value sentinels, SE3 algebra, image sampling,
+IRLS weights."""
+from . import invalid, reweighting, sampling, se3

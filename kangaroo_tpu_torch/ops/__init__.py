@@ -1,1 +1,2 @@
-"""Image ops: median filters and the median kernel."""
+"""Image ops: median filters and the median kernel, bilateral filters,
+resampling, convolution and integral-image filters."""

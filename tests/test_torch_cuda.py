@@ -338,3 +338,140 @@ def test_dtam_pipeline_on_card_matches_cpu(dev):
         assert vs.process_frame(left.to(dev), right.to(dev)).shape == (32, 96)
         assert dtam_cuda.launches == before + 1, frame
     assert float(vs.state[4]) == 6.0
+
+
+# --- the plane-sweep TSDF fuse (csrc/separable_fuse.cu) ----------------------
+
+def _look_at(eye, target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):
+    """T_wc of a camera at ``eye`` looking at ``target`` (x right, y down)."""
+    eye, target, up = (np.asarray(v, np.float64) for v in (eye, target, up))
+    z = target - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(z, -up)
+    x /= np.linalg.norm(x)
+    return np.concatenate([np.stack([x, np.cross(z, x), z], 1), eye[:, None]], 1).astype(np.float32)
+
+
+# cameras whose views pick the z, y and x sweeps
+SWEEP_POSES = {0: (0.3, -0.2, -3.0), 1: (0.2, 3.0, 0.4), 2: (-3.0, 0.3, -0.2)}
+
+
+def _fuse_case(dev, vol_shape, wh, axis, seed_frames=0):
+    """A sphere scene's depth and normals from the pose of ``axis``, and a
+    volume (empty, or holding ``seed_frames`` fused frames of other poses)."""
+    from kangaroo_tpu_torch.apps import kinectfusion as kf
+    from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume
+    from kangaroo_tpu_torch.core import se3
+    from kangaroo_tpu_torch.fusion import raycast, separable
+
+    W, H = wh
+    K = Intrinsics.centered(0.86 * W, W, H)
+    scene = synthetic.sphere_scene(res=96, device=dev)
+    D, Hv, Wv = vol_shape
+    vol = TsdfVolume.create(Wv, Hv, D, BoundingBox.create((-1.2,) * 3, (1.2,) * 3, device=dev),
+                            trunc_dist=float("nan"))
+    cfg = kf.KinectFusionConfig(w=W, h=H)
+
+    def observe(a):
+        T_wc = torch.from_numpy(_look_at(SWEEP_POSES[a])).to(dev)
+        depth, _, _ = raycast.raycast_sdf(scene, T_wc, K, W, H, 0.5, 8.0)
+        _, v, n = kf.preprocess_depth(torch.nan_to_num(depth, 0.0), K, cfg)
+        return v[0][..., 2], n[0], se3.inverse(T_wc)
+
+    trunc = 2.0 * float(np.linalg.norm(vol.voxel_size_units().cpu().numpy()))
+    for a in [b for b in (0, 1, 2) if b != axis][:seed_frames]:
+        d, n, T_cw = observe(a)
+        vol = separable.sdf_fuse_separable(vol, d, n, T_cw, K, trunc, inplace=True)
+    d, n, T_cw = observe(axis)
+    assert separable._view_axis_index(T_cw) == axis
+    return vol, d, n, T_cw, K, trunc
+
+
+def _check_fused(got, want):
+    gv, gw, wv, ww = (*got, *want)
+    gu, wu = gw > 0, ww > 0
+    assert int((gu != wu).sum()) <= 1e-5 * gw.numel()
+    both = gu & wu
+    assert int(both.sum()) > 1000
+    torch.testing.assert_close(gv[both], wv[both], atol=1e-5, rtol=0)
+    torch.testing.assert_close(gw[both], ww[both], atol=1e-4, rtol=0)
+    neither = ~gu & ~wu
+    assert torch.equal(gv[neither].nan_to_num(7.0), wv[neither].nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("seed_frames", [0, 2])
+@pytest.mark.parametrize("near_far", [None, (0.5, 6.0), (2.2, 3.2)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("vol_shape,wh", [((96, 80, 112), (160, 120)),
+                                          ((200, 136, 248), (1242, 375))])
+def test_separable_fuse_kernel_matches_plain(dev, vol_shape, wh, axis, near_far, seed_frames):
+    from kangaroo_tpu_torch.fusion import separable, separable_cuda
+
+    vol, d, n, T_cw, K, trunc = _fuse_case(dev, vol_shape, wh, axis, seed_frames)
+    nf = near_far or (None, None)
+    gmd, gct, params, window = separable.fuse_inputs(vol, d, n, T_cw, K, trunc, 1000.0, 0.1, axis,
+                                                     clip_planes=near_far is not None,
+                                                     near=nf[0], far=nf[1])
+    got = (vol.val.clone(), vol.weight.clone())
+    want = (vol.val.clone(), vol.weight.clone())
+    before = separable_cuda.launches
+    separable_cuda.fuse_planes(*got, gmd, gct, params, window, axis, *wh)
+    assert separable_cuda.launches == before + 1
+    separable.fuse_planes_plain(*want, gmd, gct, params, window, axis, *wh)
+    _check_fused(got, want)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_separable_fuse_enable_false_is_a_passthrough(dev, axis):
+    from kangaroo_tpu_torch.fusion import separable
+
+    vol, d, n, T_cw, K, trunc = _fuse_case(dev, (96, 80, 112), (160, 120), axis, seed_frames=2)
+    out = separable.sdf_fuse_separable(vol, d, n, T_cw, K, trunc, enable=torch.tensor(False,
+                                                                                     device=dev))
+    assert torch.equal(out.weight, vol.weight)
+    assert torch.equal(out.val.nan_to_num(7.0), vol.val.nan_to_num(7.0))
+
+
+def test_separable_fuse_checks_its_arguments(dev):
+    from kangaroo_tpu_torch.fusion import separable, separable_cuda
+
+    vol, d, n, T_cw, K, trunc = _fuse_case(dev, (32, 24, 40), (64, 48), 0)
+    gmd, gct, params, window = separable.fuse_inputs(vol, d, n, T_cw, K, trunc)
+    args = (gmd, gct, params, window, 0, 64, 48)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        separable_cuda.fuse_planes(vol.val.clone().requires_grad_(True), vol.weight, *args)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        separable.sdf_fuse_separable(vol, d.clone().requires_grad_(True), n, T_cw, K, trunc)
+    with pytest.raises(ValueError, match="contiguous"):
+        separable_cuda.fuse_planes(vol.val.transpose(1, 2), vol.weight, *args)
+    with pytest.raises(TypeError):
+        separable_cuda.fuse_planes(vol.val, vol.weight, gmd, gct, params, window.long(), 0, 64, 48)
+    with pytest.raises(ValueError, match="params"):
+        separable_cuda.fuse_planes(vol.val, vol.weight, gmd, gct, params[:19].contiguous(),
+                                   window, 0, 64, 48)
+    with pytest.raises(ValueError, match="axis"):
+        separable_cuda.fuse_planes(vol.val, vol.weight, gmd, gct, params, window, 3, 64, 48)
+
+
+def test_kinectfusion_on_card_matches_cpu(dev):
+    from kangaroo_tpu_torch.apps import kinectfusion as kf
+    from kangaroo_tpu_torch.containers import Intrinsics
+    from kangaroo_tpu_torch.fusion import separable_cuda
+
+    W, H = 160, 120
+    K = Intrinsics.centered(137.5, W, H)
+    cfg = kf.KinectFusionConfig(w=W, h=H, vol_res=96, vol_extent=1.2, max_levels=3,
+                                its=(1, 2, 2), near=0.5, far=6.0)
+    frames = list(synthetic.depth_sequence(4, K, W, H, step=0.015, device="cpu",
+                                           scene=synthetic.sphere_scene(96, device="cpu")))
+    poses = {}
+    for where in ("cpu", dev):
+        pipe = kf.KinectFusion(K, cfg, device=where)
+        pipe.T_wl = frames[0][0].to(where)
+        before = separable_cuda.launches
+        poses[str(where)] = [pipe.process_frame(torch.nan_to_num(d, 0.0).to(where)).cpu()
+                             for _, d in frames]
+        assert separable_cuda.launches == before + (4 if where == dev else 0)
+        assert pipe.tracking_good
+    for a, b in zip(poses["cpu"], poses[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)

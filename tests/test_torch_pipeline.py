@@ -92,8 +92,8 @@ def test_cpu_path_launches_no_kernel():
 
 def test_port_imports_no_jax():
     """Every module of the port imports, and a tiny 4- and 8-path frame, the
-    three variational solves and a cold and an incremental DTAM frame run,
-    with JAX and the JAX package made unimportable."""
+    three variational solves, a cold and an incremental DTAM frame and two
+    KinectFusion frames run, with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -115,6 +115,19 @@ def test_port_imports_no_jax():
         dcfg = stereo.StereoConfig(max_disp=8, census_window="9x7", dtam_iterations=3)
         assert stereo.stereo_pipeline(left, right, dcfg).shape == (16, 48)
         assert stereo.VariationalStereo(dcfg, 2).process_frame(left, right).shape == (16, 48)
+        import torch
+        from kangaroo_tpu_torch.apps import kinectfusion as kf
+        from kangaroo_tpu_torch.containers import Intrinsics
+        K = Intrinsics.centered(30.0, 32, 24)
+        kcfg = kf.KinectFusionConfig(w=32, h=24, vol_res=16, vol_extent=1.2, max_levels=2,
+                                     its=(1, 1), near=0.5, far=6.0, max_rmse=0.3)
+        pipe = kf.KinectFusion(K, kcfg, device="cpu")
+        frames = list(synthetic.depth_sequence(2, K, 32, 24, step=0.02, device="cpu",
+                                               scene=synthetic.sphere_scene(24, device="cpu")))
+        pipe.T_wl = frames[0][0]
+        for _, depth in frames:
+            pose = pipe.process_frame(torch.nan_to_num(depth, 0.0))
+        assert pose.shape == (3, 4) and bool(pipe.vol.weight.max() > 0)
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
