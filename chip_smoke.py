@@ -18,13 +18,25 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    the plain version's gradient; the plane-sweep TSDF fuse at 256^3 with
    640x480 depth and at (200, 136, 248) with 1242x375 depth, on the three
    sweep axes, an empty and a fused volume, three plane windows, and
-   enable=False (a bit-exact passthrough);
+   enable=False (a bit-exact passthrough); the SGM segment kernels of the
+   multi-device and batched paths on a 4-way split of 640x480/64 and a
+   3-way split of 1242x375/128: column shards' vertical pairs at their
+   lattice offsets, row segments and the four diagonal segments chained
+   through their carries (each also against one pass through the same
+   kernel, exactly), and the seam pass of 4 stacked VGA frames against 4
+   single passes (exactly);
 3. the main paths, each run with every launch count set to 0 just before
    and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
    (every kernel of the frame is launched every frame, the frame agrees
    with the plain frame on the card, its disparity error against the
-   ground truth is within bounds); DTAM stereo: ``stereo_pipeline`` (the
+   ground truth is within bounds); the same two frames on a virtual
+   4-shard mesh of the card (``make_mesh(devices=["cuda:0"] * 4)``: the
+   reshard and the wavefront, with the segment kernels launched every
+   frame, the frame agreeing with the single-device frame and with the
+   mesh frame of plain versions, no host synchronisation inside the
+   aggregation) and ``sgm_pipeline_batched`` on 4 pairs (equal to the 4
+   frames one by one, exactly); DTAM stereo: ``stereo_pipeline`` (the
    cold 50-iteration solve, 16x16 census) for 3 frames and
    ``VariationalStereo(its_per_frame=5)`` for 10 frames on the same pair
    (the alternation, the auxiliary search, WTA, median and LR check
@@ -47,7 +59,14 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    search on the volume as float32; the fuse kernel (the frame's window and
    every plane), one KinectFusion frame against the frame of plain
    versions, the sequence replay per frame, the frame's host
-   synchronisations and its device time by stage (torch.profiler).
+   synchronisations and its device time by stage (torch.profiler); the
+   segment kernels (a wavefront row segment, a diagonal segment, the seam
+   pass of 4 frames, a column shard's vertical pair), the batch of 4
+   against 4 frames, the multi-device aggregations on a 1-shard mesh
+   (bench.py's sharded configs) and on the virtual 4-shard mesh, and the
+   4-shard frames, against the single-device aggregation and frame (a
+   virtual mesh runs its shards one after another on one card, so these
+   times say nothing of scaling over cards).
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound (the larger of
@@ -63,6 +82,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -71,11 +91,19 @@ SHAPES = (("vga", 480, 640, 64), ("kitti", 375, 1242, 128))
 SOLVER_SHAPES = ((480, 640), (375, 1242), (1242, 375))
 FRAMES = 3
 SOLVER_ITERS = 100
+# the segment checks split VGA 4 ways and KITTI-sized 3 ways (3 divides 375
+# and 1242); the main paths' virtual mesh has 4 shards, the batch 4 frames
+SEGMENT_SHARDS = {"vga": 4, "kitti": 3}
+MESH_SHARDS, BATCH = 4, 4
 
 # kernel -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
     "sgm": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
     "sgm_8path": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:504"),
+    # kernel 1's lane-offset, seam and carry variants, and the diagonal segment
+    "sgm_segment": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
+    "sgm_diag_segment": ("kangaroo_tpu_torch/csrc/sgm.cu",
+                         "kangaroo_tpu/stereo/sgm_pallas.py:397"),
     "wta": ("kangaroo_tpu_torch/csrc/wta.cu", "kangaroo_tpu/stereo/wta_pallas.py:25"),
     "median": ("kangaroo_tpu_torch/csrc/median.cu", "kangaroo_tpu/ops/median_pallas.py:70"),
     "lr_check": ("kangaroo_tpu_torch/csrc/lr_check.cu", "kangaroo_tpu/stereo/lr_pallas.py:37"),
@@ -92,7 +120,8 @@ KERNELS = {
 # val 1e-5 and weight 1e-4 where both updated (tests/test_separable.py's own
 # for the Pallas kernel against the XLA scan), voxels updated on one side
 # only counted and held to 1e-5 of the volume
-ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
+ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "sgm_segment": 1e-4, "sgm_diag_segment": 1e-4,
+        "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
         "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5}
 FUSE_WEIGHT_ATOL, FUSE_MAX_FLIP_SHARE = 1e-4, 1e-5
 GRAD_ATOL = 1e-4
@@ -205,6 +234,8 @@ def main() -> int:
     from kangaroo_tpu_torch.fusion import raycast, separable, separable_cuda
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
+    from kangaroo_tpu_torch.parallel import mesh as mesh_mod
+    from kangaroo_tpu_torch.parallel import sharding
     from kangaroo_tpu_torch.stereo import census, costvolume, dispatch, lr_cuda
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
     from kangaroo_tpu_torch.stereo import dtam_cuda, sgm_cuda, wta_cuda
@@ -237,6 +268,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     # kernel -> (module, attribute) of its launch count
     counters = {"sgm": (sgm_cuda, "launches"), "sgm_8path": (sgm_cuda, "diagonal_launches"),
+                "sgm_segment": (sgm_cuda, "segment_launches"),
+                "sgm_diag_segment": (sgm_cuda, "diag_segment_launches"),
                 "wta": (wta_cuda, "launches"), "median": (median_cuda, "launches"),
                 "lr_check": (lr_cuda, "launches"), "rof": (solvers_cuda, "rof_launches"),
                 "tgv": (solvers_cuda, "tgv_launches"), "wta_sq": (wta_cuda, "sq_launches"),
@@ -271,6 +304,30 @@ def main() -> int:
         noisy = clean + 0.15 * r.standard_normal((H, W)).astype(np.float32)
         keep = (r.random((H, W)) > 0.2).astype(np.float32)
         return tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy, keep))
+
+    def host_syncs(run):
+        """The host synchronisations of ``run()``: torch's sync debug mode
+        warns on each; the innermost lines of the port on the stack say
+        where."""
+        import collections
+        import warnings
+
+        sites = collections.Counter()
+
+        def record(*_args, **_kwargs):
+            stack = [f for f in traceback.extract_stack() if "kangaroo_tpu_torch" in f.filename]
+            sites[" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                              for f in stack[::-1][:2]) or "(outside the port)"] += 1
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return sites
 
     # --- phase 2: each kernel against its plain version -----------------------
     def kernels_vs_plain(tag, H, W, D):
@@ -356,6 +413,116 @@ def main() -> int:
                               costvolume.left_right_check(dl, dr, sd, 1.0, max_disp=D),
                               ATOL["lr_check"])
 
+    def segments_vs_plain(tag, H, W, D, n):
+        """The segment kernels against their plain versions on an n-way
+        split, on the synthetic pair's census volumes and on random ones:
+        the column shards' vertical pairs at their lattice offsets; the
+        last column block's row segments chained down and up through their
+        carries; the four diagonals' row segments likewise; each chain also
+        against one pass through the same kernel (exactly). At VGA, the
+        seam pass of 4 stacked frames against 4 single passes (exactly)
+        and against the plain seam pass."""
+        left, right, _ = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
+        cl, cr = census.census(left, "16x16"), census.census(right, "16x16")
+        bits = census.norm_bits("16x16")
+        imgs = {-1: stereo_sgm._intensity(left), 1: stereo_sgm._intensity(right)}
+        vols = {-1: census.census_cost_volume(cl, cr, D, -1, bits, dtype=torch.bfloat16),
+                1: census.census_cost_volume(cr, cl, D, 1, bits, dtype=torch.bfloat16)}
+        rand_vol = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
+        rand_img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+        Hs, Ws = H // n, W // n
+        fns = {"sgm_segment": (sgm_cuda.sgm_aggregate_block, sgm_plain.sgm_aggregate_block),
+               "sgm_diag_segment": (sgm_cuda.sgm_aggregate_diag_block,
+                                    sgm_plain.sgm_aggregate_diag_block)}
+
+        def chain(fn, vol, img, mode, rev, dx=None, c0=0):
+            """Segments over the n row shards, downward or upward, through
+            their carries, into one accumulator; returns it and the last
+            carry."""
+            acc = torch.zeros((D, H, vol.shape[2]), device=dev)
+            N = vol.shape[2]
+            if dx is None:
+                carry = (None, None, None)
+            else:
+                zero = torch.zeros(N, device=dev)
+                carry = (torch.full((D, N), 1e30, device=dev), zero, zero, zero)
+            for k in (range(n - 1, -1, -1) if rev else range(n)):
+                rows = slice(k * Hs, (k + 1) * Hs)
+                if dx is None:
+                    _, *carry = fn(vol[:, rows], img[rows], 0.01, 0.02, mode, width=W,
+                                   seed=carry[0] is None, carry_prev=carry[0],
+                                   carry_best=carry[1], last_img=carry[2], lane_offset=c0,
+                                   acc=acc[:, rows], reverse=rev)
+                else:
+                    _, cp, cb, li, ch = fn(vol[:, rows], img[rows], *carry, 0.01, 0.02, mode,
+                                           dx=dx, acc=acc[:, rows], reverse=rev)
+                    carry = (cp, cb, ch, li)
+            return acc, carry
+
+        for sd in (-1, 1):
+            mode = "left" if sd < 0 else "right"
+            m = lattice(D, W, sd)
+            for src, vol, img in (("census-bf16", vols[sd], imgs[sd]),
+                                  ("random-f32", rand_vol, rand_img)):
+                what = f"{tag} {src} sd={sd:+d}"
+                for k in range(n):
+                    cols = slice(k * Ws, (k + 1) * Ws)
+                    args = (vol[:, :, cols], img[:, cols], 0.01, 0.02, True, mode)
+                    got = sgm_cuda.sgm_aggregate_scan(*args, width=W, lane_offset=k * Ws)
+                    smoke.compare("sgm_segment", f"{what} column shard {k}/{n} vertical pair",
+                                  got, sgm_plain.sgm_aggregate_scan(*args, width=W,
+                                                                    lane_offset=k * Ws),
+                                  ATOL["sgm_segment"], m[:, :, cols].expand_as(got))
+                c0 = (n - 1) * Ws
+                cols = slice(c0, W)
+                for rev in (False, True):
+                    sense = "up" if rev else "down"
+                    (acc_k, ck), (acc_p, cp) = (chain(fn, vol[:, :, cols], img[:, cols], mode, rev,
+                                                      c0=c0) for fn in fns["sgm_segment"])
+                    mm = m[:, :, cols].expand_as(acc_k)
+                    smoke.compare("sgm_segment", f"{what} {n} row segments {sense}, columns "
+                                  f"{c0}..{W - 1}", acc_k, acc_p, ATOL["sgm_segment"], mm)
+                    smoke.compare("sgm_segment", f"{what} {n} row segments {sense} carry best",
+                                  ck[1], cp[1], ATOL["sgm_segment"])
+                    one = sgm_cuda.sgm_aggregate_block(vol[:, :, cols], img[:, cols], 0.01, 0.02,
+                                                       mode, width=W, lane_offset=c0,
+                                                       reverse=rev)[0]
+                    smoke.compare("sgm_segment", f"{what} {n} row segments {sense} vs one pass",
+                                  acc_k, one, 0.0, mm)
+                for dx, rev in ((1, False), (-1, False), (1, True), (-1, True)):
+                    sense = f"dx={dx:+d} {'up' if rev else 'down'}"
+                    (acc_k, ck), (acc_p, cp) = (chain(fn, vol, img, mode, rev, dx)
+                                                for fn in fns["sgm_diag_segment"])
+                    smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense}",
+                                  acc_k, acc_p, ATOL["sgm_diag_segment"], m.expand_as(acc_k))
+                    smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense} "
+                                  "carry best", ck[1], cp[1], ATOL["sgm_diag_segment"])
+                    zero = torch.zeros(W, device=dev)
+                    one = sgm_cuda.sgm_aggregate_diag_block(
+                        vol, img, torch.full((D, W), 1e30, device=dev), zero, zero, zero, 0.01,
+                        0.02, mode, dx=dx, reverse=rev)[0]
+                    smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense} "
+                                  "vs one pass", acc_k, one, 0.0, m.expand_as(acc_k))
+        if tag != "vga":
+            return
+        # the seam pass of 4 stacked frames (the batch's census volumes)
+        pairs = [synthetic.stereo_pair(W, H, D, seed=k, device=dev) for k in range(BATCH)]
+        vol4 = census.census_cost_volume(
+            torch.cat([census.census(p[0], "16x16") for p in pairs]),
+            torch.cat([census.census(p[1], "16x16") for p in pairs]), D, -1, bits,
+            dtype=torch.bfloat16)
+        img4 = stereo_sgm._intensity(torch.cat([p[0] for p in pairs]))
+        seam = sgm_cuda.semi_global_matching(vol4, img4, seam_period=H)
+        for k in range(BATCH):
+            rows = slice(k * H, (k + 1) * H)
+            smoke.compare("sgm_segment", f"{tag} seam pass of {BATCH} frames, frame {k} vs its "
+                          "own pass", seam[:, rows],
+                          sgm_cuda.semi_global_matching(vol4[:, rows].contiguous(),
+                                                        img4[rows].contiguous()), 0.0)
+        smoke.compare("sgm_segment", f"{tag} seam pass of {BATCH} frames vs plain", seam,
+                      sgm_plain.semi_global_matching(vol4, img4, seam_period=H),
+                      ATOL["sgm_segment"], lattice(D, W, -1).expand_as(seam))
+
     def solvers_vs_plain(H, W):
         """The solves on a noisy image and on uniform noise (bench.py's input)."""
         _, noisy, keep = noisy_image(H, W, seed=1)
@@ -413,6 +580,10 @@ def main() -> int:
     for tag, H, W, D in SHAPES:
         print(f"phase 2 kernel vs plain at {tag} {W}x{H}/{D}:")
         smoke.phase(f"phase 2 {tag}", kernels_vs_plain, tag, H, W, D)
+        torch.cuda.synchronize()
+        n = SEGMENT_SHARDS[tag]
+        print(f"phase 2 SGM segment kernels vs plain at {tag} {W}x{H}/{D}, {n}-way split:")
+        smoke.phase(f"phase 2 segments {tag}", segments_vs_plain, tag, H, W, D, n)
         torch.cuda.synchronize()
     for H, W in SOLVER_SHAPES:
         print(f"phase 2 solver kernels vs plain at {W}x{H}, {SOLVER_ITERS} iterations:")
@@ -548,11 +719,11 @@ def main() -> int:
         if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
             smoke.failures.append(f"phase 3 {name}: quality {q}")
 
-    def check_agreement(name, disp, ref):
+    def check_agreement(name, disp, ref, against="kernel path vs plain path"):
         both_nan = torch.isnan(disp) & torch.isnan(ref)
         close = (disp - ref).abs() <= 1e-3
         agree = (both_nan | close).float().mean().item()
-        print(f"  {name} kernel path vs plain path on the card: {100 * agree:.3f} % of pixels "
+        print(f"  {name} {against} on the card: {100 * agree:.3f} % of pixels "
               f"agree (both NaN or |d| <= 1e-3 px; need >= 99.5 %)")
         if agree < 0.995:
             smoke.failures.append(f"phase 3 {name}: agreement {agree:.4f} < 0.995")
@@ -567,6 +738,111 @@ def main() -> int:
         return {"invalid_frac": float(1.0 - m.sum() / inner.sum()),
                 "median_err_px": float(np.median(err)), "mean_err_px": float(err.mean()),
                 "bad1px_frac": float((err > 1.0).mean())}
+
+    # the multi-device frames on a virtual mesh of the card, and the batch
+    vmesh = mesh_mod.make_mesh(devices=[dev] * MESH_SHARDS)
+    mesh_kernels = {"4-path": ("sgm", "sgm_segment", "wta", "median", "lr_check"),
+                    "8-path": ("sgm", "sgm_segment", "sgm_diag_segment", "wta", "median",
+                               "lr_check")}
+    slice_launches = {}
+    # every op of the mesh path as its plain version (``plain_mesh_frame``)
+    plain_ops = types.SimpleNamespace(
+        semi_global_matching=sgm_plain.semi_global_matching,
+        sgm_aggregate_scan=sgm_plain.sgm_aggregate_scan,
+        sgm_aggregate_block=sgm_plain.sgm_aggregate_block,
+        sgm_aggregate_diag_block=sgm_plain.sgm_aggregate_diag_block,
+        cost_vol_minimum_subpix=costvolume.cost_vol_minimum_subpix,
+        median_filter_reject_invalid=median_plain.median_filter_reject_invalid,
+        left_right_check=costvolume.left_right_check)
+
+    def plain_mesh_frame(left, right, cfg):
+        """The mesh frame with every op the sharded code calls swapped for
+        its plain version for the call."""
+        kernel_ops = sharding.fast
+        sharding.fast = plain_ops
+        try:
+            return stereo_sgm.sgm_pipeline(left, right, cfg, mesh=vmesh)
+        finally:
+            sharding.fast = kernel_ops
+
+    def aggregation_inputs(cfg):
+        bits = census.norm_bits(cfg.census_window)
+        vol = census.census_cost_volume(census.census(left, cfg.census_window),
+                                        census.census(right, cfg.census_window), D, -1, bits,
+                                        dtype=torch.bfloat16)
+        return vol, stereo_sgm._intensity(left)
+
+    def mesh_aggregation(cfg, mesh, vol, img):
+        """The aggregation ``sgm_pipeline(mesh=)`` runs for ``cfg``."""
+        if cfg.do_diagonal:
+            return sharding.sharded_semi_global_matching(vol, img, cfg.p1, cfg.p2, mesh,
+                                                         do_diagonal=True)
+        return sharding.sharded_semi_global_matching_reshard(vol, img, cfg.p1, cfg.p2, mesh)
+
+    def mesh_phase(name):
+        cfg = cfgs[name]
+        reset_counts()
+        prev = read_counts()
+        for f in range(FRAMES):
+            disp = stereo_sgm.sgm_pipeline(left, right, cfg, mesh=vmesh)
+            torch.cuda.synchronize()
+            now = read_counts()
+            print(f"  {name} mesh frame {f}: launches so far "
+                  f"{ {k: now[k] for k in mesh_kernels[name]} }")
+            for k in mesh_kernels[name]:
+                if now[k] <= prev[k]:
+                    smoke.failures.append(f"phase 3 {name} mesh: {k} was not launched in "
+                                          f"frame {f}")
+            prev = now
+        slice_launches[name] = prev
+        if (tuple(disp.shape) != (H, W) or disp.dtype != torch.float32
+                or disp.device != vmesh.devices[0]):
+            smoke.failures.append(f"phase 3 {name} mesh: output {tuple(disp.shape)} "
+                                  f"{disp.dtype} on {disp.device}")
+        check_agreement(f"{name} mesh", disp, stereo_sgm.sgm_pipeline(left, right, cfg),
+                        "vs the single-device kernel frame")
+        check_agreement(f"{name} mesh", disp, plain_mesh_frame(left, right, cfg),
+                        "vs the mesh frame of plain versions")
+        q = disp_quality(disp)
+        print(f"  {name} mesh quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
+        if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
+            smoke.failures.append(f"phase 3 {name} mesh: quality {q}")
+        vol, img = aggregation_inputs(cfg)
+        torch.cuda.synchronize()
+        sites = host_syncs(lambda: mesh_aggregation(cfg, vmesh, vol, img))
+        print(f"  {'ok  ' if not sites else 'FAIL'} {name} mesh aggregation host "
+              f"synchronisations: {sum(sites.values())} {json.dumps(dict(sites))}")
+        if sites:
+            smoke.failures.append(f"phase 3 {name} mesh: host synchronisations {dict(sites)}")
+
+    def batched_phase():
+        pairs = [synthetic.stereo_pair(W, H, D, seed=k, device=dev) for k in range(BATCH)]
+        lefts = torch.stack([p[0] for p in pairs])
+        rights = torch.stack([p[1] for p in pairs])
+        cfg = cfgs["4-path"]
+        reset_counts()
+        disp = stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg)
+        torch.cuda.synchronize()
+        now = read_counts()
+        slice_launches["batch"] = now
+        print(f"  batch of {BATCH}: launches "
+              f"{ {k: now[k] for k in mesh_kernels['4-path']} }")
+        for k in mesh_kernels["4-path"]:
+            if now[k] == 0:
+                smoke.failures.append(f"phase 3 batch: {k} was not launched")
+        if tuple(disp.shape) != (BATCH, H, W) or disp.dtype != torch.float32:
+            smoke.failures.append(f"phase 3 batch: output {tuple(disp.shape)} {disp.dtype}")
+        for k in range(BATCH):
+            frame = stereo_sgm.sgm_pipeline(lefts[k], rights[k], cfg)
+            same = bool(((torch.isnan(disp[k]) & torch.isnan(frame)) | (disp[k] == frame)).all())
+            print(f"  {'ok  ' if same else 'FAIL'} batch frame {k} (seed {k}) equal to its "
+                  "single-device frame")
+            if not same:
+                smoke.failures.append(f"phase 3 batch: frame {k} differs from its own frame")
+        q = disp_quality(disp[0])
+        print(f"  batch frame 0 quality on stereo_pair(640, 480, 64, seed=0): {json.dumps(q)}")
+        if not (q["invalid_frac"] <= MAX_INVALID and q["median_err_px"] <= MAX_MEDIAN_ERR):
+            smoke.failures.append(f"phase 3 batch: quality {q}")
 
     dcfg = stereo.StereoConfig(max_disp=D, census_window="16x16", dtam_iterations=DTAM_ITERS)
     dtam_kernels = ("dtam", "wta_sq", "wta", "median", "lr_check")
@@ -669,6 +945,17 @@ def main() -> int:
     for name in cfgs:
         print(f"phase 3 sgm_pipeline ({name}) at {W}x{H}/{D}, {FRAMES} frames:")
         smoke.phase(f"phase 3 {name}", frame_phase, name)
+    for name in cfgs:
+        print(f"phase 3 sgm_pipeline ({name}, mesh of {MESH_SHARDS} virtual shards of the card) "
+              f"at {W}x{H}/{D}, {FRAMES} frames:")
+        smoke.phase(f"phase 3 {name} mesh", mesh_phase, name)
+    print(f"phase 3 sgm_pipeline_batched ({BATCH} pairs, seeds 0-{BATCH - 1}) at {W}x{H}/{D}:")
+    smoke.phase("phase 3 batch", batched_phase)
+    if all(k in slice_launches for k in ("4-path", "8-path", "batch")):
+        # the segment kernels' launches on this slice's three paths
+        launches["sgm_segment"] = sum(slice_launches[k]["sgm_segment"]
+                                      for k in ("4-path", "8-path", "batch"))
+        launches["sgm_diag_segment"] = slice_launches["8-path"]["sgm_diag_segment"]
     print(f"phase 3 DTAM stereo_pipeline (cold, {DTAM_ITERS} iterations) at {W}x{H}/{D}, "
           f"{DTAM_FRAMES} frames:")
     smoke.phase("phase 3 DTAM cold", dtam_phase)
@@ -922,6 +1209,132 @@ def main() -> int:
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)
 
+    def mesh_timing_phase():
+        """The segment kernels at the main paths' shapes (a 4-shard
+        wavefront's row segment of a column block, with its carry and
+        accumulator; a row shard's diagonal segment; the seam pass of 4
+        frames; a column shard's vertical pair), their plain versions and
+        bounds; the batch of 4 against 4 frames; the multi-device
+        aggregations on 1 and 4 virtual shards against the single-device
+        one, and the 4-shard frames against the single-device frames."""
+        cfg4, cfg8 = cfgs["4-path"], cfgs["8-path"]
+        vol, img = aggregation_inputs(cfg4)
+        n = MESH_SHARDS
+        Hs, Ws = H // n, W // n
+        rows, cols = slice(Hs, 2 * Hs), slice(Ws, 2 * Ws)
+        carry = sgm_cuda.sgm_aggregate_block(vol[:, :Hs, cols], img[:Hs, cols], width=W,
+                                             lane_offset=Ws)[1:]
+        zero = torch.zeros(W, device=dev)
+        dcarry = sgm_cuda.sgm_aggregate_diag_block(vol[:, :Hs], img[:Hs],
+                                                   torch.full((D, W), 1e30, device=dev), zero,
+                                                   zero, zero)[1:]
+        acc_blk = torch.zeros((D, Hs, Ws), device=dev)
+        acc_row = torch.zeros((D, Hs, W), device=dev)
+        pairs = [synthetic.stereo_pair(W, H, D, seed=k, device=dev) for k in range(BATCH)]
+        lefts = torch.stack([p[0] for p in pairs])
+        rights = torch.stack([p[1] for p in pairs])
+        bits = census.norm_bits(cfg4.census_window)
+        vol4 = census.census_cost_volume(
+            torch.cat([census.census(p[0], "16x16") for p in pairs]),
+            torch.cat([census.census(p[1], "16x16") for p in pairs]), D, -1, bits,
+            dtype=torch.bfloat16)
+        img4 = stereo_sgm._intensity(lefts.reshape(BATCH * H, W))
+
+        def block(fn, acc):
+            return fn(vol[:, rows, cols], img[rows, cols], width=W, seed=False,
+                      carry_prev=carry[0], carry_best=carry[1], last_img=carry[2],
+                      lane_offset=Ws, acc=acc)
+
+        def diag(fn, acc):
+            return fn(vol[:, rows], img[rows], dcarry[0], dcarry[1], dcarry[3], dcarry[2],
+                      acc=acc)
+
+        cases = {
+            "sgm_segment": (lambda: block(sgm_cuda.sgm_aggregate_block, acc_blk),
+                            lambda: block(sgm_plain.sgm_aggregate_block, acc_blk)),
+            "sgm_diag_segment": (lambda: diag(sgm_cuda.sgm_aggregate_diag_block, acc_row),
+                                 lambda: diag(sgm_plain.sgm_aggregate_diag_block, acc_row)),
+            "seam_pass": (lambda: sgm_cuda.semi_global_matching(vol4, img4, seam_period=H),
+                          lambda: sgm_plain.semi_global_matching(vol4, img4, seam_period=H)),
+            "column_shard": (
+                lambda: sgm_cuda.sgm_aggregate_scan(vol[:, :, cols], img[:, cols], width=W,
+                                                    lane_offset=Ws),
+                lambda: sgm_plain.sgm_aggregate_scan(vol[:, :, cols], img[:, cols], width=W,
+                                                     lane_offset=Ws)),
+            # against 4 single-device frames through the kernels
+            "batch4": (lambda: stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg4),
+                       lambda: [stereo_sgm.sgm_pipeline(a, b, cfg4)
+                                for a, b in zip(lefts, rights)]),
+        }
+        for name, (kern, plain) in cases.items():
+            slow = name not in ("batch4",)
+            p1 = timing.time_fn(plain, warmup=1, runs=3 if slow else 10)
+            k1 = timing.time_fn(kern, warmup=3, runs=20)
+            k2 = timing.time_fn(kern, warmup=0, runs=20)
+            p2 = timing.time_fn(plain, warmup=0, runs=3 if slow else 10)
+            times[name] = (min(k1["median_ms"], k2["median_ms"]),
+                           min(p1["median_ms"], p2["median_ms"]))
+            vs = "4 single frames" if name == "batch4" else "plain"
+            print(f"  {name:16s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, {vs} "
+                  f"{p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms [{card}]")
+        k, p = times["batch4"]
+        print(f"  batch of {BATCH}: {1e3 * BATCH / k:.2f} fps stacked, {1e3 * BATCH / p:.2f} fps "
+              f"as {BATCH} frames [{card}]")
+
+        # bounds: each input read once, each output written once (the
+        # accumulator read and written), the carries in and out; 9 float32
+        # operations per (d, pixel, direction)
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        f32 = 4
+        work = {
+            "sgm_segment": (nbytes(vol[:, rows, cols], img[rows, cols]) + 2 * nbytes(acc_blk)
+                            + 2 * (D + 1) * Ws * f32 + Ws * f32, 9 * acc_blk.numel()),
+            "sgm_diag_segment": (nbytes(vol[:, rows], img[rows]) + 2 * nbytes(acc_row)
+                                 + 2 * (D + 1) * W * f32 + 2 * W * f32, 9 * acc_row.numel()),
+            "seam_pass": (nbytes(vol4, img4) + vol4.numel() * f32, 4 * 9 * vol4.numel()),
+            "column_shard": (nbytes(vol[:, :, cols], img[:, cols]) + D * H * Ws * f32,
+                             2 * 9 * D * H * Ws),
+        }
+        for name, (b, ops) in work.items():
+            t_bytes, t_ops = 1e3 * b / HBM_BPS, 1e3 * ops / F32_OPS
+            bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            print(f"  bound {name:16s} {b / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP -> "
+                  f"{bound[name][0]:.5f} ms ({bound[name][1]}); kernel {times[name][0]:.4f} ms")
+
+        # the aggregations and frames, kernel path only: bench.py's 1-shard
+        # sharded configs, the virtual 4-shard mesh, the single device
+        mesh1 = mesh_mod.make_mesh(devices=[dev])
+        runs = {
+            "agg_single_4path": lambda: sgm_cuda.semi_global_matching(vol, img),
+            "agg_reshard_1shard": lambda: sharding.sharded_semi_global_matching_reshard(
+                vol, img, 0.01, 0.02, mesh1),
+            "agg_wavefront_1shard": lambda: sharding.sharded_semi_global_matching(
+                vol, img, 0.01, 0.02, mesh1),
+            "agg_reshard_4shard": lambda: sharding.sharded_semi_global_matching_reshard(
+                vol, img, 0.01, 0.02, vmesh),
+            "agg_wavefront_4shard": lambda: sharding.sharded_semi_global_matching(
+                vol, img, 0.01, 0.02, vmesh),
+            "agg_single_8path": lambda: sgm_cuda.semi_global_matching(vol, img,
+                                                                      do_diagonal=True),
+            "agg_wavefront_8path_4shard": lambda: sharding.sharded_semi_global_matching(
+                vol, img, 0.01, 0.02, vmesh, do_diagonal=True),
+            "frame_4path": lambda: stereo_sgm.sgm_pipeline(left, right, cfg4),
+            "frame_4path_mesh4": lambda: stereo_sgm.sgm_pipeline(left, right, cfg4, mesh=vmesh),
+            "frame_8path": lambda: stereo_sgm.sgm_pipeline(left, right, cfg8),
+            "frame_8path_mesh4": lambda: stereo_sgm.sgm_pipeline(left, right, cfg8, mesh=vmesh),
+        }
+        for name, run in runs.items():
+            t1 = timing.time_fn(run, warmup=2, runs=10)
+            t2 = timing.time_fn(run, warmup=0, runs=10)
+            times[name] = (min(t1["median_ms"], t2["median_ms"]), None)
+            print(f"  {name:27s} {t1['median_ms']:.4f} / {t2['median_ms']:.4f} ms [{card}]")
+
+    print(f"phase 4 SGM segments, batch and mesh times at {W}x{H}/{D} (a virtual mesh runs its "
+          "shards one after another on the card):")
+    smoke.phase("phase 4 mesh", mesh_timing_phase)
+
     def kf_timing_phase():
         """The fuse kernel and its plain version on a running model at
         256^3/VGA, the frame and the sequence replay, and where the frame's
@@ -1015,25 +1428,8 @@ def main() -> int:
         print(f"  kf_sequence run_sequence of {len(stack)} frames: "
               f"{', '.join(f'{m:.4f}' for m in seq_ms)} ms per frame [{card}]")
 
-        # host synchronisations per frame: torch's sync debug mode warns on
-        # each; the innermost lines of the port on the stack say where
-        import collections
-        import traceback
-        import warnings
-
-        sites = collections.Counter()
-
-        def record(*_args, **_kwargs):
-            stack = [f for f in traceback.extract_stack() if "kangaroo_tpu_torch" in f.filename]
-            sites[" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
-                              for f in stack[::-1][:2]) or "(outside the port)"] += 1
-
-        torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            pipe.process_frame(depth)
-        torch.cuda.set_sync_debug_mode("default")
+        # host synchronisations per frame
+        sites = host_syncs(lambda: pipe.process_frame(depth))
         print(f"  kf_frame host synchronisations: {sum(sites.values())}, by site "
               f"{json.dumps(dict(sites.most_common()))}")
 

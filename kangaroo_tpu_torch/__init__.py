@@ -8,10 +8,11 @@ kernel of the ported slice is a hand-written CUDA C++ kernel under
 the CPU every op runs its plain PyTorch version; for a CUDA tensor it
 launches the kernel or raises.
 
-Ported so far: the single-device SGM stereo frame
-(``apps.stereo_sgm.sgm_pipeline``), DTAM variational stereo
-(``apps.stereo``), the variational solvers (``variational``) and the
-KinectFusion frame on the plane-sweep engine (``apps.kinectfusion``).
+Ported so far: the SGM stereo frame (``apps.stereo_sgm.sgm_pipeline``, on
+one device or over a device mesh of ``parallel``) and its stacked batch
+(``sgm_pipeline_batched``), DTAM variational stereo (``apps.stereo``), the
+variational solvers (``variational``) and the KinectFusion frame on the
+plane-sweep engine (``apps.kinectfusion``).
 """
 
 __version__ = "0.1.0"

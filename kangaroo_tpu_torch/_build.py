@@ -27,13 +27,18 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
     # vol, vol_is_bf16, img, out, D, H, W, sx, sy, sd, P1, P2, accumulate,
     # stream
     "kt_sgm_path": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, acc,
+    # out strides (d, y), D, S, N, sx, sy, sd, xoff, width, seam, P1, P2,
+    # carry in (prev, best, img, has), carry out (prev, best), stream
+    "kt_sgm_segment": [_P, _I, _L, _L, _P, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     # vol, vol_is_bf16, out, D, H, W, sd, stream
     "kt_wta_subpix": [_P, _I, _P, _I, _I, _I, _I, _P],
     # img, out, H, W, rad, max_bad, stream

@@ -1,12 +1,14 @@
-"""SGM stereo frame (``kangaroo_tpu/apps/stereo_sgm.py``, single device).
+"""SGM stereo frame (``kangaroo_tpu/apps/stereo_sgm.py``).
 
 census volumes -> 4-path (8-path with ``do_diagonal``) semi-global
 matching -> WTA + subpixel -> the right disparity from the re-anchored left
 aggregate (or a second aggregation) -> reject-invalid median on both images
 -> LR check both ways, with the optional guided filter of each census
-volume before aggregation. Not ported yet, and refused with
-``NotImplementedError``: the multi-device ``mesh`` and the bilateral
-volume filter.
+volume before aggregation. ``sgm_pipeline(mesh=)`` runs the aggregation
+and the tail over a device mesh (``parallel``), ``sgm_pipeline_batched`` a
+stacked frame batch in one aggregation. Not ported yet, and refused with
+``NotImplementedError``: the bilateral volume filter (``Stereo2App`` waits
+for the plane fit and the heightmap).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import dataclasses
 import torch
 
 from ..ops import integral_image as ii
+from ..parallel import sharding as _sh
+from ..parallel.mesh import Mesh
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
@@ -65,11 +69,28 @@ class SgmConfig:
         return cls(**d)
 
 
-def _check_supported(cfg: SgmConfig, mesh) -> None:
-    for unported, name in ((mesh is not None, "mesh (multi-device SGM)"),
-                           (cfg.bilateral_filter, "bilateral_filter")):
-        if unported:
-            raise NotImplementedError(f"sgm_pipeline: {name} is not ported yet")
+def _check_supported(cfg: SgmConfig) -> None:
+    if cfg.bilateral_filter:
+        raise NotImplementedError("sgm_pipeline: bilateral_filter is not ported yet")
+
+
+def _check_mesh_cfg(cfg: SgmConfig) -> None:
+    """Fail fast on SgmConfig features the sharded aggregation lacks."""
+    if not (cfg.do_horiz and cfg.do_vert and cfg.do_reverse):
+        raise ValueError("mesh-parallel SGM runs the full path set; per-direction flags are "
+                         "single-device only")
+    if cfg.lr_check and not cfg.lr_from_left:
+        raise ValueError("mesh-parallel SGM requires lr_from_left (or lr_check=False)")
+
+
+def _check_mesh(cfg: SgmConfig, mesh, shape) -> None:
+    if not isinstance(mesh, Mesh):
+        raise TypeError("sgm_pipeline: mesh must be a kangaroo_tpu_torch.parallel.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    _check_mesh_cfg(cfg)
+    if shape[0] % mesh.size or shape[1] % mesh.size:
+        raise ValueError("the mesh size must divide image H and W (sharded SGM reshards "
+                         "between both axes)")
 
 
 def _filter_volume(vol: torch.Tensor, img: torch.Tensor, cfg: SgmConfig) -> torch.Tensor:
@@ -83,8 +104,19 @@ def _filter_volume(vol: torch.Tensor, img: torch.Tensor, cfg: SgmConfig) -> torc
 def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmConfig(),
                  mesh=None) -> torch.Tensor:
     """Full SGM frame for the left image of a rectified (H, W) pair; returns
-    float32 disparity with NaN invalids, on the inputs' device."""
-    _check_supported(cfg, mesh)
+    float32 disparity with NaN invalids, on the inputs' device.
+
+    ``mesh`` (``parallel.mesh.Mesh``) runs the aggregation, the dominant
+    frame cost, over the mesh's shards: the reshard strategy for 4-path
+    (column-sharded vertical scans, one all-to-all, row-sharded horizontal
+    ones), the carry wavefront for 8-path. The tail runs on the
+    aggregate's row blocks, and the disparity is gathered on
+    ``mesh.devices[0]``. Census and the cost volume run on the inputs'
+    device. It needs the default full path set and ``lr_from_left``, and
+    the mesh size must divide H and W."""
+    _check_supported(cfg)
+    if mesh is not None:
+        _check_mesh(cfg, mesh, left.shape)
     cl = census_mod.census(left, cfg.census_window)
     cr = census_mod.census(right, cfg.census_window)
     bits = census_mod.norm_bits(cfg.census_window)
@@ -96,6 +128,18 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
     vol_l = _filter_volume(
         census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype),
         left, cfg)
+    if mesh is not None:
+        if cfg.do_diagonal:
+            agg = _sh.sharded_semi_global_matching(vol_l, _intensity(left), cfg.p1, cfg.p2,
+                                                   mesh, do_diagonal=True)
+        else:
+            agg = _sh.sharded_semi_global_matching_reshard(vol_l, _intensity(left), cfg.p1,
+                                                           cfg.p2, mesh)
+        disp = _sh.sharded_sgm_tail(agg, mesh, cfg.max_disp, subpix=cfg.subpix,
+                                    lr_check=cfg.lr_check, max_disp_diff=cfg.max_disp_diff,
+                                    median_its=cfg.median_its,
+                                    median_max_bad=cfg.median_max_bad)
+        return _sh.gather_rows(disp, mesh)
     agg_l = fast.semi_global_matching(vol_l, _intensity(left), cfg.p1, cfg.p2, cfg.do_horiz,
                                       cfg.do_vert, cfg.do_reverse, cfg.do_diagonal)
     if cfg.subpix:
@@ -131,3 +175,57 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
         disp_l = fast.left_right_check(disp_l, disp_r, -1, cfg.max_disp_diff,
                                        max_disp=cfg.max_disp)
     return disp_l
+
+
+def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
+                         cfg: SgmConfig = SgmConfig()) -> torch.Tensor:
+    """SGM over a batch of (B, H, W) rectified pairs on one device; returns
+    (B, H, W) disparity, each frame equal to ``sgm_pipeline``'s.
+
+    The frames stack along the rows: census runs per frame (its window must
+    not read across a seam), the cost volume on the stacked census images
+    (its shifts are along x), one aggregation re-seeds the vertical paths at
+    every seam (``seam_period=H``, kernel 7), WTA, re-anchor and LR check
+    run stacked (row-local), the median per frame. Configurations whose
+    stages would read across a seam or that the stacked aggregation lacks
+    (``do_diagonal``, ``lr_from_left=False``, either volume filter) run
+    ``sgm_pipeline`` frame by frame, as in the JAX package."""
+    _check_supported(cfg)
+    B, H, W = lefts.shape
+    if (cfg.do_diagonal or not cfg.lr_from_left or cfg.guided_filter
+            or cfg.bilateral_filter):
+        return torch.stack([sgm_pipeline(lefts[k], rights[k], cfg) for k in range(B)])
+    bits = census_mod.norm_bits(cfg.census_window)
+    vol_dtype = torch.bfloat16 if bits & (bits - 1) == 0 else torch.float32
+    cl = torch.cat([census_mod.census(lefts[k], cfg.census_window) for k in range(B)])
+    cr = torch.cat([census_mod.census(rights[k], cfg.census_window) for k in range(B)])
+    vol = census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype)
+    agg_l = fast.semi_global_matching(vol, _intensity(lefts.reshape(B * H, W)), cfg.p1,
+                                      cfg.p2, cfg.do_horiz, cfg.do_vert, cfg.do_reverse,
+                                      seam_period=H)
+    if cfg.subpix:
+        disp_l = fast.cost_vol_minimum_subpix(agg_l, -1)
+    else:
+        disp_l = cv.cost_vol_minimum(agg_l, cfg.max_disp).to(torch.float32)
+    if cfg.lr_check:
+        agg_r = cv.reanchor_right(agg_l)
+        if cfg.subpix:
+            disp_r = fast.cost_vol_minimum_subpix(agg_r, 1)
+        else:
+            disp_r = cv.cost_vol_minimum(agg_r, cfg.max_disp).to(torch.float32)
+
+    def median_per_frame(d):  # the 5x5 stencil must not read across a seam
+        return torch.cat([fast.median_filter_reject_invalid(d[k * H:(k + 1) * H],
+                                                            cfg.median_max_bad, rad=2)
+                          for k in range(B)])
+
+    for _ in range(cfg.median_its):
+        disp_l = median_per_frame(disp_l)
+        if cfg.lr_check:
+            disp_r = median_per_frame(disp_r)
+    if cfg.lr_check:
+        disp_r = fast.left_right_check(disp_r, disp_l, 1, cfg.max_disp_diff,
+                                       max_disp=cfg.max_disp)
+        disp_l = fast.left_right_check(disp_l, disp_r, -1, cfg.max_disp_diff,
+                                       max_disp=cfg.max_disp)
+    return disp_l.reshape(B, H, W)

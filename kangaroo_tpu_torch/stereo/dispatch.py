@@ -1,4 +1,4 @@
-"""Dispatch of the stereo paths' five ops between kernel and plain version
+"""Dispatch of the stereo paths' ops between kernel and plain version
 (``kangaroo_tpu/stereo/dispatch.py``).
 
 A tensor on the CPU takes the plain PyTorch version. Any other tensor goes
@@ -6,7 +6,11 @@ through ``_KernelOp``, whose forward launches the CUDA kernel (which raises
 off an sm_90 card) and whose backward re-runs the plain version under
 autograd on the saved inputs — the JAX package's custom_vjp contract: the
 kernel computes the primal, the plain version's gradient is its gradient.
-There is no fallback from the kernel to the plain version.
+The SGM segments of the multi-device paths (``sgm_aggregate_scan``,
+``sgm_aggregate_block``, ``sgm_aggregate_diag_block``) have no gradient in
+the JAX package either: they call the kernel directly and refuse inputs
+that require grad. There is no fallback from the kernel to the plain
+version.
 """
 from __future__ import annotations
 
@@ -49,13 +53,33 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def semi_global_matching(vol, img, P1=0.01, P2=0.02, do_horiz=True, do_vert=True,
-                         do_reverse=True, do_diagonal=False, sd=-1):
+                         do_reverse=True, do_diagonal=False, sd=-1, seam_period=None):
     kw = dict(P1=float(P1), P2=float(P2), do_horiz=do_horiz, do_vert=do_vert,
-              do_reverse=do_reverse, do_diagonal=do_diagonal, sd=sd)
+              do_reverse=do_reverse, do_diagonal=do_diagonal, sd=sd, seam_period=seam_period)
     if _on_cpu(vol):
         return _sgm.semi_global_matching(vol, img, **kw)
     return _KernelOp.apply(sgm_cuda.semi_global_matching, _sgm.semi_global_matching,
                            kw, vol, img)
+
+
+def sgm_aggregate_scan(vol, img, *args, **kwargs):
+    """Both directions of one axis of a column shard, a row shard or a
+    stacked batch (``stereo.sgm.sgm_aggregate_scan``)."""
+    fn = _sgm.sgm_aggregate_scan if _on_cpu(vol) else sgm_cuda.sgm_aggregate_scan
+    return fn(vol, img, *args, **kwargs)
+
+
+def sgm_aggregate_block(vol, img, *args, **kwargs):
+    """A vertical row segment with a carry (``stereo.sgm.sgm_aggregate_block``)."""
+    fn = _sgm.sgm_aggregate_block if _on_cpu(vol) else sgm_cuda.sgm_aggregate_block
+    return fn(vol, img, *args, **kwargs)
+
+
+def sgm_aggregate_diag_block(vol, img, *args, **kwargs):
+    """A diagonal row segment with a carry
+    (``stereo.sgm.sgm_aggregate_diag_block``)."""
+    fn = _sgm.sgm_aggregate_diag_block if _on_cpu(vol) else sgm_cuda.sgm_aggregate_diag_block
+    return fn(vol, img, *args, **kwargs)
 
 
 def cost_vol_minimum_subpix(vol, sd=-1):

@@ -475,3 +475,165 @@ def test_kinectfusion_on_card_matches_cpu(dev):
         assert pipe.tracking_good
     for a, b in zip(poses["cpu"], poses[str(dev)]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+# --- the segment kernels of the multi-device and batched SGM paths --------
+# straight and diagonal segments against their plain versions at 1e-4 on
+# the lattice (as the whole-image kernel); a stacked batch against its
+# frames through the same kernel exactly
+
+
+def _segment_inputs(shape, dev, dtype=torch.float32, seed=20):
+    rng = np.random.default_rng(seed)
+    D, S, N = shape
+    vol = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev, dtype)
+    img = torch.from_numpy(rng.random((S, N), dtype=np.float32)).to(dev)
+    return vol, img
+
+
+def _seg_lattice(D, N, sd, width, offset, dev):
+    d = torch.arange(D, device=dev)[:, None, None]
+    x = torch.arange(N, device=dev)[None, None, :] + offset
+    return (d <= x) if sd < 0 else (x + d < width)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("shape,split,offset,width", [((64, 120, 160), 50, 160, 640),
+                                                      ((128, 125, 414), 60, 828, 1242)])
+def test_sgm_segment_kernel_matches_plain(dev, shape, split, offset, width, mode, reverse, dtype):
+    """Two chained straight segments of a column block at its lattice
+    offset, written in place into a wider accumulator through views."""
+    D, S, N = shape
+    vol, img = _segment_inputs((D, S, N + 7), dev, dtype)
+    vol, img = vol[:, :, 3:N + 3], img[:, 3:N + 3]  # strided views of a wider array
+    first, second = (slice(split, None), slice(None, split)) if reverse else \
+        (slice(None, split), slice(split, None))
+    outs = []
+    for fn in (sgm_cuda.sgm_aggregate_block, sgm_plain.sgm_aggregate_block):
+        acc = torch.ones((D, S, N + 5), device=dev)
+        view = acc[:, :, 2:N + 2]
+        a = fn(vol[:, first], img[first], 0.01, 0.02, mode, width=width, lane_offset=offset,
+               acc=view[:, first], reverse=reverse)
+        b = fn(vol[:, second], img[second], 0.01, 0.02, mode, width=width, seed=False,
+               carry_prev=a[1], carry_best=a[2], last_img=a[3], lane_offset=offset,
+               acc=view[:, second], reverse=reverse)
+        outs.append((acc, b[1], b[2], b[3]))
+    sd = -1 if mode == "left" else 1
+    m = _seg_lattice(D, N, sd, width, offset, dev).expand(D, S, N)
+    (acc, cp, cb, li), (acc_p, cp_p, cb_p, li_p) = outs
+    torch.testing.assert_close(acc[:, :, 2:N + 2][m], acc_p[:, :, 2:N + 2][m], atol=1e-4, rtol=0)
+    assert torch.equal(acc[:, :, :2], acc_p[:, :, :2]) and torch.equal(acc[:, :, N + 2:],
+                                                                       acc_p[:, :, N + 2:])
+    m0 = m[:, 0]
+    torch.testing.assert_close(cp[m0], cp_p[m0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(cb, cb_p, atol=1e-4, rtol=0)
+    assert torch.equal(li, li_p)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dx", [1, -1])
+@pytest.mark.parametrize("shape,split,width", [((64, 120, 640), 40, 640),
+                                               ((128, 125, 1250), 70, 1242)])
+def test_sgm_diag_segment_kernel_matches_plain(dev, shape, split, width, dx, reverse):
+    """Two chained diagonal segments from the seed carry, on a lane block
+    that may be wider than the image (``width``)."""
+    D, S, N = shape
+    vol, img = _segment_inputs(shape, dev, seed=21)
+    first, second = (slice(split, None), slice(None, split)) if reverse else \
+        (slice(None, split), slice(split, None))
+    outs = []
+    for fn in (sgm_cuda.sgm_aggregate_diag_block, sgm_plain.sgm_aggregate_diag_block):
+        z = torch.zeros(N, device=dev)
+        acc = torch.ones(shape, device=dev)
+        a = fn(vol[:, first], img[first], torch.full((D, N), 1e30, device=dev), z, z, z,
+               0.01, 0.02, "left", dx=dx, width=width, acc=acc[:, first], reverse=reverse)
+        b = fn(vol[:, second], img[second], a[1], a[2], a[4], a[3], 0.01, 0.02, "left", dx=dx,
+               width=width, acc=acc[:, second], reverse=reverse)
+        outs.append((acc, b[1], b[2], b[4]))
+    m = _seg_lattice(D, N, -1, width, 0, dev).expand(shape).clone()
+    m[:, :, width:] = False  # lanes past the image are padding
+    torch.testing.assert_close(outs[0][0][m], outs[1][0][m], atol=1e-4, rtol=0)
+    m0 = m[:, 0]
+    torch.testing.assert_close(outs[0][1][m0], outs[1][1][m0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(outs[0][2][:width], outs[1][2][:width], atol=1e-4, rtol=0)
+    assert torch.equal(outs[0][3], outs[1][3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgm_seam_pass_equals_single_passes(dev, dtype):
+    """A batch of 4 VGA/64 volumes stacked along the rows, one seam pass,
+    equals the 4 single passes exactly, and the plain seam pass at 1e-4."""
+    vol, img = _segment_inputs((64, 4 * 480, 640), dev, dtype, seed=22)
+    before = (sgm_cuda.launches, sgm_cuda.segment_launches)
+    got = sgm_cuda.semi_global_matching(vol, img, seam_period=480)
+    assert (sgm_cuda.launches, sgm_cuda.segment_launches) == (before[0] + 2, before[1] + 2)
+    for k in range(4):
+        rows = slice(480 * k, 480 * (k + 1))
+        assert torch.equal(got[:, rows], sgm_cuda.semi_global_matching(
+            vol[:, rows].contiguous(), img[rows].contiguous()))
+    m = _lattice(64, 640, -1, dev).expand(got.shape)
+    torch.testing.assert_close(got[m], sgm_plain.semi_global_matching(
+        vol, img, seam_period=480)[m], atol=1e-4, rtol=0)
+
+
+def test_sgm_segment_scan_at_lane_offset(dev):
+    """Column shards' vertical pairs at their offsets equal the whole
+    image's vertical pair through the same kernel."""
+    vol, img = _segment_inputs((64, 480, 640), dev, seed=23)
+    whole = sgm_cuda.semi_global_matching(vol, img, do_horiz=False)
+    for k in range(4):
+        cols = slice(160 * k, 160 * (k + 1))
+        got = sgm_cuda.sgm_aggregate_scan(vol[:, :, cols], img[:, cols], width=640,
+                                          lane_offset=160 * k)
+        assert torch.equal(got, whole[:, :, cols])
+
+
+@pytest.mark.parametrize("do_diagonal", [False, True])
+def test_mesh_pipeline_on_card_matches_cpu(dev, do_diagonal):
+    """A virtual 4-shard mesh on the card: the new kernels launched, the
+    frame in agreement with the CPU mesh frame and the card's single frame."""
+    from kangaroo_tpu_torch.parallel.mesh import make_mesh
+
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
+    cfg = stereo_sgm.SgmConfig(max_disp=16, do_diagonal=do_diagonal)
+    before = (sgm_cuda.segment_launches, sgm_cuda.diag_segment_launches)
+    got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg,
+                                  mesh=make_mesh(devices=[dev] * 4))
+    assert got.device == dev
+    assert sgm_cuda.segment_launches > before[0]
+    assert (sgm_cuda.diag_segment_launches > before[1]) == do_diagonal
+    for want in (stereo_sgm.sgm_pipeline(left, right, cfg,
+                                         mesh=make_mesh(devices=["cpu"] * 4)),
+                 stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()):
+        got_c = got.cpu()
+        agree = (torch.isnan(got_c) & torch.isnan(want)) | ((got_c - want).abs() <= 1e-3)
+        assert agree.float().mean().item() >= 0.995
+
+
+def test_batched_pipeline_on_card_equals_frames(dev):
+    pairs = [synthetic.stereo_pair(96, 32, 16, seed=k, device=dev) for k in range(3)]
+    lefts, rights = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    cfg = stereo_sgm.SgmConfig(max_disp=16)
+    got = stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg)
+    for k in range(3):
+        frame = stereo_sgm.sgm_pipeline(lefts[k], rights[k], cfg)
+        assert bool(((torch.isnan(got[k]) & torch.isnan(frame)) | (got[k] == frame)).all())
+
+
+def test_segment_wrappers_check_their_arguments(dev):
+    vol, img = _segment_inputs((8, 12, 40), dev, seed=24)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sgm_cuda.sgm_aggregate_block(vol.clone().requires_grad_(True), img)
+    with pytest.raises(ValueError, match="unit stride"):
+        sgm_cuda.sgm_aggregate_block(vol.transpose(1, 2).contiguous().transpose(1, 2), img)
+    with pytest.raises(ValueError, match="carry_prev"):
+        sgm_cuda.sgm_aggregate_block(vol, img, seed=False, carry_best=torch.zeros(40, device=dev),
+                                     last_img=torch.zeros(40, device=dev))
+    with pytest.raises(ValueError, match="acc"):
+        sgm_cuda.sgm_aggregate_block(vol, img, acc=torch.zeros(8, 12, 41, device=dev))
+    with pytest.raises(ValueError, match="seam_period"):
+        sgm_cuda.semi_global_matching(vol, img, seam_period=5)
+    with pytest.raises(ValueError, match="width"):
+        sgm_cuda.sgm_aggregate_scan(vol, img, scan_is_x=True, lane_offset=8)

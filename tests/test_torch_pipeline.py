@@ -1,8 +1,9 @@
 """The SGM frame: kangaroo_tpu_torch.apps.stereo_sgm.sgm_pipeline against
 kangaroo_tpu's on 4- and 8-path configurations and with the guided volume
 filter, plus the port's contracts: it never
-imports JAX, the CPU path launches no kernel, the unported options raise,
-and the autograd op's backward is the plain version's gradient.
+imports JAX, the CPU path launches no kernel, the unported options (and a
+mesh that is not the port's) raise, and the autograd op's backward is the
+plain version's gradient.
 
 The frames are held to >= 99.5 % of pixels agreeing (both NaN, or within
 1e-4 px): the SGM aggregates differ in the last bits (sum order), and the
@@ -26,6 +27,7 @@ from kangaroo_tpu_torch import _build
 from kangaroo_tpu_torch.apps import stereo_sgm as tss
 from kangaroo_tpu_torch.apps import synthetic as tsyn
 from kangaroo_tpu_torch.ops import median_cuda
+from kangaroo_tpu_torch.parallel.mesh import make_mesh
 from kangaroo_tpu_torch.stereo import costvolume as tcv
 from kangaroo_tpu_torch.stereo import dispatch, lr_cuda, sgm_cuda, wta_cuda
 
@@ -76,23 +78,37 @@ def test_config_from_dict_carries_every_field():
     (tss.SgmConfig(bilateral_filter=True), None, "bilateral_filter"),
 ])
 def test_unported_options_raise(cfg, mesh, piece):
+    """The bilateral filter is not ported; a mesh runs since the
+    multi-device slice, but only a ``kangaroo_tpu_torch.parallel`` one."""
     left = torch.zeros(8, 16, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match=piece):
+    with pytest.raises(TypeError if piece == "mesh" else NotImplementedError, match=piece):
         tss.sgm_pipeline(left, left, cfg, mesh=mesh)
 
 
 def test_cpu_path_launches_no_kernel():
     mods = (sgm_cuda, wta_cuda, median_cuda, lr_cuda)
-    before = [m.launches for m in mods] + [sgm_cuda.diagonal_launches]
+
+    def counts():
+        return [m.launches for m in mods] + [sgm_cuda.diagonal_launches,
+                                             sgm_cuda.segment_launches,
+                                             sgm_cuda.diag_segment_launches]
+
+    before = counts()
     left, right, _ = tsyn.stereo_pair(48, 16, 8, seed=1, device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 4)
     for diagonal in (False, True):
-        tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=8, do_diagonal=diagonal))
-    assert [m.launches for m in mods] + [sgm_cuda.diagonal_launches] == before
+        cfg = tss.SgmConfig(max_disp=8, do_diagonal=diagonal)
+        tss.sgm_pipeline(left, right, cfg)
+        tss.sgm_pipeline(left, right, cfg, mesh=mesh)
+    tss.sgm_pipeline_batched(torch.stack([left, right]), torch.stack([right, left]),
+                             tss.SgmConfig(max_disp=8))
+    assert counts() == before
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a tiny 4- and 8-path frame, the
-    three variational solves, a cold and an incremental DTAM frame and two
+    """Every module of the port imports, and a tiny 4- and 8-path frame
+    (single-device and on a virtual mesh), a stacked batch, the three
+    variational solves, a cold and an incremental DTAM frame and two
     KinectFusion frames run, with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -104,10 +120,18 @@ def test_port_imports_no_jax():
         from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
         from kangaroo_tpu_torch.variational import deconvolution, rof, tgv
         left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0, device="cpu")
+        from kangaroo_tpu_torch.parallel.mesh import make_mesh
+        import torch
         for diagonal in (False, True):
             cfg = stereo_sgm.SgmConfig(max_disp=8, do_diagonal=diagonal)
             disp = stereo_sgm.sgm_pipeline(left, right, cfg)
             assert disp.shape == (16, 48)
+            mesh = make_mesh(devices=["cpu"] * 4)
+            assert stereo_sgm.sgm_pipeline(left, right, cfg, mesh=mesh).shape == (16, 48)
+        batch = stereo_sgm.sgm_pipeline_batched(torch.stack([left, left]),
+                                                torch.stack([right, right]),
+                                                stereo_sgm.SgmConfig(max_disp=8))
+        assert batch.shape == (2, 16, 48)
         img = left.float() / 255.0
         for out in (rof.denoise(img, 8.0, iterations=3), tgv.denoise(img, iterations=3),
                     deconvolution.inpaint(img, (img > 0.5).float(), iterations=3)):
