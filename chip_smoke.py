@@ -24,7 +24,10 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    lattice offsets, row segments and the four diagonal segments chained
    through their carries (each also against one pass through the same
    kernel, exactly), and the seam pass of 4 stacked VGA frames against 4
-   single passes (exactly);
+   single passes (exactly); the whole-image path kernel (kernels 1 and 5,
+   ``csrc/sgm_path.cu``) against the segment kernel run over the whole
+   image, each of the 8 steps alone, bf16 and float32, both lattices, Lr
+   written and added onto an accumulator, at both shapes (exactly);
 3. the main paths, each run with every launch count set to 0 just before
    and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
@@ -51,8 +54,11 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    through ``run_sequence`` and through a frame of plain versions (poses
    within 1e-4), and ATE and final rmse within limits set from the JAX
    package's CPU-JAX figures;
-4. CUDA-event times of each kernel, of both SGM frames, of the
-   100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
+4. CUDA-event times of each kernel, of both SGM frames, of one
+   horizontal, vertical and diagonal direction through the path kernel
+   and through the segment kernel in turns (and the chained byte floor;
+   the path kernel again with its data aliased into L2),
+   of the 100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
    frame and one incremental DTAM frame against their plain versions at
    640x480(/64); each kernel's bound; the device time by kernel of one
    DTAM solve and one cold DTAM frame (torch.profiler), and the auxiliary
@@ -95,11 +101,14 @@ SOLVER_ITERS = 100
 # and 1242); the main paths' virtual mesh has 4 shards, the batch 4 frames
 SEGMENT_SHARDS = {"vga": 4, "kitti": 3}
 MESH_SHARDS, BATCH = 4, 4
+# path steps (sx, sy) in the plain version's sum order
+STEPS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, 1), (1, -1), (-1, -1))
 
 # kernel -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
-    "sgm": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
-    "sgm_8path": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:504"),
+    "sgm": ("kangaroo_tpu_torch/csrc/sgm_path.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
+    "sgm_8path": ("kangaroo_tpu_torch/csrc/sgm_path.cu",
+                  "kangaroo_tpu/stereo/sgm_pallas.py:504"),
     # kernel 1's lane-offset, seam and carry variants, and the diagonal segment
     "sgm_segment": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
     "sgm_diag_segment": ("kangaroo_tpu_torch/csrc/sgm.cu",
@@ -523,6 +532,33 @@ def main() -> int:
                       sgm_plain.semi_global_matching(vol4, img4, seam_period=H),
                       ATOL["sgm_segment"], lattice(D, W, -1).expand_as(seam))
 
+    def path_vs_segment(tag, H, W, D):
+        """The whole-image path kernel (``kt_sgm_path``) against the segment
+        kernel (``kt_sgm_segment``, no lattice offset, seam or carry) over
+        the same image: each of the 8 steps alone on random bf16 and
+        float32 volumes, both lattices, Lr written and added onto an
+        accumulator; equal exactly (the same operations per element in
+        the same order)."""
+        vol32 = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
+        img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+        acc = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
+        for src, vol in (("random-bf16", vol32.to(torch.bfloat16)), ("random-f32", vol32)):
+            for sd in (-1, 1):
+                for accumulate in (False, True):
+                    for kernel, steps in (("sgm", STEPS[:4]), ("sgm_8path", STEPS[4:])):
+                        got, want = [], []
+                        for step in steps:
+                            a = acc.clone() if accumulate else None
+                            got.append(sgm_cuda.aggregate_direction(vol, img, step, 0.01, 0.02,
+                                                                    sd, acc=a))
+                            w = acc.clone() if accumulate else torch.empty_like(acc)
+                            sgm_cuda._launch(vol, img, w, w if accumulate else None, step, sd, 0,
+                                             W, 0, 0.01, 0.02, "sgm_segment")
+                            want.append(w)
+                        smoke.compare(kernel, f"{tag} {src} sd={sd:+d} steps {steps} "
+                                      f"{'added onto acc' if accumulate else 'written'} vs "
+                                      "kt_sgm_segment", torch.stack(got), torch.stack(want), 0.0)
+
     def solvers_vs_plain(H, W):
         """The solves on a noisy image and on uniform noise (bench.py's input)."""
         _, noisy, keep = noisy_image(H, W, seed=1)
@@ -584,6 +620,9 @@ def main() -> int:
         n = SEGMENT_SHARDS[tag]
         print(f"phase 2 SGM segment kernels vs plain at {tag} {W}x{H}/{D}, {n}-way split:")
         smoke.phase(f"phase 2 segments {tag}", segments_vs_plain, tag, H, W, D, n)
+        torch.cuda.synchronize()
+        print(f"phase 2 SGM path kernel vs segment kernel at {tag} {W}x{H}/{D}:")
+        smoke.phase(f"phase 2 path {tag}", path_vs_segment, tag, H, W, D)
         torch.cuda.synchronize()
     for H, W in SOLVER_SHAPES:
         print(f"phase 2 solver kernels vs plain at {W}x{H}, {SOLVER_ITERS} iterations:")
@@ -1199,6 +1238,39 @@ def main() -> int:
                 if hits:
                     n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
                     print(f"    {part}: {n} launches, {us / n:.2f} us each, {us / 1e3:.4f} ms")
+        # one direction of each class added onto the aggregate: the path
+        # kernel and the segment kernel over the whole image in turns
+        # (segment, path, path, segment), beside the chained byte floor
+        # (the volume, the intensities, the aggregate read and written)
+        acc = agg.clone()
+        chained = nbytes(vol, img) + 2 * nbytes(acc)
+        for cls, step in (("horizontal", (1, 0)), ("vertical", (0, 1)), ("diagonal", (1, 1))):
+            path = lambda: sgm_cuda.aggregate_direction(vol, img, step, acc=acc)
+            seg = lambda: sgm_cuda._launch(vol, img, acc, acc, step, -1, 0, W, 0, 0.01, 0.02,
+                                           "sgm_segment")
+            s1 = timing.time_fn(seg, warmup=3, runs=20)["median_ms"]
+            p1 = timing.time_fn(path, warmup=3, runs=20)["median_ms"]
+            p2 = timing.time_fn(path, warmup=0, runs=20)["median_ms"]
+            s2 = timing.time_fn(seg, warmup=0, runs=20)["median_ms"]
+            print(f"  direction {cls:10s} {step}: path kernel {p1:.4f} / {p2:.4f} ms, segment "
+                  f"kernel {s1:.4f} / {s2:.4f} ms ({min(s1, s2) / min(p1, p2):.2f}x); chained "
+                  f"floor {chained / 1e6:.1f} MB -> {1e3 * chained / HBM_BPS:.4f} ms [{card}]")
+            # the same launch with every disparity plane of the volume and
+            # of the aggregate aliased onto one (d-stride 0): the data fits
+            # in L2, the output is garbage; were device memory the bound,
+            # this would run faster
+            v1, a1 = vol[:1].expand_as(vol), torch.zeros_like(acc[:1]).expand_as(acc)
+            l2 = timing.time_fn(lambda: sgm_cuda._path(v1, img, a1, step, -1, 0.01, 0.02, True,
+                                                       "sgm"), warmup=3, runs=20)["median_ms"]
+            print(f"  direction {cls:10s} {step}: path kernel, planes aliased (in L2) "
+                  f"{l2:.4f} ms [{card}]")
+        first = nbytes(vol, img, agg)
+        for name, n in (("sgm", 4), ("sgm_8path", 8)):
+            floor = first + (n - 1) * chained
+            print(f"  {name:9s} {n}-path call {times[name][0]:.4f} ms: chained byte floor "
+                  f"{floor / 1e6:.1f} MB -> {1e3 * floor / HBM_BPS:.4f} ms, the table's bound "
+                  f"{bound[name][0]:.5f} ms [{card}]")
+
         vol32 = vol.float()
         t32 = timing.time_fn(wta_cuda.cost_vol_minimum_square_penalty_subpix, vol32, dl, 20.0,
                              1.0)["median_ms"]

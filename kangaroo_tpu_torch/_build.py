@@ -31,9 +31,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
-    # vol, vol_is_bf16, img, out, D, H, W, sx, sy, sd, P1, P2, accumulate,
-    # stream
-    "kt_sgm_path": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, out
+    # strides (d, y), D, S, N, sx, sy, sd, P1, P2, accumulate, stream
+    "kt_sgm_path": [_P, _I, _L, _L, _P, _L, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, acc,
     # out strides (d, y), D, S, N, sx, sy, sd, xoff, width, seam, P1, P2,
     # carry in (prev, best, img, has), carry out (prev, best), stream

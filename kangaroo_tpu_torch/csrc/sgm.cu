@@ -1,15 +1,13 @@
-// Semi-global matching: one path direction per launch, straight or diagonal,
-// over a whole image or over one segment of a sharded or stacked one.
+// Semi-global matching over one segment of a sharded or stacked image: one
+// path direction per launch, straight or diagonal (kernels 6 and 7). The
+// whole-image directions (kernels 1 and 5) are csrc/sgm_path.cu.
 //
-// Replaces kangaroo_tpu/stereo/sgm_pallas.py:_make_kernel (the straight
-// paths, driven by _aggregate_direction), its with_offset / seam_blocks /
-// carry_in / carry_out variants (sgm_aggregate_scan's lane offset and seam
-// period, sgm_aggregate_block), _make_multi_diag_kernel (the 8-path mode's
-// vertical pair and four diagonals, driven by _multi_diag_direction) and
-// _make_diag_kernel (one diagonal segment with a carry,
-// sgm_aggregate_diag_block). A direction is a step (sx, sy), each in
-// {-1, 0, +1}: pixel (x, y) continues the path from (x - sx, y - sy). Per
-// path step:
+// Replaces kangaroo_tpu/stereo/sgm_pallas.py:_make_kernel's with_offset /
+// seam_blocks / carry_in / carry_out variants (sgm_aggregate_scan's lane
+// offset and seam period, sgm_aggregate_block) and _make_diag_kernel (one
+// diagonal segment with a carry, sgm_aggregate_diag_block). A direction is
+// a step (sx, sy), each in {-1, 0, +1}: pixel (x, y) continues the path
+// from (x - sx, y - sy). Per path step:
 //   CM(d) = min(prev(d), min(prev(d-1), prev(d+1)) + P1, lastBest + P2')
 //   Lr(d) = CM(d) + C(d) - lastBest,   P2' = P2 / (1 + |I(p) - I(p-r)|)
 // with entries off the disparity lattice held at 1e30 in the carry and
@@ -17,7 +15,9 @@
 // sd = +1, xa = x + xoff the pixel's column in the whole image (a column
 // shard passes its offset). A pixel whose predecessor is off the image, or
 // at or past column `width` on a diagonal, starts a path: it writes C and
-// leaves lastBest at 0.
+// leaves lastBest at 0. Run over a whole image with no offset, seam or
+// carry, it gives the bits of csrc/sgm_path.cu (the same operations per
+// element in the same order).
 //
 // Segments: with a carry in, the first row of the scan continues from the
 // upstream segment's last row instead of seeding: prev and lastBest from
@@ -29,10 +29,12 @@
 // so frames stacked along the rows aggregate in one launch as if each were
 // alone.
 //
-// What bounds it on the H100: the recurrence is sequential along a path,
-// so the time is the length of the dependent chain (up to H or W steps),
-// not bytes: each direction streams the volume in (bf16 or f32) and the
-// f32 aggregate in and out once, far less than HBM moves in that time.
+// What bounds it on the H100: memory transactions. Each path step reads D
+// costs and reads and writes D accumulator values, each a 4-byte access at
+// stride S·N, one 32-byte sector apiece; and the step waits for those
+// loads (only the costs are loaded a step ahead). csrc/sgm_path.cu's
+// row-stepped design, which reads contiguous runs through a ring in
+// shared memory, is the one to bring here.
 //
 // Design: one warp owns one whole path line and loops along it, so nothing
 // carries between blocks, which run in no order. A direction's lines start
@@ -95,7 +97,8 @@ __host__ __device__ __forceinline__ int n_lines(const PathArgs& a) {
 
 // kSegment compiles the segment features in (lattice offset and width,
 // carries, the diagonal's width test); without it the kernel is the
-// whole-image one, a.xoff = 0 and a.width = N.
+// whole-image one, a.xoff = 0 and a.width = N, which nothing launches now
+// (csrc/sgm_path.cu runs the whole image).
 template <typename T, int DPT, bool kSegment>
 __global__ void sgm_path_kernel(const PathArgs a) {
   const int line = blockIdx.x * blockDim.y + threadIdx.y;
@@ -268,32 +271,6 @@ int launch(const PathArgs& a, int vol_is_bf16, void* stream) {
 }
 
 }  // namespace
-
-// One direction over a whole contiguous (D, H, W) volume (kernels 1 and 5):
-// writes Lr into out, or adds it when `accumulate` is set.
-extern "C" int kt_sgm_path(const void* vol, int vol_is_bf16, const void* img, void* out, int D,
-                           int H, int W, int sx, int sy, int sd, float P1, float P2,
-                           int accumulate, void* stream) {
-  PathArgs a{};
-  a.vol = vol;
-  a.img = static_cast<const float*>(img);
-  a.out = static_cast<float*>(out);
-  a.acc = accumulate ? a.out : nullptr;
-  a.vol_sd = a.out_sd = static_cast<long long>(H) * W;
-  a.vol_sy = a.out_sy = a.img_sy = W;
-  a.D = D;
-  a.S = H;
-  a.N = W;
-  a.sx = sx;
-  a.sy = sy;
-  a.sd = sd;
-  a.xoff = 0;
-  a.width = W;
-  a.seam = 0;
-  a.P1 = P1;
-  a.P2 = P2;
-  return launch<false>(a, vol_is_bf16, stream);
-}
 
 // One direction over a (D, S, N) segment given by strides (kernels 6 and 7):
 // a lattice offset and width, a seam period, a carry in (cin_prev null: none;

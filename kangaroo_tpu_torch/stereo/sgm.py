@@ -268,6 +268,35 @@ def _check_block(vol, img, carry_prev, carry_best, last_img, carry_has, seed) ->
             raise RuntimeError(f"the SGM segments have no gradient; {name} requires grad")
 
 
+def _check_step(step) -> tuple[int, int]:
+    s = tuple(int(v) for v in step)
+    if len(s) != 2 or not set(s) <= {-1, 0, 1} or s == (0, 0):
+        raise ValueError(f"step must be (sx, sy) in {{-1, 0, 1}}^2 other than (0, 0), got {step}")
+    return s
+
+
+def aggregate_direction(vol: torch.Tensor, img: torch.Tensor, step, P1: float = 0.01,
+                        P2: float = 0.02, sd: int = -1, acc: torch.Tensor | None = None):
+    """One path direction of the aggregation over vol (D, S, N): pixel
+    (x, y) continues the path from (x - sx, y - sy), ``step`` = (sx, sy).
+    Returns Lr (D, S, N) float32 with the lattice of ``sd`` (masked entries
+    0), or ``acc`` + Lr, added in place. ``semi_global_matching`` is the sum
+    of its directions: (0, 1), (0, -1), (1, 0), (-1, 0), then the diagonals
+    (1, 1), (-1, 1), (1, -1), (-1, -1)."""
+    D, S, N = vol.shape
+    sx, sy = _check_step(step)
+    if sd not in (-1, 1):
+        raise ValueError(f"sd must be -1 or 1, got {sd}")
+    v = vol.to(torch.float32)
+    img = img.to(torch.float32)
+    if sy == 0:  # lines are rows: scan along x
+        m = _lattice(D, N, sd, N, 0, vol.device).T[:, :, None].expand(N, D, S)
+        lr = _scan_direction(v.permute(2, 0, 1), img.T, m, P1, P2, sx < 0).permute(1, 2, 0)
+    else:
+        lr = _vertical(v, img, P1, P2, sd, N, 0, sy < 0, dx=sx)
+    return _finish(lr, acc)
+
+
 def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
                          P2: float = 0.02, do_horiz: bool = True, do_vert: bool = True,
                          do_reverse: bool = True, do_diagonal: bool = False,

@@ -1,16 +1,18 @@
-"""The SGM aggregation kernel (``csrc/sgm.cu``) and its Python wrappers.
+"""The SGM aggregation kernels and their Python wrappers.
 
 Counterpart of ``kangaroo_tpu/stereo/sgm_pallas.py``: ``_make_kernel`` for
-the straight paths, ``_make_multi_diag_kernel`` for the 8-path mode
-(``semi_global_matching``), ``_make_kernel``'s lane-offset, seam and carry
+the straight paths and ``_make_multi_diag_kernel`` for the 8-path mode
+(``csrc/sgm_path.cu``, ``kt_sgm_path``: ``semi_global_matching``,
+``aggregate_direction`` and the whole-line scans of
+``sgm_aggregate_scan``), ``_make_kernel``'s lane-offset, seam and carry
 variants (``sgm_aggregate_scan``, ``sgm_aggregate_block``,
 ``semi_global_matching(seam_period=)``) and ``_make_diag_kernel``
-(``sgm_aggregate_diag_block``). One launch per path direction, chained
-through one f32 output. The plain versions are the functions of the same
-names in ``stereo/sgm.py``, whose docstrings give the semantics; the
-volumes keep the (D, S, N) layout there too. The segments have no
-gradient (the JAX package gives them none) and refuse inputs that require
-one.
+(``sgm_aggregate_diag_block``) (``csrc/sgm.cu``, ``kt_sgm_segment``). One
+launch per path direction, chained through one f32 output. The plain
+versions are the functions of the same names in ``stereo/sgm.py``, whose
+docstrings give the semantics; the volumes keep the (D, S, N) layout there
+too. The segments have no gradient (the JAX package gives them none) and
+refuse inputs that require one.
 """
 from __future__ import annotations
 
@@ -20,10 +22,10 @@ from .. import _build, backend
 from . import sgm as _plain
 
 # kernel launches since the last reset, one per path direction: the
-# straight directions of a whole image or a row shard (kernel 1), the
-# diagonals of the 8-path mode (kernel 5), the straight segments with a
-# lane offset, a seam period or a carry (kernel 7), and the diagonal
-# segments with a carry (kernel 6)
+# straight directions of whole lines (kernel 1) and the diagonals of the
+# 8-path mode (kernel 5), both ``kt_sgm_path``; the straight segments with
+# a lane offset, a seam period or a carry (kernel 7), and the diagonal
+# segments with a carry (kernel 6), both ``kt_sgm_segment``
 launches = 0
 diagonal_launches = 0
 segment_launches = 0
@@ -103,6 +105,41 @@ def _launch(vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
     backend.check_launch(rc, op)
 
 
+def _path(vol, img, out, step, sd, P1, P2, accumulate, op) -> None:
+    """One direction over whole lines of vol (D, S, N) through
+    ``kt_sgm_path`` (kernel 1, or 5 for a diagonal step): writes Lr into
+    ``out``, or adds it onto ``out`` in place with ``accumulate``. Each
+    tensor is read and written through its strides (unit along N)."""
+    global launches, diagonal_launches
+    D, S, N = vol.shape
+    with torch.cuda.device(vol.device):
+        rc = _build.library().kt_sgm_path(
+            vol.data_ptr(), int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
+            img.data_ptr(), img.stride(0), out.data_ptr(), out.stride(0), out.stride(1), D, S, N,
+            step[0], step[1], int(sd), float(P1), float(P2), int(bool(accumulate)),
+            backend.stream_handle(vol))
+    backend.check_launch(rc, op)
+    if step[0] and step[1]:
+        diagonal_launches += 1
+    else:
+        launches += 1
+
+
+def aggregate_direction(vol: torch.Tensor, img: torch.Tensor, step, P1: float = 0.01,
+                        P2: float = 0.02, sd: int = -1, acc: torch.Tensor | None = None):
+    """One path direction ``step`` = (sx, sy) over vol (D, S, N) on the card
+    (kernel 1, or 5 for a diagonal): Lr (D, S, N) float32, added onto
+    ``acc`` in place when given. See ``stereo.sgm.aggregate_direction``."""
+    op = "sgm"
+    _check_volume(vol, img, op)
+    sx, sy = _plain._check_step(step)
+    if sd not in (-1, 1):
+        raise ValueError(f"sd must be -1 or 1, got {sd}")
+    out = _output(vol, acc, op)
+    _path(vol, img, out, (sx, sy), sd, P1, P2, acc is not None, op)
+    return out
+
+
 def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
                          P2: float = 0.02, do_horiz: bool = True, do_vert: bool = True,
                          do_reverse: bool = True, do_diagonal: bool = False,
@@ -113,7 +150,7 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
     ``do_reverse``, as in the JAX package. ``seam_period`` re-seeds the
     vertical paths every that many rows (a stacked frame batch, 4-path):
     those directions run the segment kernel (kernel 7)."""
-    global launches, diagonal_launches, segment_launches
+    global segment_launches
     backend.require_kernels(vol, "sgm")
     backend.check_tensor(vol, "vol", (torch.float32, torch.bfloat16), 3)
     backend.check_tensor(img, "img", (torch.float32,), 2)
@@ -134,24 +171,13 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
     if not steps:
         return torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
     out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
-    lib = _build.library()
-    with torch.cuda.device(vol.device):
-        stream = backend.stream_handle(vol)
-        for i, (sx, sy) in enumerate(steps):
-            if seam_period is not None and sx == 0:
-                _launch(vol, img, out, out if i else None, (sx, sy), sd, 0, W, seam_period,
-                        P1, P2, "sgm_segment")
-                segment_launches += 1
-                continue
-            rc = lib.kt_sgm_path(
-                vol.data_ptr(), int(vol.dtype == torch.bfloat16), img.data_ptr(),
-                out.data_ptr(), D, H, W, sx, sy, int(sd), float(P1), float(P2),
-                int(i > 0), stream)
-            backend.check_launch(rc, "sgm")
-            if sx and sy:
-                diagonal_launches += 1
-            else:
-                launches += 1
+    for i, step in enumerate(steps):
+        if seam_period is not None and step[0] == 0:
+            _launch(vol, img, out, out if i else None, step, sd, 0, W, seam_period, P1, P2,
+                    "sgm_segment")
+            segment_launches += 1
+        else:
+            _path(vol, img, out, step, sd, P1, P2, i > 0, "sgm")
     return out
 
 
@@ -162,9 +188,9 @@ def sgm_aggregate_scan(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01, P
     """Both path directions along one axis of vol (D, S, N) on the card,
     chained through one output (``acc``, updated in place, when given).
     The row scans of a column shard (``lane_offset``, ``width``) or of a
-    stacked batch (``seam_period``) are kernel 7; whole rows or columns
-    without either are kernel 1."""
-    global launches, segment_launches
+    stacked batch (``seam_period``) are kernel 7 (``kt_sgm_segment``);
+    whole rows or columns without either are kernel 1 (``kt_sgm_path``)."""
+    global segment_launches
     op = "sgm_segment"
     _check_volume(vol, img, op)
     D, S, N = vol.shape
@@ -177,12 +203,13 @@ def sgm_aggregate_scan(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01, P
                                  or width != N)
     steps = _HORIZONTAL if scan_is_x else _VERTICAL
     for i, step in enumerate(steps if do_reverse else steps[:1]):
-        _launch(vol, img, out, out if (i or acc is not None) else None, step, sd, offset, width,
-                seam_period or 0, P1, P2, op)
+        accumulate = bool(i) or acc is not None
         if variant:
+            _launch(vol, img, out, out if accumulate else None, step, sd, offset, width,
+                    seam_period or 0, P1, P2, op)
             segment_launches += 1
         else:
-            launches += 1
+            _path(vol, img, out, step, sd, P1, P2, accumulate, "sgm")
     return out
 
 

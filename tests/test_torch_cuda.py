@@ -13,7 +13,10 @@ check exact, NaN positions included; ROF and TGV 1e-4 max abs after 100
 iterations (the same operations in the same order as the plain version,
 but TGV amplifies any last-bit difference); the DTAM auxiliary search
 1e-5 and the DTAM alternation 1e-4 px (the same operations in the same
-order, each rounded on its own, so 0 is expected).
+order, each rounded on its own, so 0 is expected). The whole-image path
+kernel (``csrc/sgm_path.cu``) equals the segment kernel (``csrc/sgm.cu``)
+run over the whole image exactly: the same operations per element in the
+same order.
 """
 import numpy as np
 import pytest
@@ -637,3 +640,103 @@ def test_segment_wrappers_check_their_arguments(dev):
         sgm_cuda.semi_global_matching(vol, img, seam_period=5)
     with pytest.raises(ValueError, match="width"):
         sgm_cuda.sgm_aggregate_scan(vol, img, scan_is_x=True, lane_offset=8)
+
+
+# --- the whole-image path kernel against the segment kernel ----------------
+# one direction alone: csrc/sgm_path.cu (kt_sgm_path) against csrc/sgm.cu
+# (kt_sgm_segment, no lattice offset, seam or carry) exactly, and against
+# the plain version at 1e-4 on the lattice; every DPT, odd sizes, the
+# largest shared-memory ring (D = 256 float32) and an image narrower than
+# a block's lines
+
+PATH_SHAPES = [(1, 9, 5), (16, 16, 128), (64, 480, 640), (200, 37, 61), (256, 40, 72),
+               (40, 23, 11)]
+PATH_STEPS = [(0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, 1), (1, -1), (-1, -1)]
+
+
+def _segment_direction(vol, img, step, sd, acc):
+    """One direction through the segment kernel over the whole image."""
+    out = acc.clone() if acc is not None else torch.empty(vol.shape, device=vol.device)
+    sgm_cuda._launch(vol, img, out, out if acc is not None else None, step, sd, 0,
+                     vol.shape[2], 0, 0.01, 0.02, "sgm_segment")
+    return out
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("step", PATH_STEPS)
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_sgm_path_kernel_matches_segment_kernel_and_plain(dev, shape, step, sd, dtype,
+                                                          accumulate):
+    D, H, W = shape
+    vol, img = _segment_inputs(shape, dev, dtype, seed=40)
+    acc = (torch.from_numpy(np.random.default_rng(41).random(shape, dtype=np.float32)).to(dev)
+           if accumulate else None)
+    before = (sgm_cuda.launches, sgm_cuda.diagonal_launches)
+    got = sgm_cuda.aggregate_direction(vol, img, step, 0.01, 0.02, sd,
+                                       acc=None if acc is None else acc.clone())
+    diagonal = bool(step[0] and step[1])
+    assert (sgm_cuda.launches, sgm_cuda.diagonal_launches) == (before[0] + (not diagonal),
+                                                               before[1] + diagonal)
+    assert torch.equal(got, _segment_direction(vol, img, step, sd, acc))
+    want = sgm_plain.aggregate_direction(vol, img, step, 0.01, 0.02, sd,
+                                         acc=None if acc is None else acc.clone())
+    m = _lattice(D, W, sd, dev).expand(shape)
+    torch.testing.assert_close(got[m], want[m], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", PATH_STEPS)
+def test_sgm_path_kernel_on_row_shard_views(dev, step, dtype):
+    """A row shard of a wider volume (rows 37..96, columns 1..641: odd
+    element offsets) read through its strides and added in place into a
+    view of a wider accumulator, as the segment kernel does; nothing
+    outside the view changes."""
+    vol, img = _segment_inputs((64, 121, 643), dev, dtype, seed=42)
+    v, i = vol[:, 37:97, 1:642], img[37:97, 1:642]
+    acc = torch.from_numpy(np.random.default_rng(43).random((64, 70, 646),
+                                                            dtype=np.float32)).to(dev)
+    got = acc.clone()
+    view = got[:, 4:64, 2:643]
+    assert sgm_cuda.aggregate_direction(v, i, step, acc=view) is view
+    want = acc.clone()
+    sgm_cuda._launch(v, i, want[:, 4:64, 2:643], want[:, 4:64, 2:643], step, -1, 0, 641, 0,
+                     0.01, 0.02, "sgm_segment")
+    assert torch.equal(got, want)
+    outside = torch.ones(acc.shape, dtype=torch.bool, device=dev)
+    outside[:, 4:64, 2:643] = False
+    assert torch.equal(got[outside], acc[outside])
+
+
+@pytest.mark.parametrize("step", PATH_STEPS)
+def test_sgm_path_kernel_bf16_storage_edges(dev, step):
+    """A bf16 volume of an odd number of elements as the tail of its storage
+    (it starts half a word in and ends at the storage's last element), and
+    as the head of a storage with NaN just after it: the half-words that a
+    run's covering words hold beyond the run never reach the output."""
+    shape = (3, 5, 7)
+    vol, img = _segment_inputs(shape, dev, torch.bfloat16, seed=45)
+    n = vol.numel()
+    tail = torch.full((n + 1,), float("nan"), dtype=torch.bfloat16, device=dev)
+    tail[1:] = vol.reshape(-1)
+    head = torch.full((n + 1,), float("nan"), dtype=torch.bfloat16, device=dev)
+    head[:n] = vol.reshape(-1)
+    want = _segment_direction(vol, img, step, -1, None)
+    for v in (tail[1:].view(shape), head[:n].view(shape)):
+        assert torch.equal(sgm_cuda.aggregate_direction(v, img, step), want)
+
+
+def test_sgm_scan_routes_whole_lines_to_the_path_kernel(dev):
+    """Whole rows or columns (no lane offset, seam or width) run the path
+    kernel; a lane offset runs the segment kernel; both give the same."""
+    vol, img = _segment_inputs((16, 24, 40), dev, torch.bfloat16, seed=44)
+    before = (sgm_cuda.launches, sgm_cuda.segment_launches)
+    rows = sgm_cuda.sgm_aggregate_scan(vol, img, scan_is_x=True)
+    cols = sgm_cuda.sgm_aggregate_scan(vol, img)
+    assert (sgm_cuda.launches, sgm_cuda.segment_launches) == (before[0] + 4, before[1])
+    offset = sgm_cuda.sgm_aggregate_scan(vol, img, lane_offset=0)
+    assert (sgm_cuda.launches, sgm_cuda.segment_launches) == (before[0] + 4, before[1] + 2)
+    assert torch.equal(rows, sgm_cuda.semi_global_matching(vol, img, do_vert=False))
+    assert torch.equal(cols, offset)
+    assert torch.equal(cols, sgm_cuda.semi_global_matching(vol, img, do_horiz=False))
