@@ -24,10 +24,12 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    lattice offsets, row segments and the four diagonal segments chained
    through their carries (each also against one pass through the same
    kernel, exactly), and the seam pass of 4 stacked VGA frames against 4
-   single passes (exactly); the whole-image path kernel (kernels 1 and 5,
-   ``csrc/sgm_path.cu``) against the segment kernel run over the whole
-   image, each of the 8 steps alone, bf16 and float32, both lattices, Lr
-   written and added onto an accumulator, at both shapes (exactly);
+   single passes (exactly), every case also through ``csrc/sgm.cu``'s
+   warp-per-line design (``kt_sgm_segment_lines``, exactly); the
+   whole-image path kernel (kernels 1 and 5) against that design run over
+   the whole image, each of the 8 steps alone, bf16 and float32, both
+   lattices, Lr written and added onto an accumulator, at both shapes
+   (exactly);
 3. the main paths, each run with every launch count set to 0 just before
    and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
@@ -56,8 +58,8 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    package's CPU-JAX figures;
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
-   and through the segment kernel in turns (and the chained byte floor;
-   the path kernel again with its data aliased into L2),
+   and through the warp-per-line design in turns (and the chained byte
+   floor; the path kernel again with its data aliased into L2),
    of the 100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
    frame and one incremental DTAM frame against their plain versions at
    640x480(/64); each kernel's bound; the device time by kernel of one
@@ -67,7 +69,8 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    versions, the sequence replay per frame, the frame's host
    synchronisations and its device time by stage (torch.profiler); the
    segment kernels (a wavefront row segment, a diagonal segment, the seam
-   pass of 4 frames, a column shard's vertical pair), the batch of 4
+   pass of 4 frames, a column shard's vertical pair), each also through
+   the warp-per-line design in turns (old, new, new, old), the batch of 4
    against 4 frames, the multi-device aggregations on a 1-shard mesh
    (bench.py's sharded configs) and on the virtual 4-shard mesh, and the
    4-shard frames, against the single-device aggregation and frame (a
@@ -83,6 +86,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -110,8 +114,9 @@ KERNELS = {
     "sgm_8path": ("kangaroo_tpu_torch/csrc/sgm_path.cu",
                   "kangaroo_tpu/stereo/sgm_pallas.py:504"),
     # kernel 1's lane-offset, seam and carry variants, and the diagonal segment
-    "sgm_segment": ("kangaroo_tpu_torch/csrc/sgm.cu", "kangaroo_tpu/stereo/sgm_pallas.py:36"),
-    "sgm_diag_segment": ("kangaroo_tpu_torch/csrc/sgm.cu",
+    "sgm_segment": ("kangaroo_tpu_torch/csrc/sgm_path.cu",
+                    "kangaroo_tpu/stereo/sgm_pallas.py:36"),
+    "sgm_diag_segment": ("kangaroo_tpu_torch/csrc/sgm_path.cu",
                          "kangaroo_tpu/stereo/sgm_pallas.py:397"),
     "wta": ("kangaroo_tpu_torch/csrc/wta.cu", "kangaroo_tpu/stereo/wta_pallas.py:25"),
     "median": ("kangaroo_tpu_torch/csrc/median.cu", "kangaroo_tpu/ops/median_pallas.py:70"),
@@ -291,6 +296,18 @@ def main() -> int:
     def read_counts():
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
+    @contextlib.contextmanager
+    def lines_design():
+        """Inside, the segment wrappers launch ``csrc/sgm.cu``'s
+        ``kt_sgm_segment_lines`` (the warp-per-line design) in place of
+        ``kt_sgm_segment``."""
+        launch = sgm_cuda._launch
+        sgm_cuda._launch = sgm_cuda._launch_lines
+        try:
+            yield
+        finally:
+            sgm_cuda._launch = launch
+
     def lattice(D, W, sd):
         d = torch.arange(D, device=dev)[:, None]
         x = torch.arange(W, device=dev)[None, :]
@@ -337,6 +354,21 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         return sites
+
+    def device_us(run):
+        """Device time by kernel of ``run()`` (torch.profiler): {name: (launches,
+        us)}, and the wall time in us."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        kernels = {e.key: (e.count, e.self_device_time_total)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        return kernels, wall_us
 
     # --- phase 2: each kernel against its plain version -----------------------
     def kernels_vs_plain(tag, H, W, D):
@@ -430,7 +462,8 @@ def main() -> int:
         carries; the four diagonals' row segments likewise; each chain also
         against one pass through the same kernel (exactly). At VGA, the
         seam pass of 4 stacked frames against 4 single passes (exactly)
-        and against the plain seam pass."""
+        and against the plain seam pass. Every case also runs through the
+        warp-per-line design, which it equals exactly."""
         left, right, _ = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
         cl, cr = census.census(left, "16x16"), census.census(right, "16x16")
         bits = census.norm_bits("16x16")
@@ -440,9 +473,20 @@ def main() -> int:
         rand_vol = torch.from_numpy(rng.random((D, H, W), dtype=np.float32)).to(dev)
         rand_img = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
         Hs, Ws = H // n, W // n
-        fns = {"sgm_segment": (sgm_cuda.sgm_aggregate_block, sgm_plain.sgm_aggregate_block),
-               "sgm_diag_segment": (sgm_cuda.sgm_aggregate_diag_block,
-                                    sgm_plain.sgm_aggregate_diag_block)}
+
+        def flat(x):
+            return [x] if isinstance(x, torch.Tensor) else [t for y in x for t in flat(y)]
+
+        def both(kernel, what, run):
+            """run() through kt_sgm_segment, held exactly against the same
+            run through kt_sgm_segment_lines (every tensor it returns);
+            returns the former."""
+            got = run()
+            with lines_design():
+                old = run()
+            cat = lambda x: torch.cat([t.float().reshape(-1) for t in flat(x)])
+            smoke.compare(kernel, f"{what} vs kt_sgm_segment_lines", cat(got), cat(old), 0.0)
+            return got
 
         def chain(fn, vol, img, mode, rev, dx=None, c0=0):
             """Segments over the n row shards, downward or upward, through
@@ -477,8 +521,10 @@ def main() -> int:
                 for k in range(n):
                     cols = slice(k * Ws, (k + 1) * Ws)
                     args = (vol[:, :, cols], img[:, cols], 0.01, 0.02, True, mode)
-                    got = sgm_cuda.sgm_aggregate_scan(*args, width=W, lane_offset=k * Ws)
-                    smoke.compare("sgm_segment", f"{what} column shard {k}/{n} vertical pair",
+                    label = f"{what} column shard {k}/{n} vertical pair"
+                    got = both("sgm_segment", label, lambda: sgm_cuda.sgm_aggregate_scan(
+                        *args, width=W, lane_offset=k * Ws))
+                    smoke.compare("sgm_segment", label,
                                   got, sgm_plain.sgm_aggregate_scan(*args, width=W,
                                                                     lane_offset=k * Ws),
                                   ATOL["sgm_segment"], m[:, :, cols].expand_as(got))
@@ -486,30 +532,37 @@ def main() -> int:
                 cols = slice(c0, W)
                 for rev in (False, True):
                     sense = "up" if rev else "down"
-                    (acc_k, ck), (acc_p, cp) = (chain(fn, vol[:, :, cols], img[:, cols], mode, rev,
-                                                      c0=c0) for fn in fns["sgm_segment"])
+                    acc_k, ck = both("sgm_segment", f"{what} {n} row segments {sense} and carry",
+                                     lambda: chain(sgm_cuda.sgm_aggregate_block, vol[:, :, cols],
+                                                   img[:, cols], mode, rev, c0=c0))
+                    acc_p, cp = chain(sgm_plain.sgm_aggregate_block, vol[:, :, cols],
+                                      img[:, cols], mode, rev, c0=c0)
                     mm = m[:, :, cols].expand_as(acc_k)
                     smoke.compare("sgm_segment", f"{what} {n} row segments {sense}, columns "
                                   f"{c0}..{W - 1}", acc_k, acc_p, ATOL["sgm_segment"], mm)
                     smoke.compare("sgm_segment", f"{what} {n} row segments {sense} carry best",
                                   ck[1], cp[1], ATOL["sgm_segment"])
-                    one = sgm_cuda.sgm_aggregate_block(vol[:, :, cols], img[:, cols], 0.01, 0.02,
-                                                       mode, width=W, lane_offset=c0,
-                                                       reverse=rev)[0]
+                    one = both("sgm_segment", f"{what} one pass {sense}",
+                               lambda: sgm_cuda.sgm_aggregate_block(
+                                   vol[:, :, cols], img[:, cols], 0.01, 0.02, mode, width=W,
+                                   lane_offset=c0, reverse=rev)[:3])[0]
                     smoke.compare("sgm_segment", f"{what} {n} row segments {sense} vs one pass",
                                   acc_k, one, 0.0, mm)
                 for dx, rev in ((1, False), (-1, False), (1, True), (-1, True)):
                     sense = f"dx={dx:+d} {'up' if rev else 'down'}"
-                    (acc_k, ck), (acc_p, cp) = (chain(fn, vol, img, mode, rev, dx)
-                                                for fn in fns["sgm_diag_segment"])
+                    acc_k, ck = both("sgm_diag_segment", f"{what} {n} diagonal segments {sense} "
+                                     "and carry", lambda: chain(sgm_cuda.sgm_aggregate_diag_block,
+                                                                vol, img, mode, rev, dx))
+                    acc_p, cp = chain(sgm_plain.sgm_aggregate_diag_block, vol, img, mode, rev, dx)
                     smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense}",
                                   acc_k, acc_p, ATOL["sgm_diag_segment"], m.expand_as(acc_k))
                     smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense} "
                                   "carry best", ck[1], cp[1], ATOL["sgm_diag_segment"])
                     zero = torch.zeros(W, device=dev)
-                    one = sgm_cuda.sgm_aggregate_diag_block(
-                        vol, img, torch.full((D, W), 1e30, device=dev), zero, zero, zero, 0.01,
-                        0.02, mode, dx=dx, reverse=rev)[0]
+                    one = both("sgm_diag_segment", f"{what} one diagonal pass {sense}",
+                               lambda: sgm_cuda.sgm_aggregate_diag_block(
+                                   vol, img, torch.full((D, W), 1e30, device=dev), zero, zero,
+                                   zero, 0.01, 0.02, mode, dx=dx, reverse=rev)[:3])[0]
                     smoke.compare("sgm_diag_segment", f"{what} {n} diagonal segments {sense} "
                                   "vs one pass", acc_k, one, 0.0, m.expand_as(acc_k))
         if tag != "vga":
@@ -521,7 +574,8 @@ def main() -> int:
             torch.cat([census.census(p[1], "16x16") for p in pairs]), D, -1, bits,
             dtype=torch.bfloat16)
         img4 = stereo_sgm._intensity(torch.cat([p[0] for p in pairs]))
-        seam = sgm_cuda.semi_global_matching(vol4, img4, seam_period=H)
+        seam = both("sgm_segment", f"{tag} seam pass of {BATCH} frames",
+                    lambda: sgm_cuda.semi_global_matching(vol4, img4, seam_period=H))
         for k in range(BATCH):
             rows = slice(k * H, (k + 1) * H)
             smoke.compare("sgm_segment", f"{tag} seam pass of {BATCH} frames, frame {k} vs its "
@@ -533,9 +587,10 @@ def main() -> int:
                       ATOL["sgm_segment"], lattice(D, W, -1).expand_as(seam))
 
     def path_vs_segment(tag, H, W, D):
-        """The whole-image path kernel (``kt_sgm_path``) against the segment
-        kernel (``kt_sgm_segment``, no lattice offset, seam or carry) over
-        the same image: each of the 8 steps alone on random bf16 and
+        """The whole-image path kernel (``kt_sgm_path``) against the
+        warp-per-line design (``kt_sgm_segment_lines``, no lattice offset,
+        seam or carry) over the same image: each of the 8 steps alone on
+        random bf16 and
         float32 volumes, both lattices, Lr written and added onto an
         accumulator; equal exactly (the same operations per element in
         the same order)."""
@@ -552,12 +607,13 @@ def main() -> int:
                             got.append(sgm_cuda.aggregate_direction(vol, img, step, 0.01, 0.02,
                                                                     sd, acc=a))
                             w = acc.clone() if accumulate else torch.empty_like(acc)
-                            sgm_cuda._launch(vol, img, w, w if accumulate else None, step, sd, 0,
-                                             W, 0, 0.01, 0.02, "sgm_segment")
+                            sgm_cuda._launch_lines(vol, img, w, w if accumulate else None, step,
+                                                   sd, 0, W, 0, 0.01, 0.02, "sgm_segment")
                             want.append(w)
                         smoke.compare(kernel, f"{tag} {src} sd={sd:+d} steps {steps} "
                                       f"{'added onto acc' if accumulate else 'written'} vs "
-                                      "kt_sgm_segment", torch.stack(got), torch.stack(want), 0.0)
+                                      "kt_sgm_segment_lines", torch.stack(got), torch.stack(want),
+                                      0.0)
 
     def solvers_vs_plain(H, W):
         """The solves on a noisy image and on uniform noise (bench.py's input)."""
@@ -621,7 +677,7 @@ def main() -> int:
         print(f"phase 2 SGM segment kernels vs plain at {tag} {W}x{H}/{D}, {n}-way split:")
         smoke.phase(f"phase 2 segments {tag}", segments_vs_plain, tag, H, W, D, n)
         torch.cuda.synchronize()
-        print(f"phase 2 SGM path kernel vs segment kernel at {tag} {W}x{H}/{D}:")
+        print(f"phase 2 SGM path kernel vs the warp-per-line design at {tag} {W}x{H}/{D}:")
         smoke.phase(f"phase 2 path {tag}", path_vs_segment, tag, H, W, D)
         torch.cuda.synchronize()
     for H, W in SOLVER_SHAPES:
@@ -1212,19 +1268,6 @@ def main() -> int:
         # one solve and in one cold frame, whose busy share is that time over
         # the frame's wall time under the profiler; and the search on the
         # volume as float32, twice the bytes in the same number of loads
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        def device_us(run):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall_us = 1e6 * (time.perf_counter() - t0)
-            kernels = {e.key: (e.count, e.self_device_time_total)
-                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-            return kernels, wall_us
-
         for what, run in (("dtam_solve", cases["dtam"][0]), ("dtam_frame", cases["dtam_frame"][0])):
             run()
             kernels, wall_us = device_us(run)
@@ -1239,22 +1282,23 @@ def main() -> int:
                     n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
                     print(f"    {part}: {n} launches, {us / n:.2f} us each, {us / 1e3:.4f} ms")
         # one direction of each class added onto the aggregate: the path
-        # kernel and the segment kernel over the whole image in turns
-        # (segment, path, path, segment), beside the chained byte floor
+        # kernel and the warp-per-line design over the whole image in turns
+        # (old, path, path, old), beside the chained byte floor
         # (the volume, the intensities, the aggregate read and written)
         acc = agg.clone()
         chained = nbytes(vol, img) + 2 * nbytes(acc)
         for cls, step in (("horizontal", (1, 0)), ("vertical", (0, 1)), ("diagonal", (1, 1))):
             path = lambda: sgm_cuda.aggregate_direction(vol, img, step, acc=acc)
-            seg = lambda: sgm_cuda._launch(vol, img, acc, acc, step, -1, 0, W, 0, 0.01, 0.02,
-                                           "sgm_segment")
+            seg = lambda: sgm_cuda._launch_lines(vol, img, acc, acc, step, -1, 0, W, 0, 0.01,
+                                                 0.02, "sgm_segment")
             s1 = timing.time_fn(seg, warmup=3, runs=20)["median_ms"]
             p1 = timing.time_fn(path, warmup=3, runs=20)["median_ms"]
             p2 = timing.time_fn(path, warmup=0, runs=20)["median_ms"]
             s2 = timing.time_fn(seg, warmup=0, runs=20)["median_ms"]
-            print(f"  direction {cls:10s} {step}: path kernel {p1:.4f} / {p2:.4f} ms, segment "
-                  f"kernel {s1:.4f} / {s2:.4f} ms ({min(s1, s2) / min(p1, p2):.2f}x); chained "
-                  f"floor {chained / 1e6:.1f} MB -> {1e3 * chained / HBM_BPS:.4f} ms [{card}]")
+            print(f"  direction {cls:10s} {step}: path kernel {p1:.4f} / {p2:.4f} ms, "
+                  f"warp-per-line {s1:.4f} / {s2:.4f} ms ({min(s1, s2) / min(p1, p2):.2f}x); "
+                  f"chained floor {chained / 1e6:.1f} MB -> {1e3 * chained / HBM_BPS:.4f} ms "
+                  f"[{card}]")
             # the same launch with every disparity plane of the volume and
             # of the aggregate aliased onto one (d-stride 0): the data fits
             # in L2, the output is garbage; were device memory the bound,
@@ -1286,7 +1330,9 @@ def main() -> int:
         wavefront's row segment of a column block, with its carry and
         accumulator; a row shard's diagonal segment; the seam pass of 4
         frames; a column shard's vertical pair), their plain versions and
-        bounds; the batch of 4 against 4 frames; the multi-device
+        bounds, and the warp-per-line design (``kt_sgm_segment_lines``)
+        timed in turns with them (old, new, new, old); the batch of 4
+        against 4 frames; the multi-device
         aggregations on 1 and 4 virtual shards against the single-device
         one, and the 4-shard frames against the single-device frames."""
         cfg4, cfg8 = cfgs["4-path"], cfgs["8-path"]
@@ -1338,17 +1384,48 @@ def main() -> int:
                        lambda: [stereo_sgm.sgm_pipeline(a, b, cfg4)
                                 for a, b in zip(lefts, rights)]),
         }
+        def sgm_device_ms(run, reps=10):
+            """The SGM kernels' device time in one ``run()``, apart from the
+            host's (torch.profiler over ``reps`` runs): the time recorded
+            per launch times the launches the wrappers made per run; and
+            the launches recorded and made."""
+            sgm = ("sgm", "sgm_8path", "sgm_segment", "sgm_diag_segment")
+            before = read_counts()
+            kernels, _ = device_us(lambda: [run() for _ in range(reps)])
+            made = sum(read_counts()[k] - before[k] for k in sgm)
+            n = sum(c for k, (c, _) in kernels.items() if "sgm" in k)
+            us = sum(t for k, (_, t) in kernels.items() if "sgm" in k)
+            return (1e-3 * us / n * made / reps if n else float("nan")), n, made
+
+        def time_lines(run, warmup):
+            with lines_design():
+                return timing.time_fn(run, warmup=warmup, runs=20)["median_ms"]
+
         for name, (kern, plain) in cases.items():
             slow = name not in ("batch4",)
             p1 = timing.time_fn(plain, warmup=1, runs=3 if slow else 10)
+            if slow:
+                o1 = time_lines(kern, 3)
             k1 = timing.time_fn(kern, warmup=3, runs=20)
             k2 = timing.time_fn(kern, warmup=0, runs=20)
+            if slow:
+                o2 = time_lines(kern, 0)
             p2 = timing.time_fn(plain, warmup=0, runs=3 if slow else 10)
             times[name] = (min(k1["median_ms"], k2["median_ms"]),
                            min(p1["median_ms"], p2["median_ms"]))
             vs = "4 single frames" if name == "batch4" else "plain"
-            print(f"  {name:16s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, {vs} "
-                  f"{p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms [{card}]")
+            old = (f", warp-per-line {o1:.4f} / {o2:.4f} ms "
+                   f"({min(o1, o2) / times[name][0]:.2f}x)" if slow else "")
+            print(f"  {name:16s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms{old}, "
+                  f"{vs} {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms [{card}]")
+            if slow:
+                dev_ms = [sgm_device_ms(kern)]
+                with lines_design():
+                    dev_ms.append(sgm_device_ms(kern))
+                (k_ms, k_n, k_made), (o_ms, o_n, o_made) = dev_ms
+                print(f"  {name:16s} SGM kernels' device time a call {k_ms:.4f} ms ({k_n} of "
+                      f"{k_made} launches recorded), warp-per-line {o_ms:.4f} ms ({o_n} of "
+                      f"{o_made}) [{card}]")
         k, p = times["batch4"]
         print(f"  batch of {BATCH}: {1e3 * BATCH / k:.2f} fps stacked, {1e3 * BATCH / p:.2f} fps "
               f"as {BATCH} frames [{card}]")

@@ -28,17 +28,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, acc, out
+# strides (d, y), D, S, N, sx, sy, sd, xoff, width, seam, P1, P2, carry in
+# (prev, best, img, has), carry out (prev, best), stream
+_SEGMENT = [_P, _I, _L, _L, _P, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+            _P, _P, _P, _P, _P, _P, _P]
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
     # vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, out
     # strides (d, y), D, S, N, sx, sy, sd, P1, P2, accumulate, stream
     "kt_sgm_path": [_P, _I, _L, _L, _P, _L, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    # vol, vol_is_bf16, vol strides (d, y), img, img row stride, out, acc,
-    # out strides (d, y), D, S, N, sx, sy, sd, xoff, width, seam, P1, P2,
-    # carry in (prev, best, img, has), carry out (prev, best), stream
-    "kt_sgm_segment": [_P, _I, _L, _L, _P, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
+    # the segment kernel (csrc/sgm_path.cu), and the warp-per-line design it
+    # is held against (csrc/sgm.cu)
+    "kt_sgm_segment": _SEGMENT,
+    "kt_sgm_segment_lines": _SEGMENT,
     # vol, vol_is_bf16, out, D, H, W, sd, stream
     "kt_wta_subpix": [_P, _I, _P, _I, _I, _I, _I, _P],
     # img, out, H, W, rad, max_bad, stream

@@ -1,13 +1,15 @@
-// Semi-global matching over one segment of a sharded or stacked image: one
-// path direction per launch, straight or diagonal (kernels 6 and 7). The
-// whole-image directions (kernels 1 and 5) are csrc/sgm_path.cu.
+// Semi-global matching over one segment of a sharded or stacked image, one
+// path direction per launch, by one warp per path line: the comparison
+// design for csrc/sgm_path.cu's kt_sgm_segment (kernels 6 and 7), launched
+// by no path of the package. chip_smoke.py and the card tests hold
+// kt_sgm_segment and kt_sgm_path against it bit for bit and time it beside
+// them (kt_sgm_segment_lines, the same C signature as kt_sgm_segment).
 //
-// Replaces kangaroo_tpu/stereo/sgm_pallas.py:_make_kernel's with_offset /
-// seam_blocks / carry_in / carry_out variants (sgm_aggregate_scan's lane
-// offset and seam period, sgm_aggregate_block) and _make_diag_kernel (one
-// diagonal segment with a carry, sgm_aggregate_diag_block). A direction is
-// a step (sx, sy), each in {-1, 0, +1}: pixel (x, y) continues the path
-// from (x - sx, y - sy). Per path step:
+// Computes what kangaroo_tpu/stereo/sgm_pallas.py:_make_kernel's
+// with_offset / seam_blocks / carry_in / carry_out variants and
+// _make_diag_kernel compute. A direction is a step (sx, sy), each in
+// {-1, 0, +1}: pixel (x, y) continues the path from (x - sx, y - sy). Per
+// path step:
 //   CM(d) = min(prev(d), min(prev(d-1), prev(d+1)) + P1, lastBest + P2')
 //   Lr(d) = CM(d) + C(d) - lastBest,   P2' = P2 / (1 + |I(p) - I(p-r)|)
 // with entries off the disparity lattice held at 1e30 in the carry and
@@ -16,8 +18,8 @@
 // shard passes its offset). A pixel whose predecessor is off the image, or
 // at or past column `width` on a diagonal, starts a path: it writes C and
 // leaves lastBest at 0. Run over a whole image with no offset, seam or
-// carry, it gives the bits of csrc/sgm_path.cu (the same operations per
-// element in the same order).
+// carry, it gives the bits of kt_sgm_path (the same operations per element
+// in the same order).
 //
 // Segments: with a carry in, the first row of the scan continues from the
 // upstream segment's last row instead of seeding: prev and lastBest from
@@ -29,12 +31,11 @@
 // so frames stacked along the rows aggregate in one launch as if each were
 // alone.
 //
-// What bounds it on the H100: memory transactions. Each path step reads D
+// Why it is slow on the H100: memory transactions. Each path step reads D
 // costs and reads and writes D accumulator values, each a 4-byte access at
 // stride S·N, one 32-byte sector apiece; and the step waits for those
-// loads (only the costs are loaded a step ahead). csrc/sgm_path.cu's
-// row-stepped design, which reads contiguous runs through a ring in
-// shared memory, is the one to bring here.
+// loads (only the costs are loaded a step ahead). csrc/sgm_path.cu reads
+// contiguous runs of adjacent lines through a ring in shared memory.
 //
 // Design: one warp owns one whole path line and loops along it, so nothing
 // carries between blocks, which run in no order. A direction's lines start
@@ -50,11 +51,9 @@
 // memory and no block barrier. The next step's costs are loaded before the
 // current step's arithmetic to hide their latency. The volume is read in
 // its (D, S, N) layout for every direction, through strides, so a column
-// block of a wider array is read and written in place; the TPU's
-// transposes and its row-reversed copies for upward segments are layout
-// work this design does not copy (an upward segment is sy = -1).
-// Directions chain through one f32 output: a launch writes Lr, or adds it
-// onto an accumulator (which may be the output itself).
+// block of a wider array is read and written in place (an upward segment
+// is sy = -1). Directions chain through one f32 output: a launch writes
+// Lr, or adds it onto an accumulator (which may be the output itself).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -95,11 +94,7 @@ __host__ __device__ __forceinline__ int n_lines(const PathArgs& a) {
   return a.N + a.S - 1;
 }
 
-// kSegment compiles the segment features in (lattice offset and width,
-// carries, the diagonal's width test); without it the kernel is the
-// whole-image one, a.xoff = 0 and a.width = N, which nothing launches now
-// (csrc/sgm_path.cu runs the whole image).
-template <typename T, int DPT, bool kSegment>
+template <typename T, int DPT>
 __global__ void sgm_path_kernel(const PathArgs a) {
   const int line = blockIdx.x * blockDim.y + threadIdx.y;
   if (line >= n_lines(a)) return;  // uniform across the warp
@@ -132,7 +127,7 @@ __global__ void sgm_path_kernel(const PathArgs a) {
     L = min(sx > 0 ? N - x0 : x0 + 1, sy > 0 ? S - y0 : y0 + 1);
   }
   const int d0 = lane * DPT;
-  const int width = kSegment ? a.width : N;
+  const int width = a.width;
 
   float prev[DPT];
   float cost[DPT];
@@ -157,11 +152,11 @@ __global__ void sgm_path_kernel(const PathArgs a) {
     const int x = x0 + t * sx;
     const int y = y0 + t * sy;
     const int xp = x - sx;       // the predecessor's column
-    const int xa = kSegment ? x + a.xoff : x;  // the lattice's column
+    const int xa = x + a.xoff;  // the lattice's column
     const long long ooff = static_cast<long long>(y) * a.out_sy + x;
     const float here = img[static_cast<long long>(y) * a.img_sy + x];
     // a diagonal's predecessor must lie inside the image width
-    const bool pred_in = !kSegment || sx == 0 || sy == 0 || (xp >= 0 && xp < N && xp < width);
+    const bool pred_in = sx == 0 || sy == 0 || (xp >= 0 && xp < N && xp < width);
     bool cont;
     float p2 = 0.f;
     if (t > 0) {
@@ -171,7 +166,7 @@ __global__ void sgm_path_kernel(const PathArgs a) {
         p2 = a.P2 / (1.0f + fabsf(there - here));
       }
     } else {
-      cont = kSegment && a.cin_prev != nullptr && y == entry_y && pred_in &&
+      cont = a.cin_prev != nullptr && y == entry_y && pred_in &&
              (a.cin_has == nullptr || a.cin_has[xp] > 0.5f);
       if (cont) {
 #pragma unroll
@@ -229,7 +224,7 @@ __global__ void sgm_path_kernel(const PathArgs a) {
       best = local_min;
     }
 
-    if (kSegment && a.cout_prev != nullptr && y == last_y) {  // the carry for the next segment
+    if (a.cout_prev != nullptr && y == last_y) {  // the carry for the next segment
 #pragma unroll
       for (int k = 0; k < DPT; ++k) {
         const int d = d0 + k;
@@ -240,11 +235,11 @@ __global__ void sgm_path_kernel(const PathArgs a) {
   }
 }
 
-template <typename T, bool kSegment>
+template <typename T>
 cudaError_t launch_typed(const PathArgs& a, cudaStream_t stream) {
   const dim3 block(32, kWarpsPerBlock);
   const dim3 grid((n_lines(a) + kWarpsPerBlock - 1) / kWarpsPerBlock);
-#define KT_SGM_LAUNCH(DPT) sgm_path_kernel<T, DPT, kSegment><<<grid, block, 0, stream>>>(a)
+#define KT_SGM_LAUNCH(DPT) sgm_path_kernel<T, DPT><<<grid, block, 0, stream>>>(a)
   if (a.D <= 32) KT_SGM_LAUNCH(1);
   else if (a.D <= 64) KT_SGM_LAUNCH(2);
   else if (a.D <= 128) KT_SGM_LAUNCH(4);
@@ -253,7 +248,6 @@ cudaError_t launch_typed(const PathArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kSegment>
 int launch(const PathArgs& a, int vol_is_bf16, void* stream) {
   if (a.D < 1 || a.D > 256 || a.S < 1 || a.N < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a.sx < -1 || a.sx > 1 || a.sy < -1 || a.sy > 1 || (a.sx == 0 && a.sy == 0))
@@ -266,17 +260,17 @@ int launch(const PathArgs& a, int vol_is_bf16, void* stream) {
   if ((a.cin_prev && (!a.cin_best || !a.cin_img)) || (a.cout_prev && !a.cout_best))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vol_is_bf16 ? launch_typed<__nv_bfloat16, kSegment>(a, s)
-                                      : launch_typed<float, kSegment>(a, s));
+  return static_cast<int>(vol_is_bf16 ? launch_typed<__nv_bfloat16>(a, s)
+                                      : launch_typed<float>(a, s));
 }
 
 }  // namespace
 
-// One direction over a (D, S, N) segment given by strides (kernels 6 and 7):
-// a lattice offset and width, a seam period, a carry in (cin_prev null: none;
-// cin_has null: a straight carry) and out (cout_prev null: none), and an
-// accumulator (null: none; it may be out itself).
-extern "C" int kt_sgm_segment(const void* vol, int vol_is_bf16, long long vol_sd,
+// One direction over a (D, S, N) segment given by strides: a lattice offset
+// and width, a seam period, a carry in (cin_prev null: none; cin_has null: a
+// straight carry) and out (cout_prev null: none), and an accumulator (null:
+// none; it may be out itself). Any step, horizontal too.
+extern "C" int kt_sgm_segment_lines(const void* vol, int vol_is_bf16, long long vol_sd,
                               long long vol_sy, const void* img, long long img_sy, void* out,
                               const void* acc, long long out_sd, long long out_sy, int D, int S,
                               int N, int sx, int sy, int sd, int xoff, int width, int seam,
@@ -310,5 +304,5 @@ extern "C" int kt_sgm_segment(const void* vol, int vol_is_bf16, long long vol_sd
   a.cin_has = static_cast<const float*>(cin_has);
   a.cout_prev = static_cast<float*>(cout_prev);
   a.cout_best = static_cast<float*>(cout_best);
-  return launch<true>(a, vol_is_bf16, stream);
+  return launch(a, vol_is_bf16, stream);
 }

@@ -1,20 +1,38 @@
-// Semi-global matching over a whole image, or a row block of one read and
-// written in place through strides: one path direction per launch, straight
-// or diagonal (kernels 1 and 5).
+// Semi-global matching, one path direction per launch, straight or
+// diagonal: over a whole image, or a row block of one read and written in
+// place through strides (kt_sgm_path, kernels 1 and 5); and over one segment
+// of a sharded or stacked image (kt_sgm_segment, kernels 6 and 7).
 //
 // Replaces kangaroo_tpu/stereo/sgm_pallas.py:_make_kernel (the straight
 // paths, driven by _aggregate_direction) and _make_multi_diag_kernel (the
-// 8-path mode's diagonals, driven by _multi_diag_direction). A direction is
-// a step (sx, sy), each in {-1, 0, +1}: pixel (x, y) continues the path from
-// (x - sx, y - sy). Per path step:
+// 8-path mode's diagonals, driven by _multi_diag_direction); and
+// _make_kernel's with_offset / seam_blocks / carry_in / carry_out variants
+// (sgm_aggregate_scan's lane offset and seam period, sgm_aggregate_block)
+// and _make_diag_kernel (one diagonal segment with a carry,
+// sgm_aggregate_diag_block). A direction is a step (sx, sy), each in
+// {-1, 0, +1}: pixel (x, y) continues the path from (x - sx, y - sy). Per
+// path step:
 //   CM(d) = min(prev(d), min(prev(d-1), prev(d+1)) + P1, lastBest + P2')
 //   Lr(d) = CM(d) + C(d) - lastBest,   P2' = P2 / (1 + |I(p) - I(p-r)|)
-// with entries off the disparity lattice (d <= x for sd = -1, x + d < N for
-// sd = +1) held at 1e30 in the carry and written as 0. A pixel whose
-// predecessor is off the image starts a path: it writes C and leaves
-// lastBest at 0. A launch writes Lr, or adds it onto the output in place.
+// with entries off the disparity lattice (d <= xa for sd = -1, xa + d <
+// width for sd = +1; xa = x and width = N on a whole image, xa = x + xoff on
+// a column shard) held at 1e30 in the carry and written as 0. A pixel whose
+// predecessor is off the image (on a segment's diagonal also at or past
+// column `width`) starts a path: it writes C and leaves lastBest at 0. A
+// launch writes Lr, or adds it onto the output in place (a segment: onto an
+// accumulator read through the output's strides, which may be the output).
 // The operations per element and their order are those of csrc/sgm.cu's
-// segment kernel, so the two give the same bits on a whole image.
+// warp-per-line kernel (kt_sgm_segment_lines), so the two give the same bits.
+//
+// Segments (kt_sgm_segment: vertical and diagonal steps; a horizontal one is
+// whole rows, kt_sgm_path's). With a carry in, the entry row continues the
+// upstream segment's last row instead of seeding: prev and lastBest from
+// the carry at the predecessor's column, P2' from the upstream last
+// intensity there; a diagonal continues only where the carry's has-path
+// mask is set (an all-zero mask is a seed). With a carry out, the scan's
+// last row writes its prev and lastBest for the downstream segment. With a
+// seam period, frames of `seam` rows stacked along the rows aggregate in
+// one launch as if each were alone: the grid's y is the frame.
 //
 // What bounds it on the H100: each step of a path line reads D costs and D
 // accumulator values and writes D outputs, and the recurrence is sequential
@@ -42,7 +60,10 @@
 //   a (D, kLines) tile of costs and accumulator read as runs of kLines. A
 //   line whose column is off the image at a row idles there; its first
 //   pixel in the image is exactly the pixel whose predecessor is off the
-//   image: a seed.
+//   image: a seed. A segment's line warps read the carry in with plain
+//   loads at the entry row and write the carry out at the last, once a
+//   line; a seam period's frames are the grid's y, each block stepping the
+//   rows of one frame.
 // - Horizontal directions (sgm_cols_kernel): a block owns up to kMaxRows
 //   rows; a stage is kChunk columns of them, a (rows, D, kChunk) tile read
 //   as runs of kChunk.
@@ -89,6 +110,16 @@ struct PathArgs {
   int sx, sy, sd;
   float P1, P2;
   int accumulate;  // out += Lr instead of out = Lr
+  // the segment entry's alone (kt_sgm_segment; kt_sgm_path leaves them 0)
+  const float* acc;       // what accumulate adds onto, through out's strides (may be out)
+  int xoff, width;        // the lattice's column offset and image width
+  int seam;               // frames of `seam` rows aggregate alone; 0: one frame
+  const float* cin_prev;  // (D, N) contiguous, or null: the entry row seeds
+  const float* cin_best;  // (N,)
+  const float* cin_img;   // (N,) the upstream segment's last intensity row
+  const float* cin_has;   // (N,) 0/1 (diagonals), or null: every column continues
+  float* cout_prev;       // (D, N) contiguous, or null: no carry out
+  float* cout_best;       // (N,)
 };
 
 // words of a staged run of n elements, and the pitch of a tile's rows
@@ -231,17 +262,26 @@ __device__ __forceinline__ void path_step(float (&prev)[DPT], float& best, const
   best = seed ? 0.f : local_min;
 }
 
-// the largest d on the lattice at column x
+// the largest d on the lattice at column x: a segment's lattice is that of
+// column xa = x + xoff of an image `width` wide
+template <bool kSeg>
 __device__ __forceinline__ int lattice_lim(const PathArgs& a, int x) {
-  return a.sd < 0 ? x : a.N - 1 - x;
+  if constexpr (kSeg) {
+    const int xa = x + a.xoff;
+    return a.sd < 0 ? xa : a.width - 1 - xa;
+  } else {
+    return a.sd < 0 ? x : a.N - 1 - x;
+  }
 }
 
 // Vertical and diagonal directions: block b follows the kLines lines of
 // intercepts kmin + b * kLines + c, c < kLines, warp c line c, one row a
 // step; kCopiers more warps copy. A stage is `rows` image rows; a row
 // of it: costs (D, pc words), accumulator / output (D, pa), the
-// intensities (kLines).
-template <typename T, int DPT>
+// intensities (kLines). kSeg compiles in the segment entry's features: the
+// lattice offset and width, the frames of a seam period (blockIdx.y is the
+// frame), the carry in at the entry row and out at the last.
+template <typename T, int DPT, bool kSeg>
 __global__ void __launch_bounds__(32 * (kLines + kCopiers))
     sgm_rows_kernel(const PathArgs a, int rows, int ring) {
   extern __shared__ float smem[];
@@ -249,8 +289,12 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool copier = warp >= kLines;
   const int ctid = threadIdx.x - 32 * kLines;
-  const int D = a.D, S = a.S, N = a.N, sx = a.sx, sy = a.sy;
+  const int D = a.D, N = a.N, sx = a.sx, sy = a.sy;
+  // the frame's rows: yb .. yb + S - 1 of the volume
+  const int S = kSeg && a.seam ? a.seam : a.S;
+  const int yb = kSeg ? static_cast<int>(blockIdx.y) * S : 0;
   const T* __restrict__ vol = static_cast<const T*>(a.vol);
+  const float* acc = kSeg ? a.acc : a.out;  // may be a.out
   const int row_words = D * (pc + pa) + kLines, stage_words = rows * row_words;
   const int y_e = sy > 0 ? 0 : S - 1;
   // slot 0's column at step t (row y_e + sy * t) is x0 + sx * t
@@ -275,11 +319,11 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
       const int t = t_first + n * rows + j;
       if (t > t_last) break;
       float* sr = st + j * row_words;
-      const long long y = y_e + sy * t;
+      const long long y = yb + y_e + sy * t;
       const int x_lo = x0 + sx * t, s_lo = max(0, -x_lo), s_hi = min(kLines, N - x_lo);
       stage_runs<T, kLines>(sr, pc, vol, y * a.vol_sy + x_lo, a.vol_sd, D, s_lo, s_hi, ctid);
       if (a.accumulate)
-        stage_runs<float, kLines>(sr + D * pc, pa, a.out, y * a.out_sy + x_lo, a.out_sd, D, s_lo,
+        stage_runs<float, kLines>(sr + D * pc, pa, acc, y * a.out_sy + x_lo, a.out_sd, D, s_lo,
                                   s_hi, ctid);
       stage_runs<float, kLines>(sr + D * (pc + pa), kLines, a.img, y * a.img_sy + x_lo, 0, 1,
                                 s_lo, s_hi, ctid);
@@ -290,7 +334,7 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
     for (int j = 0; j < rows; ++j) {
       const int t = t_first + n * rows + j;
       if (t > t_last) break;
-      const long long y = y_e + sy * t;
+      const long long y = yb + y_e + sy * t;
       const int x_lo = x0 + sx * t, s_lo = max(0, -x_lo), s_hi = min(kLines, N - x_lo);
       store_runs<kLines>(a.out, y * a.out_sy + x_lo, a.out_sd, st + j * row_words + D * pc, pa,
                          D, s_lo, s_hi, ctid);
@@ -325,11 +369,29 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
     for (int j = 0; j < rows; ++j) {
       const int t = t_first + n * rows + j;
       if (t > t_last) break;
-      const int y = y_e + sy * t, x_lo = x0 + sx * t, x = x_lo + warp;
+      const int y = yb + y_e + sy * t, x_lo = x0 + sx * t, x = x_lo + warp;
       if (x < 0 || x >= N) continue;  // uniform across the warp
       float* sr = st + j * row_words;
       const float here = sr[D * (pc + pa) + warp];
-      const bool seed = t == 0 || x - sx < 0 || x - sx >= N;
+      // the predecessor is off the image, or at or past a segment's width
+      // on a diagonal: a path starts here, as on the entry row
+      const int xp = x - sx;
+      const bool off = xp < 0 || xp >= N || (kSeg && sx != 0 && xp >= a.width);
+      bool seed = off || t == 0;
+      if constexpr (kSeg) {
+        // the entry row continues the upstream segment's line where the
+        // carry has one (uniform across the warp; once a line)
+        if (t == 0 && !off && a.cin_prev && (!a.cin_has || a.cin_has[xp] > 0.5f)) {
+#pragma unroll
+          for (int k = 0; k < DPT; ++k) {
+            const int d = 32 * k + lane;
+            prev[k] = d < D ? a.cin_prev[static_cast<long long>(d) * N + xp] : kBig;
+          }
+          best = a.cin_best[xp];
+          there = a.cin_img[xp];
+          seed = false;
+        }
+      }
       const float p2 = a.P2 / (1.0f + fabsf(there - here));
       const int par_row = (par_base + (y & par_sy) + x_lo) & 1;
       float cost[DPT];
@@ -338,9 +400,19 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
         const int d = 32 * k + lane;
         cost[k] = d < D ? tile_cost(sr + d * pc, par_row ^ (d & par_sd), warp, T{}) : kBig;
       }
-      path_step<DPT>(prev, best, cost, seed, p2, lattice_lim(a, x), a, lane, sr + D * pc + warp,
-                     pa);
+      path_step<DPT>(prev, best, cost, seed, p2, lattice_lim<kSeg>(a, x), a, lane,
+                     sr + D * pc + warp, pa);
       there = here;
+      if constexpr (kSeg) {
+        if (a.cout_prev && t == S - 1) {  // the carry for the downstream segment
+#pragma unroll
+          for (int k = 0; k < DPT; ++k) {
+            const int d = 32 * k + lane;
+            if (d < D) a.cout_prev[static_cast<long long>(d) * N + x] = prev[k];
+          }
+          if (lane == 0) a.cout_best[x] = best;
+        }
+      }
     }
   }
   __syncthreads();
@@ -429,8 +501,8 @@ __global__ void __launch_bounds__(32 * (kMaxRows + kCopiers))
         const int d = 32 * k + lane;
         cost[k] = d < D ? tile_cost(sr + d * pc, par_row ^ (d & par_sd), s, T{}) : kBig;
       }
-      path_step<DPT>(prev, best, cost, t == 0, p2, lattice_lim(a, x), a, lane, sr + D * pc + s,
-                     pa);
+      path_step<DPT>(prev, best, cost, t == 0, p2, lattice_lim<false>(a, x), a, lane,
+                     sr + D * pc + s, pa);
       there = here;
     }
   }
@@ -451,7 +523,7 @@ using PathKernel = void (*)(PathArgs, int, int);
 // Launches kernel; above the default 48 KB of dynamic shared memory, first
 // raises its limit to kMaxSmem, once for each device (`raised`: one bit a
 // device, kept by the caller for this kernel).
-cudaError_t launch_kernel(PathKernel kernel, std::atomic<unsigned long long>& raised, int blocks,
+cudaError_t launch_kernel(PathKernel kernel, std::atomic<unsigned long long>& raised, dim3 grid,
                           int warps, size_t bytes, cudaStream_t stream, const PathArgs& a,
                           int per_block, int ring) {
   if (bytes > 48 * 1024) {
@@ -465,7 +537,7 @@ cudaError_t launch_kernel(PathKernel kernel, std::atomic<unsigned long long>& ra
       raised.fetch_or(bit, std::memory_order_relaxed);
     }
   }
-  kernel<<<blocks, 32 * warps, bytes, stream>>>(a, per_block, ring);
+  kernel<<<grid, 32 * warps, bytes, stream>>>(a, per_block, ring);
   return cudaGetLastError();
 }
 
@@ -476,36 +548,47 @@ int units_per_stage(size_t unit_bytes, int most) {
   return n < 1 ? 1 : (n > most ? most : n);
 }
 
+// the row-stepped kernel over each frame of S rows (a.S / S of them)
+template <typename T, int DPT, bool kSeg>
+cudaError_t launch_rows(const PathArgs& a, cudaStream_t stream) {
+  static std::atomic<unsigned long long> raised{0};
+  const int S = a.seam ? a.seam : a.S;
+  const size_t row =
+      4 * (static_cast<size_t>(a.D) * (odd_pitch(run_words<T>(kLines)) + odd_pitch(kLines)) +
+           kLines);
+  const int rows = units_per_stage(row, kRowsPerStage > S ? S : kRowsPerStage);
+  const int ring = ring_depth(rows * row);
+  if (!ring) return cudaErrorInvalidValue;
+  const int lines = a.N + (a.sx ? S - 1 : 0);
+  return launch_kernel(sgm_rows_kernel<T, DPT, kSeg>, raised,
+                       dim3((lines + kLines - 1) / kLines, a.S / S), kLines + kCopiers,
+                       ring * rows * row, stream, a, rows, ring);
+}
+
+// a segment (vertical or diagonal) through the row-stepped kernel's segment
+// build; a whole-image direction through the row-stepped or the horizontal
+// kernel
 template <typename T, int DPT>
-cudaError_t launch_typed(const PathArgs& a, cudaStream_t stream) {
-  static std::atomic<unsigned long long> rows_raised{0}, cols_raised{0};
-  if (a.sy != 0) {
-    const size_t row =
-        4 * (static_cast<size_t>(a.D) * (odd_pitch(run_words<T>(kLines)) + odd_pitch(kLines)) +
-             kLines);
-    const int rows = units_per_stage(row, kRowsPerStage > a.S ? a.S : kRowsPerStage);
-    const int ring = ring_depth(rows * row);
-    if (!ring) return cudaErrorInvalidValue;
-    const int lines = a.N + (a.sx ? a.S - 1 : 0);
-    return launch_kernel(sgm_rows_kernel<T, DPT>, rows_raised, (lines + kLines - 1) / kLines,
-                         kLines + kCopiers, ring * rows * row, stream, a, rows, ring);
-  }
+cudaError_t launch_typed(const PathArgs& a, bool segment, cudaStream_t stream) {
+  static std::atomic<unsigned long long> cols_raised{0};
+  if (segment) return launch_rows<T, DPT, true>(a, stream);
+  if (a.sy != 0) return launch_rows<T, DPT, false>(a, stream);
   const size_t row =
       4 * (static_cast<size_t>(a.D) * (odd_pitch(run_words<T>(kChunk)) + odd_pitch(kChunk)) +
            kChunk);
   const int rows = units_per_stage(row, kMaxRows > a.S ? a.S : kMaxRows);
   const int ring = ring_depth(rows * row);
   if (!ring) return cudaErrorInvalidValue;
-  return launch_kernel(sgm_cols_kernel<T, DPT>, cols_raised, (a.S + rows - 1) / rows,
+  return launch_kernel(sgm_cols_kernel<T, DPT>, cols_raised, dim3((a.S + rows - 1) / rows),
                        rows + kCopiers, ring * rows * row, stream, a, rows, ring);
 }
 
 template <typename T>
-cudaError_t launch_dtype(const PathArgs& a, cudaStream_t stream) {
-  if (a.D <= 32) return launch_typed<T, 1>(a, stream);
-  if (a.D <= 64) return launch_typed<T, 2>(a, stream);
-  if (a.D <= 128) return launch_typed<T, 4>(a, stream);
-  return launch_typed<T, 8>(a, stream);
+cudaError_t launch_dtype(const PathArgs& a, bool segment, cudaStream_t stream) {
+  if (a.D <= 32) return launch_typed<T, 1>(a, segment, stream);
+  if (a.D <= 64) return launch_typed<T, 2>(a, segment, stream);
+  if (a.D <= 128) return launch_typed<T, 4>(a, segment, stream);
+  return launch_typed<T, 8>(a, segment, stream);
 }
 
 }  // namespace
@@ -539,6 +622,59 @@ extern "C" int kt_sgm_path(const void* vol, int vol_is_bf16, long long vol_sd, l
   a.P2 = P2;
   a.accumulate = accumulate != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vol_is_bf16 ? launch_dtype<__nv_bfloat16>(a, s)
-                                      : launch_dtype<float>(a, s));
+  return static_cast<int>(vol_is_bf16 ? launch_dtype<__nv_bfloat16>(a, false, s)
+                                      : launch_dtype<float>(a, false, s));
+}
+
+// One direction over a (D, S, N) segment given by strides (kernels 6 and 7):
+// a lattice offset and width, a seam period, a carry in (cin_prev null: none;
+// cin_has null: a straight carry) and out (cout_prev null: none), and an
+// accumulator (null: none; it may be out itself). Vertical and diagonal
+// steps only: a horizontal direction is whole rows, kt_sgm_path's.
+extern "C" int kt_sgm_segment(const void* vol, int vol_is_bf16, long long vol_sd,
+                              long long vol_sy, const void* img, long long img_sy, void* out,
+                              const void* acc, long long out_sd, long long out_sy, int D, int S,
+                              int N, int sx, int sy, int sd, int xoff, int width, int seam,
+                              float P1, float P2, const void* cin_prev, const void* cin_best,
+                              const void* cin_img, const void* cin_has, void* cout_prev,
+                              void* cout_best, void* stream) {
+  if (D < 1 || D > 256 || S < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sx < -1 || sx > 1 || sy < -1 || sy > 1 || sy == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // seams re-seed vertical lines only, and a seamed scan has no carry
+  if (seam < 0 || (seam && (sx != 0 || S % seam || cin_prev || cout_prev)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((cin_prev && (!cin_best || !cin_img)) || (cout_prev && !cout_best))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PathArgs a{};
+  a.vol = vol;
+  a.img = static_cast<const float*>(img);
+  a.out = static_cast<float*>(out);
+  a.vol_sd = vol_sd;
+  a.vol_sy = vol_sy;
+  a.img_sy = img_sy;
+  a.out_sd = out_sd;
+  a.out_sy = out_sy;
+  a.D = D;
+  a.S = S;
+  a.N = N;
+  a.sx = sx;
+  a.sy = sy;
+  a.sd = sd;
+  a.P1 = P1;
+  a.P2 = P2;
+  a.accumulate = acc != nullptr;
+  a.acc = static_cast<const float*>(acc);
+  a.xoff = xoff;
+  a.width = width;
+  a.seam = seam;
+  a.cin_prev = static_cast<const float*>(cin_prev);
+  a.cin_best = static_cast<const float*>(cin_best);
+  a.cin_img = static_cast<const float*>(cin_img);
+  a.cin_has = static_cast<const float*>(cin_has);
+  a.cout_prev = static_cast<float*>(cout_prev);
+  a.cout_best = static_cast<float*>(cout_best);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(vol_is_bf16 ? launch_dtype<__nv_bfloat16>(a, true, s)
+                                      : launch_dtype<float>(a, true, s));
 }

@@ -1,14 +1,16 @@
 """The SGM aggregation kernels and their Python wrappers.
 
-Counterpart of ``kangaroo_tpu/stereo/sgm_pallas.py``: ``_make_kernel`` for
-the straight paths and ``_make_multi_diag_kernel`` for the 8-path mode
-(``csrc/sgm_path.cu``, ``kt_sgm_path``: ``semi_global_matching``,
-``aggregate_direction`` and the whole-line scans of
-``sgm_aggregate_scan``), ``_make_kernel``'s lane-offset, seam and carry
+Counterpart of ``kangaroo_tpu/stereo/sgm_pallas.py``, all four kernels in
+``csrc/sgm_path.cu``: ``_make_kernel`` for the straight paths and
+``_make_multi_diag_kernel`` for the 8-path mode (``kt_sgm_path``:
+``semi_global_matching``, ``aggregate_direction`` and the whole-line scans
+of ``sgm_aggregate_scan``), ``_make_kernel``'s lane-offset, seam and carry
 variants (``sgm_aggregate_scan``, ``sgm_aggregate_block``,
 ``semi_global_matching(seam_period=)``) and ``_make_diag_kernel``
-(``sgm_aggregate_diag_block``) (``csrc/sgm.cu``, ``kt_sgm_segment``). One
-launch per path direction, chained through one f32 output. The plain
+(``sgm_aggregate_diag_block``) (``kt_sgm_segment``). One launch per path
+direction, chained through one f32 output. ``csrc/sgm.cu``'s warp-per-line
+design (``kt_sgm_segment_lines``, through ``_launch_lines``) is what the
+card checks hold those kernels against; nothing here calls it. The plain
 versions are the functions of the same names in ``stereo/sgm.py``, whose
 docstrings give the semantics; the volumes keep the (D, S, N) layout there
 too. The segments have no gradient (the JAX package gives them none) and
@@ -84,25 +86,42 @@ def _carry(t: torch.Tensor, name: str, shape, device) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _launch(vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
-            carry_in=None, carry_out=None) -> None:
-    """One direction over vol (D, S, N) through ``kt_sgm_segment``; writes
-    Lr into ``out`` (``acc`` + Lr when ``acc`` is given: it may be ``out``).
-    ``carry_in``: (prev, best, img[, has]) contiguous float32;
-    ``carry_out``: (prev, best) to fill."""
+def _segment(entry, vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op, carry_in,
+             carry_out) -> None:
     D, S, N = vol.shape
     cin = list(carry_in or ())
     cin += [None] * (4 - len(cin))
     cout = carry_out or (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(vol.device):
-        rc = _build.library().kt_sgm_segment(
+        rc = getattr(_build.library(), entry)(
             vol.data_ptr(), int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
             img.data_ptr(), img.stride(0), out.data_ptr(), ptr(acc), out.stride(0),
             out.stride(1), D, S, N, step[0], step[1], int(sd), int(xoff), int(width),
             int(seam), float(P1), float(P2), *map(ptr, cin), *map(ptr, cout),
             backend.stream_handle(vol))
     backend.check_launch(rc, op)
+
+
+def _launch(vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
+            carry_in=None, carry_out=None) -> None:
+    """One vertical or diagonal direction over vol (D, S, N) through
+    ``kt_sgm_segment`` (kernel 7, or 6 for a diagonal step); writes Lr into
+    ``out`` (``acc`` + Lr when ``acc`` is given: it may be ``out``).
+    ``carry_in``: (prev, best, img[, has]) contiguous float32;
+    ``carry_out``: (prev, best) to fill."""
+    _segment("kt_sgm_segment", vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
+             carry_in, carry_out)
+
+
+def _launch_lines(vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
+                  carry_in=None, carry_out=None) -> None:
+    """``_launch`` through ``kt_sgm_segment_lines`` (``csrc/sgm.cu``, the
+    warp-per-line design; any step): the yardstick that the card checks
+    hold ``kt_sgm_segment`` and ``kt_sgm_path`` against. No path calls it
+    and no count records it."""
+    _segment("kt_sgm_segment_lines", vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
+             carry_in, carry_out)
 
 
 def _path(vol, img, out, step, sd, P1, P2, accumulate, op) -> None:

@@ -14,9 +14,9 @@ iterations (the same operations in the same order as the plain version,
 but TGV amplifies any last-bit difference); the DTAM auxiliary search
 1e-5 and the DTAM alternation 1e-4 px (the same operations in the same
 order, each rounded on its own, so 0 is expected). The whole-image path
-kernel (``csrc/sgm_path.cu``) equals the segment kernel (``csrc/sgm.cu``)
-run over the whole image exactly: the same operations per element in the
-same order.
+kernel and the segment kernel (``csrc/sgm_path.cu``) equal the warp-per-line
+design (``csrc/sgm.cu``, ``kt_sgm_segment_lines``) exactly: the same
+operations per element in the same order.
 """
 import numpy as np
 import pytest
@@ -642,9 +642,9 @@ def test_segment_wrappers_check_their_arguments(dev):
         sgm_cuda.sgm_aggregate_scan(vol, img, scan_is_x=True, lane_offset=8)
 
 
-# --- the whole-image path kernel against the segment kernel ----------------
+# --- the whole-image path kernel against the warp-per-line design ----------
 # one direction alone: csrc/sgm_path.cu (kt_sgm_path) against csrc/sgm.cu
-# (kt_sgm_segment, no lattice offset, seam or carry) exactly, and against
+# (kt_sgm_segment_lines, no lattice offset, seam or carry) exactly, and against
 # the plain version at 1e-4 on the lattice; every DPT, odd sizes, the
 # largest shared-memory ring (D = 256 float32) and an image narrower than
 # a block's lines
@@ -655,10 +655,10 @@ PATH_STEPS = [(0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, 1), (1, -1), (-1, -
 
 
 def _segment_direction(vol, img, step, sd, acc):
-    """One direction through the segment kernel over the whole image."""
+    """One direction through the warp-per-line design over the whole image."""
     out = acc.clone() if acc is not None else torch.empty(vol.shape, device=vol.device)
-    sgm_cuda._launch(vol, img, out, out if acc is not None else None, step, sd, 0,
-                     vol.shape[2], 0, 0.01, 0.02, "sgm_segment")
+    sgm_cuda._launch_lines(vol, img, out, out if acc is not None else None, step, sd, 0,
+                           vol.shape[2], 0, 0.01, 0.02, "sgm_segment")
     return out
 
 
@@ -691,7 +691,7 @@ def test_sgm_path_kernel_matches_segment_kernel_and_plain(dev, shape, step, sd, 
 def test_sgm_path_kernel_on_row_shard_views(dev, step, dtype):
     """A row shard of a wider volume (rows 37..96, columns 1..641: odd
     element offsets) read through its strides and added in place into a
-    view of a wider accumulator, as the segment kernel does; nothing
+    view of a wider accumulator, as the warp-per-line design does; nothing
     outside the view changes."""
     vol, img = _segment_inputs((64, 121, 643), dev, dtype, seed=42)
     v, i = vol[:, 37:97, 1:642], img[37:97, 1:642]
@@ -701,8 +701,8 @@ def test_sgm_path_kernel_on_row_shard_views(dev, step, dtype):
     view = got[:, 4:64, 2:643]
     assert sgm_cuda.aggregate_direction(v, i, step, acc=view) is view
     want = acc.clone()
-    sgm_cuda._launch(v, i, want[:, 4:64, 2:643], want[:, 4:64, 2:643], step, -1, 0, 641, 0,
-                     0.01, 0.02, "sgm_segment")
+    sgm_cuda._launch_lines(v, i, want[:, 4:64, 2:643], want[:, 4:64, 2:643], step, -1, 0, 641,
+                           0, 0.01, 0.02, "sgm_segment")
     assert torch.equal(got, want)
     outside = torch.ones(acc.shape, dtype=torch.bool, device=dev)
     outside[:, 4:64, 2:643] = False
@@ -740,3 +740,156 @@ def test_sgm_scan_routes_whole_lines_to_the_path_kernel(dev):
     assert torch.equal(rows, sgm_cuda.semi_global_matching(vol, img, do_vert=False))
     assert torch.equal(cols, offset)
     assert torch.equal(cols, sgm_cuda.semi_global_matching(vol, img, do_horiz=False))
+
+
+# --- the segment kernel against the warp-per-line design -------------------
+# kt_sgm_segment (csrc/sgm_path.cu, kernels 6 and 7) against
+# kt_sgm_segment_lines (csrc/sgm.cu) through the same wrappers on the same
+# inputs, exactly: the same operations per element in the same order. The
+# volumes are bf16 or float32 views of wider arrays whose columns start at
+# an odd element and whose rows are an odd number of elements apart, so a
+# bf16 run starts half a word in on every other row.
+
+
+def _both_designs(fn):
+    """fn()'s tensors through kt_sgm_segment, and again with the segment
+    wrappers launching kt_sgm_segment_lines."""
+    got = fn()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sgm_cuda, "_launch", sgm_cuda._launch_lines)
+        want = fn()
+    return got, want
+
+
+def _odd_view(shape, dev, dtype, seed):
+    """vol (D, S, N) and img (S, N) as views at column 1 of arrays 3 wider."""
+    D, S, N = shape
+    vol, img = _segment_inputs((D, S, N + 3), dev, dtype, seed)
+    return vol[:, :, 1:N + 1], img[:, 1:N + 1]
+
+
+def _assert_designs_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (D, H, W), row segments, column blocks: VGA/64 4 ways; KITTI/128 3 ways
+# in blocks of 416 columns (the last 410 wide) and 125 rows; D = 256
+# float32 (the deepest ring), the last block 32 of 72 columns
+SPLITS = [((64, 480, 640), 4, 160), ((128, 375, 1242), 3, 416), ((256, 40, 72), 2, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape,n,block", SPLITS)
+def test_sgm_segment_chain_matches_lines_design(dev, shape, n, block, sd, reverse, dtype):
+    """The last column block at its lattice offset, its rows in n segments
+    chained down or up through their carries into a view of a wider
+    accumulator: the accumulator (outside the view untouched) and every
+    carry equal the warp-per-line design's."""
+    D, H, W = shape
+    vol, img = _odd_view(shape, dev, dtype, seed=50)
+    c0, Hs = (n - 1) * block, H // n
+    cols = slice(c0, W)
+    acc0 = torch.from_numpy(np.random.default_rng(51).random((D, H, W + 5),
+                                                             dtype=np.float32)).to(dev)
+    mode = "left" if sd < 0 else "right"
+
+    def chain():
+        acc = acc0.clone()
+        view = acc[:, :, 2:W + 2][:, :, cols]
+        carry, outs = (None, None, None), []
+        for k in (range(n - 1, -1, -1) if reverse else range(n)):
+            rows = slice(k * Hs, H if k == n - 1 else (k + 1) * Hs)
+            _, *carry = sgm_cuda.sgm_aggregate_block(
+                vol[:, rows, cols], img[rows, cols], 0.01, 0.02, mode, width=W,
+                seed=carry[0] is None, carry_prev=carry[0], carry_best=carry[1],
+                last_img=carry[2], lane_offset=c0, acc=view[:, rows], reverse=reverse)
+            outs += carry[:2]
+        return [acc, *outs]
+
+    before = sgm_cuda.segment_launches
+    got, want = _both_designs(chain)
+    assert sgm_cuda.segment_launches == before + 2 * n
+    _assert_designs_equal(got, want)
+    assert torch.equal(got[0][:, :, :2 + c0], acc0[:, :, :2 + c0])
+    assert torch.equal(got[0][:, :, W + 2:], acc0[:, :, W + 2:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape,n,block", SPLITS)
+def test_sgm_segment_column_pairs_match_lines_design(dev, shape, n, block, sd, dtype):
+    """Every column block's vertical pair at its lattice offset (the
+    reshard's scans), added onto an accumulator."""
+    D, H, W = shape
+    vol, img = _odd_view(shape, dev, dtype, seed=52)
+    acc0 = torch.from_numpy(np.random.default_rng(53).random(shape, dtype=np.float32)).to(dev)
+
+    def pairs():
+        acc = acc0.clone()
+        for k in range(n):
+            cols = slice(k * block, min(W, (k + 1) * block))
+            sgm_cuda.sgm_aggregate_scan(vol[:, :, cols], img[:, cols], 0.01, 0.02, True,
+                                        "left" if sd < 0 else "right", width=W,
+                                        acc=acc[:, :, cols], lane_offset=k * block)
+        return [acc]
+
+    _assert_designs_equal(*_both_designs(pairs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("has", ["zero", "one", "mixed"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dx", [1, -1])
+@pytest.mark.parametrize("shape,width,mode", [((64, 120, 640), 640, "left"),
+                                              ((128, 125, 1250), 1242, "right")])
+def test_sgm_diag_segment_matches_lines_design(dev, shape, width, mode, dx, reverse, has, dtype):
+    """A diagonal segment from a carry whose has-path mask is all zero (a
+    seed), all one, or mixed, on a lane block that may be wider than the
+    image, added onto an accumulator: Lr and the carry out."""
+    D, S, N = shape
+    vol, img = _odd_view(shape, dev, dtype, seed=54)
+    rng = np.random.default_rng(55)
+    carry = [torch.from_numpy(a).to(dev) for a in
+             (rng.random((D, N), dtype=np.float32), rng.random(N, dtype=np.float32),
+              rng.random(N, dtype=np.float32))]
+    mask = {"zero": np.zeros(N), "one": np.ones(N), "mixed": rng.random(N) < 0.5}[has]
+    carry_has = torch.from_numpy(mask.astype(np.float32)).to(dev)
+    acc0 = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+
+    def segment():
+        acc = acc0.clone()
+        out = sgm_cuda.sgm_aggregate_diag_block(vol, img, carry[0], carry[1], carry_has,
+                                                carry[2], 0.01, 0.02, mode, dx=dx,
+                                                width=width, acc=acc, reverse=reverse)
+        return [acc, out[1], out[2]]
+
+    before = sgm_cuda.diag_segment_launches
+    got, want = _both_designs(segment)
+    assert sgm_cuda.diag_segment_launches == before + 2
+    _assert_designs_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 480, 640), (128, 375, 1242)])
+def test_sgm_seam_pass_matches_lines_design(dev, shape, dtype):
+    """The seam pass of 4 stacked frames: VGA/64, and KITTI/128, whose 375
+    rows are no multiple of the rows a stage holds."""
+    D, H, W = shape
+    vol, img = _segment_inputs((D, 4 * H, W), dev, dtype, seed=56)
+    got, want = _both_designs(lambda: [sgm_cuda.semi_global_matching(vol, img,
+                                                                     seam_period=H)])
+    _assert_designs_equal(got, want)
+
+
+@pytest.mark.parametrize("step", [(1, 0), (-1, 0), (0, 0), (0, 2)])
+def test_sgm_segment_refuses_other_steps(dev, step):
+    """The segment kernel takes vertical and diagonal steps: a horizontal
+    one is whole rows (kt_sgm_path)."""
+    vol, img = _segment_inputs((8, 12, 40), dev, seed=57)
+    out = torch.empty(vol.shape, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        sgm_cuda._launch(vol, img, out, None, step, -1, 0, 40, 0, 0.01, 0.02, "sgm_segment")

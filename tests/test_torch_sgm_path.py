@@ -134,6 +134,16 @@ def _path_call(args):
     return dict(zip(names, args))
 
 
+def _segment_call(args):
+    """A kt_sgm_segment(_lines) call's arguments by name (_build.SIGNATURES
+    order)."""
+    names = ("vol", "bf16", "vol_sd", "vol_sy", "img", "img_sy", "out", "acc", "out_sd",
+             "out_sy", "D", "S", "N", "sx", "sy", "sd", "xoff", "width", "seam", "P1", "P2",
+             "cin_prev", "cin_best", "cin_img", "cin_has", "cout_prev", "cout_best", "stream")
+    assert len(args) == len(names) == len(_build.SIGNATURES["kt_sgm_segment"])
+    return dict(zip(names, args))
+
+
 def _counts():
     return (sgm_cuda.launches, sgm_cuda.diagonal_launches, sgm_cuda.segment_launches,
             sgm_cuda.diag_segment_launches)
@@ -200,6 +210,73 @@ def test_seam_pass_splits_between_the_kernels(library):
     sgm_cuda.semi_global_matching(vol, img, seam_period=5)
     assert [name for name, _ in library.calls] == ["kt_sgm_segment"] * 2 + ["kt_sgm_path"] * 2
     assert _counts() == (2, 0, 2, 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("seed", [True, False])
+def test_row_segment_runs_the_segment_kernel(library, seed, reverse):
+    """A column block's row segment (views of wider arrays) at its lattice
+    offset, added in place onto ``acc``: one ``kt_sgm_segment`` call with
+    the carry in (none on a seed) and out."""
+    vol = torch.zeros((4, 10, 12), dtype=torch.bfloat16)[:, :, 2:11]
+    img = torch.zeros((10, 12))[:, 2:11]
+    acc = torch.zeros((4, 10, 9))
+    carry = {} if seed else dict(carry_prev=torch.zeros(4, 9), carry_best=torch.zeros(9),
+                                 last_img=torch.zeros(9))
+    out, prev, best, last = sgm_cuda.sgm_aggregate_block(
+        vol, img, 0.05, 0.1, "right", width=20, seed=seed, lane_offset=6, acc=acc,
+        reverse=reverse, **carry)
+    (name, args), = library.calls
+    c = _segment_call(args)
+    assert name == "kt_sgm_segment" and out is acc
+    assert c["out"] == c["acc"] == acc.data_ptr() and (c["vol"], c["img"]) == (vol.data_ptr(),
+                                                                               img.data_ptr())
+    assert (c["vol_sd"], c["vol_sy"], c["img_sy"], c["out_sd"], c["out_sy"]) == (120, 12, 12,
+                                                                                90, 9)
+    assert (c["D"], c["S"], c["N"], c["sx"], c["sy"], c["sd"]) == (4, 10, 9, 0,
+                                                                   -1 if reverse else 1, 1)
+    assert (c["xoff"], c["width"], c["seam"]) == (6, 20, 0)
+    assert (c["cout_prev"], c["cout_best"]) == (prev.data_ptr(), best.data_ptr())
+    cin = (c["cin_prev"], c["cin_best"], c["cin_img"], c["cin_has"])
+    assert cin == ((None,) * 4 if seed else (carry["carry_prev"].data_ptr(),
+                                             carry["carry_best"].data_ptr(),
+                                             carry["last_img"].data_ptr(), None))
+    assert torch.equal(last, img[0 if reverse else -1])
+    assert _counts() == (0, 0, 1, 0)
+
+
+@pytest.mark.parametrize("dx", [1, -1])
+def test_diagonal_segment_runs_the_segment_kernel(library, dx):
+    vol, img = torch.zeros((4, 6, 9)), torch.zeros((6, 9))
+    carry = (torch.zeros(4, 9), torch.zeros(9), torch.ones(9), torch.zeros(9))
+    out, prev, best, _, has = sgm_cuda.sgm_aggregate_diag_block(vol, img, *carry, dx=dx,
+                                                                width=8, reverse=True)
+    (name, args), = library.calls
+    c = _segment_call(args)
+    assert name == "kt_sgm_segment"
+    assert (c["out"], c["acc"]) == (out.data_ptr(), None)
+    assert (c["sx"], c["sy"], c["sd"], c["xoff"], c["width"], c["seam"]) == (dx, -1, -1, 0, 8, 0)
+    assert (c["cin_prev"], c["cin_best"], c["cin_img"], c["cin_has"]) == tuple(
+        t.data_ptr() for t in (carry[0], carry[1], carry[3], carry[2]))
+    assert (c["cout_prev"], c["cout_best"]) == (prev.data_ptr(), best.data_ptr())
+    assert torch.equal(has, torch.ones(9))
+    assert _counts() == (0, 0, 0, 1)
+
+
+def test_lines_design_takes_the_segment_arguments(library):
+    """Both segment entries have one argument list, and ``_launch_lines``
+    passes ``kt_sgm_segment_lines`` what ``_launch`` passes
+    ``kt_sgm_segment``, counting neither."""
+    assert _build.SIGNATURES["kt_sgm_segment_lines"] == _build.SIGNATURES["kt_sgm_segment"]
+    vol, img, out = torch.zeros((4, 6, 9)), torch.zeros((6, 9)), torch.zeros((4, 6, 9))
+    cin = (torch.zeros(4, 9), torch.zeros(9), torch.zeros(9), torch.ones(9))
+    cout = (torch.zeros(4, 9), torch.zeros(9))
+    args = (vol, img, out, out, (1, 1), 1, 3, 20, 0, 0.05, 0.1, "sgm_segment", cin, cout)
+    sgm_cuda._launch(*args)
+    sgm_cuda._launch_lines(*args)
+    (new, a_new), (old, a_old) = library.calls
+    assert (new, old) == ("kt_sgm_segment", "kt_sgm_segment_lines") and a_new == a_old
+    assert _counts() == (0, 0, 0, 0)
 
 
 def test_direction_wrapper_launches_once(library):
