@@ -10,9 +10,12 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 2. each CUDA kernel against its plain PyTorch version on the card: the SGM
    frame's kernels (4- and 8-path) and the DTAM auxiliary search (theta
    100, 1, 1e-3) at 640x480/64 and 1242x375/128 on random inputs (NumPy
-   seed) and on the synthetic pair, the DTAM alternation (a 50-iteration
-   cold solve, and 3 + 3 incremental steps against 6) on the synthetic
-   pair's census volumes at both shapes, the ROF (tv, huber,
+   seed) and on the synthetic pair (its census volume also as a view at
+   an odd element offset), the DTAM alternation (a 50-iteration cold
+   solve, bf16 and float32, and 3 + 3 incremental steps against 6) on the
+   synthetic pair's census volumes at both shapes, the search and the
+   alternation each also against the designs they replaced
+   (``kt_wta_sq_pixel``, ``kt_dtam_run_split``, exactly), the ROF (tv, huber,
    lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
    and 375x1242, plus one backward pass through each autograd op against
    the plain version's gradient; the plane-sweep TSDF fuse at 256^3 with
@@ -63,8 +66,13 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    of the 100-iteration solves, of the 50-iteration DTAM solve, the cold DTAM
    frame and one incremental DTAM frame against their plain versions at
    640x480(/64); each kernel's bound; the device time by kernel of one
-   DTAM solve and one cold DTAM frame (torch.profiler), and the auxiliary
-   search on the volume as float32; the fuse kernel (the frame's window and
+   DTAM solve (also through the three-launch design) and one cold DTAM
+   frame (torch.profiler); the auxiliary search (bf16 and float32), the
+   solve and 5 incremental iterations against the designs they replaced, in
+   turns (old, new, new, old), with device times, the search's TB/s and
+   the solve's chained byte floor, and the search against builds of its
+   source with one constant changed (pixels a thread, slices a group,
+   threads a block); the fuse kernel (the frame's window and
    every plane), one KinectFusion frame against the frame of plain
    versions, the sequence replay per frame, the frame's host
    synchronisations and its device time by stage (torch.profiler); the
@@ -401,40 +409,58 @@ def main() -> int:
                                   costvolume.cost_vol_minimum_subpix(v, sd), ATOL["wta"])
                     if src == "census-bf16" and vsrc != src:
                         disps[sd] = got
-        # the DTAM auxiliary search around the volume's WTA disparity
+        # the DTAM auxiliary search around the volume's WTA disparity, each
+        # case also through kt_wta_sq_pixel (the one-thread-per-pixel
+        # design, exactly); the census volume also as a view at an odd
+        # element offset (element loads)
         for sd in (-1, 1):
-            for src, vol in (("census-bf16", vols[sd]), ("random-f32", rand_vol)):
+            odd = torch.empty(vols[sd].numel() + 1, dtype=vols[sd].dtype, device=dev)
+            odd[1:] = vols[sd].flatten()
+            for src, vol in (("census-bf16", vols[sd]), ("random-f32", rand_vol),
+                             ("census-bf16-odd-view", odd[1:].view(D, H, W))):
                 noise = torch.from_numpy(rng.normal(0, 1.5, (H, W)).astype(np.float32)).to(dev)
                 last = costvolume.cost_vol_minimum_subpix(vol, sd) + noise
                 for theta in (100.0, 1.0, 1e-3):
-                    smoke.compare(
-                        "wta_sq", f"{tag} {src} sd={sd:+d} theta={theta:g}",
-                        wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta, sd),
-                        costvolume.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta,
-                                                                          sd),
-                        ATOL["wta_sq"])
-        # the DTAM alternation on the census volumes: the cold solve, and
-        # 3 + 3 incremental steps against 6 (beta 1e-3 makes the anneal show)
+                    what = f"{tag} {src} sd={sd:+d} theta={theta:g}"
+                    got = wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta,
+                                                                          sd)
+                    smoke.compare("wta_sq", what, got,
+                                  costvolume.cost_vol_minimum_square_penalty_subpix(
+                                      vol, last, 20.0, theta, sd), ATOL["wta_sq"])
+                    smoke.compare("wta_sq", f"{what} vs kt_wta_sq_pixel", got,
+                                  wta_cuda._square_penalty_pixel(vol, last, 20.0, theta, sd), 0.0)
+        # the DTAM alternation on the census volumes (and the same volumes
+        # as float32): the cold solve, and 3 + 3 incremental steps against
+        # 6 (beta 1e-3 makes the anneal show); each also through
+        # kt_dtam_run_split (three launches an iteration, exactly)
         for sd in (-1, 1):
             g = costvolume.exponential_edge_weight(imgs[sd], 14.0, 2.5)
             d0 = costvolume.cost_vol_minimum_subpix(vols[sd], sd)
             q0 = torch.zeros((H, W, 2), device=dev)
             cold = (100.0, 1.0, *DTAM_ARGS, 1e-5, DTAM_ITERS, sd)
-            for name, a, b in zip(("d", "a", "q", "theta"),
-                                  dtam_cuda.dtam_run(vols[sd], g, d0, d0, q0, *cold),
-                                  stereo.dtam_iterate_plain(vols[sd], g, d0, d0, q0, *cold)):
-                smoke.compare("dtam", f"{tag} census-bf16 sd={sd:+d} cold {DTAM_ITERS} it {name}",
-                              a, b, ATOL["dtam"])
+            for src, vol in (("census-bf16", vols[sd]), ("census-f32", vols[sd].float())):
+                got = dtam_cuda.dtam_run(vol, g, d0, d0, q0, *cold)
+                old = dtam_cuda._dtam_run_split(vol, g, d0, d0, q0, *cold)
+                what = f"{tag} {src} sd={sd:+d} cold {DTAM_ITERS} it"
+                for name, a, b, c in zip(("d", "a", "q", "theta"), got,
+                                         stereo.dtam_iterate_plain(vol, g, d0, d0, q0, *cold), old):
+                    smoke.compare("dtam", f"{what} {name}", a, b, ATOL["dtam"])
+                    smoke.compare("dtam", f"{what} {name} vs kt_dtam_run_split", a, c, 0.0)
             state = (d0, d0, q0, 100.0, 7.0)
             six = dtam_cuda.dtam_step(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=6, sd=sd)
             s1 = dtam_cuda.dtam_step(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
             s2 = dtam_cuda.dtam_step(vols[sd], g, *s1, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
             plain = stereo.dtam_increment(vols[sd], g, *state, *DTAM_ARGS, 1e-3, iterations=6,
                                           sd=sd)
+            old = dtam_cuda._dtam_run_split(vols[sd], g, d0, d0, q0, 100.0, 7.0, *DTAM_ARGS,
+                                            1e-3, 6, sd)
             for name, a, b, p in zip(("d", "a", "q", "theta", "n"), six, s2, plain):
                 smoke.compare("dtam", f"{tag} sd={sd:+d} steps 3+3 vs 6 {name}", b, a, 0.0)
                 smoke.compare("dtam", f"{tag} sd={sd:+d} steps 6 vs plain {name}", a, p,
                               ATOL["dtam"])
+            for name, a, c in zip(("d", "a", "q", "theta"), s2, old):
+                smoke.compare("dtam", f"{tag} sd={sd:+d} steps 3+3 vs 6 through "
+                              f"kt_dtam_run_split {name}", a, c, 0.0)
         # median: the frame's disparities and a random image, with bad taps
         med_in = {"disparity": with_bad(disps[-1], 0.1),
                   "random": with_bad(rand_img, 0.05, inf_frac=0.02)}
@@ -1265,10 +1291,13 @@ def main() -> int:
                   f"{bound[name][0]:.5f} ms ({bound[name][1]}); kernel {times[name][0]:.4f} ms")
 
         # where the DTAM time goes: device time by kernel (torch.profiler) in
-        # one solve and in one cold frame, whose busy share is that time over
-        # the frame's wall time under the profiler; and the search on the
-        # volume as float32, twice the bytes in the same number of loads
-        for what, run in (("dtam_solve", cases["dtam"][0]), ("dtam_frame", cases["dtam_frame"][0])):
+        # one solve (and one through the three-launch design it replaced) and
+        # in one cold frame, whose busy share is that time over the frame's
+        # wall time under the profiler
+        solve_split = lambda: dtam_cuda._dtam_run_split(vol, g, d0, d0, q0, solve[1], 1.0,
+                                                        solve[0], *solve[2:], DTAM_ITERS)
+        for what, run in (("dtam_solve", cases["dtam"][0]), ("dtam_solve_split", solve_split),
+                          ("dtam_frame", cases["dtam_frame"][0])):
             run()
             kernels, wall_us = device_us(run)
             busy = sum(us for _, us in kernels.values())
@@ -1276,11 +1305,58 @@ def main() -> int:
             print(f"  profile {what}: {len(kernels)} kernels, {n_launches} launches, device "
                   f"{busy / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms wall "
                   f"(busy share {busy / wall_us:.3f}) [{card}]")
-            for part in ("dtam_dual_kernel", "dtam_primal_kernel", "wta_sq_kernel"):
-                hits = [(n, us) for k, (n, us) in kernels.items() if part in k]
+            for part in ("dtam_dual_kernel", "dtam_primal_search_kernel", "wta_sq_span_kernel",
+                         "dtam_primal_kernel", "wta_sq_kernel"):
+                hits = [(n, us) for k, (n, us) in kernels.items() if part + "<" in k
+                        or part + "(" in k]
                 if hits:
                     n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
                     print(f"    {part}: {n} launches, {us / n:.2f} us each, {us / 1e3:.4f} ms")
+        # the search and the alternation against the designs they replaced
+        # (kt_wta_sq_pixel, kt_dtam_run_split), in turns (old, new, new,
+        # old): the search on the volume as bf16 and as float32 (twice the
+        # bytes in the same number of slices), the 50-iteration solve and
+        # the 5 iterations of an incremental step (both through the same
+        # wrapper code); device time by torch.profiler; the solve's
+        # chained byte floor (each iteration reads the volume and 13 (H, W)
+        # planes: dual 5 in, 2 out; primal and search 6 in, 2 out)
+        vol32 = vol.float()
+        state5 = (d0, d0, q0, dcfg.theta_start, 7.0)
+        step_args = (dcfg.lam, dcfg.sigma_q, dcfg.sigma_d, dcfg.huber_alpha, dcfg.beta)
+        designs = {
+            "wta_sq bf16": (lambda: wta_cuda._square_penalty_pixel(vol, dl, 20.0, 1.0),
+                            lambda: wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, dl, 20.0,
+                                                                                    1.0)),
+            "wta_sq f32": (lambda: wta_cuda._square_penalty_pixel(vol32, dl, 20.0, 1.0),
+                           lambda: wta_cuda.cost_vol_minimum_square_penalty_subpix(vol32, dl,
+                                                                                   20.0, 1.0)),
+            "dtam solve": (solve_split, cases["dtam"][0]),
+            "dtam 5 it": (lambda: dtam_cuda._dtam_run_split(vol, g, *state5, *step_args, 5),
+                          lambda: dtam_cuda.dtam_run(vol, g, *state5, *step_args, 5)),
+        }
+        for name, (old, new) in designs.items():
+            o1 = timing.time_fn(old, warmup=3, runs=20)["median_ms"]
+            n1 = timing.time_fn(new, warmup=3, runs=20)["median_ms"]
+            n2 = timing.time_fn(new, warmup=0, runs=20)["median_ms"]
+            o2 = timing.time_fn(old, warmup=0, runs=20)["median_ms"]
+            dev_new, _ = device_us(new)
+            dev_old, _ = device_us(old)
+            dn = sum(us for k, (_, us) in dev_new.items() if "Memcpy" not in k)
+            do = sum(us for k, (_, us) in dev_old.items() if "Memcpy" not in k)
+            print(f"  design {name:12s} new {n1:.4f} / {n2:.4f} ms (device {dn / 1e3:.4f}), "
+                  f"old {o1:.4f} / {o2:.4f} ms (device {do / 1e3:.4f}); "
+                  f"{min(o1, o2) / min(n1, n2):.2f}x [{card}]")
+            if name.startswith("wta_sq"):
+                v = vol32 if name.endswith("f32") else vol
+                print(f"    {name}: {nbytes(v) / 1e6:.1f} MB volume, new {nbytes(v) / dn / 1e6:.3f} "
+                      f"TB/s by device time, {nbytes(v) / min(n1, n2) / 1e9:.3f} TB/s by events; "
+                      f"old {nbytes(v) / do / 1e6:.3f} TB/s by device time")
+        search_alternatives(vol, vol32, dl)
+        chained = DTAM_ITERS * (nbytes(vol) + 13 * nbytes(d0))
+        print(f"  dtam solve {times['dtam'][0]:.4f} ms: chained byte floor {chained / 1e6:.1f} MB "
+              f"-> {1e3 * chained / HBM_BPS:.4f} ms ({DTAM_ITERS} x the volume alone "
+              f"{1e3 * DTAM_ITERS * nbytes(vol) / HBM_BPS:.4f} ms), the table's bound "
+              f"{bound['dtam'][0]:.5f} ms [{card}]")
         # one direction of each class added onto the aggregate: the path
         # kernel and the warp-per-line design over the whole image in turns
         # (old, path, path, old), beside the chained byte floor
@@ -1315,12 +1391,84 @@ def main() -> int:
                   f"{floor / 1e6:.1f} MB -> {1e3 * floor / HBM_BPS:.4f} ms, the table's bound "
                   f"{bound[name][0]:.5f} ms [{card}]")
 
-        vol32 = vol.float()
-        t32 = timing.time_fn(wta_cuda.cost_vol_minimum_square_penalty_subpix, vol32, dl, 20.0,
-                             1.0)["median_ms"]
-        print(f"  wta_sq on the float32 volume: {t32:.4f} ms "
-              f"({nbytes(vol32) / t32 / 1e9:.3f} TB/s) against {times['wta_sq'][0]:.4f} ms on bf16 "
-              f"({nbytes(vol) / times['wta_sq'][0] / 1e9:.3f} TB/s) [{card}]")
+
+    def search_alternatives(vol, vol32, last):
+        """The search's compile-time configuration against alternatives:
+        builds of ``csrc/wta_sq.cu`` with one constant of ``wta_sq.cuh``
+        changed (8 or 2 pixels a thread, 4 slices a group, 128 threads a
+        block), all compiled together, and the replaced design
+        (``kt_wta_sq_pixel``). ``kt_wta_sq`` of each on the VGA/64 volume
+        as bf16 and float32, 100 launches back to back under CUDA events,
+        in turns (the repo's build, the variant, the variant, the repo's
+        build), each variant's result equal to the repo's."""
+        import ctypes
+        import shutil
+        import tempfile
+
+        header = (_build.CSRC_DIR / "wta_sq.cuh").read_text()
+        variants = {"8 pixels a thread": ("constexpr int kPixels = 4;",
+                                          "constexpr int kPixels = 8;"),
+                    "2 pixels a thread": ("constexpr int kPixels = 4;",
+                                          "constexpr int kPixels = 2;"),
+                    "4 slices a group": ("constexpr int kUnroll = 8;",
+                                         "constexpr int kUnroll = 4;"),
+                    "128 threads a block": ("constexpr int kSpanThreads = 64;",
+                                            "constexpr int kSpanThreads = 128;")}
+        tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+        try:
+            procs = {}
+            for i, (name, (a, b)) in enumerate(variants.items()):
+                if a not in header:
+                    raise RuntimeError(f"search variant {name}: {a!r} not in wta_sq.cuh")
+                src = tmp / str(i)
+                src.mkdir()
+                (src / "wta_sq.cuh").write_text(header.replace(a, b))
+                shutil.copy(_build.CSRC_DIR / "wta_sq.cu", src)
+                procs[name] = (src / "lib.so", subprocess.Popen(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(src / "lib.so"),
+                     str(src / "wta_sq.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            libs = {}
+            for name, (so, proc) in procs.items():
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(f"search variant {name}: nvcc failed\n{log}")
+                libs[name] = ctypes.CDLL(str(so)).kt_wta_sq
+                libs[name].argtypes = _build.SIGNATURES["kt_wta_sq"]
+            # and the replaced design, timed the same way (no wrapper's host
+            # time in the way)
+            libs["old kt_wta_sq_pixel"] = lib.kt_wta_sq_pixel
+            H_, W_ = last.shape
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def us_per_launch(fn, v, out, n=100):
+                args = (v.data_ptr(), int(v.dtype == torch.bfloat16), last.data_ptr(),
+                        out.data_ptr(), v.shape[0], H_, W_, -1, 20.0, 1.0, stream)
+                for _ in range(3):
+                    fn(*args)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(n):
+                    if fn(*args) != 0:
+                        raise RuntimeError("search variant: launch failed")
+                e1.record()
+                torch.cuda.synchronize()
+                return 1e3 * e0.elapsed_time(e1) / n
+
+            for tag, v in (("bf16", vol), ("f32", vol32)):
+                ref, out = torch.empty_like(last), torch.empty_like(last)
+                for name, fn in libs.items():
+                    r1 = us_per_launch(lib.kt_wta_sq, v, ref)
+                    a1 = us_per_launch(fn, v, out)
+                    a2 = us_per_launch(fn, v, out)
+                    r2 = us_per_launch(lib.kt_wta_sq, v, ref)
+                    same = torch.equal(out, ref)
+                    if not same:
+                        smoke.failures.append(f"phase 4 search variant {name} {tag}: differs")
+                    print(f"  search variant {tag} {name:20s} {a1:.2f} / {a2:.2f} us a launch, "
+                          f"the repo's build {r1:.2f} / {r2:.2f} us; equal {same} [{card}]")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)

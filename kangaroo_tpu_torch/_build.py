@@ -33,6 +33,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # (prev, best, img, has), carry out (prev, best), stream
 _SEGMENT = [_P, _I, _L, _L, _P, _L, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
             _P, _P, _P, _P, _P, _P, _P]
+# vol, vol_is_bf16, last, out, D, H, W, sd, lam, theta, stream
+_WTA_SQ = [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P]
+# vol, vol_is_bf16, g, d, a, q, thetas (host), D, H, W, sd, lam, sigma_q,
+# sigma_d, huber_alpha, iterations, stream
+_DTAM = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P]
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
@@ -54,11 +59,14 @@ SIGNATURES = {
     "kt_rof_denoise": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P],
     # f, u, state, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
     "kt_tgv_denoise": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P],
-    # vol, vol_is_bf16, last, out, D, H, W, sd, lam, theta, stream
-    "kt_wta_sq": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # vol, vol_is_bf16, g, d, a, q, thetas (host), D, H, W, sd, lam, sigma_q,
-    # sigma_d, huber_alpha, iterations, stream
-    "kt_dtam_run": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    # the DTAM search (csrc/wta_sq.cu), and the one-thread-per-pixel design
+    # it is held against
+    "kt_wta_sq": _WTA_SQ,
+    "kt_wta_sq_pixel": _WTA_SQ,
+    # the DTAM alternation (csrc/dtam.cu), and the three-launch design it is
+    # held against
+    "kt_dtam_run": _DTAM,
+    "kt_dtam_run_split": _DTAM,
     # val, weight, gmd, gct, params, window, D, H, W, axis, gh, gw, Wi, Hi,
     # stream
     "kt_separable_fuse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

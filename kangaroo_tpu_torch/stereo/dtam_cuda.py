@@ -2,8 +2,9 @@
 
 Counterpart of ``kangaroo_tpu/stereo/dtam_pallas.py`` (``_make_kernel``,
 ``dtam_solve``, ``dtam_step``): one C call runs ``iterations`` steps of the
-alternation in place, three launches per iteration on the current stream
-(dual step, primal step, and the auxiliary search of ``csrc/wta_sq.cuh``).
+alternation in place, two launches per iteration on the current stream (the
+dual step, then the primal step fused with the auxiliary search of
+``csrc/wta_sq.cuh``).
 The plain version is ``apps/stereo.dtam_iterate_plain``, the transcription
 of the JAX package's XLA loop. Like that loop the kernel has no gradient,
 so an input that requires grad is refused rather than cut from the graph.
@@ -41,16 +42,9 @@ def _check_plane(t: torch.Tensor, vol: torch.Tensor, name: str) -> None:
         raise RuntimeError(f"dtam: the kernel has no gradient; {name} requires grad")
 
 
-def dtam_run(vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: torch.Tensor,
-             q: torch.Tensor, theta, n0, lam, sigma_q, sigma_d, huber_alpha, beta,
-             iterations: int, sd: int = -1):
-    """``iterations`` steps of the alternation on the card from the state
-    (d, a, q, theta); the i-th step anneals with n0 + i. vol (D, H, W)
-    float32 or bfloat16; g, d, a (H, W) float32; q (H, W, 2) float32; the
-    scalars are numbers or 0-dim tensors (read on the host). The inputs are
-    not modified. Returns (d, a, q, theta) with theta a float32 0-dim
-    tensor on the card."""
-    global launches
+def _run(entry: str, vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: torch.Tensor,
+         q: torch.Tensor, theta, n0, lam, sigma_q, sigma_d, huber_alpha, beta, iterations: int,
+         sd: int):
     if vol.requires_grad:
         raise RuntimeError("dtam: the kernel has no gradient; vol requires grad")
     for t, name in ((g, "g"), (d, "d"), (a, "a")):
@@ -68,15 +62,40 @@ def dtam_run(vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: torch.Tenso
     planes = q.permute(2, 0, 1).contiguous()  # (2, H, W): q0, q1
     lib = _build.library()
     with torch.cuda.device(vol.device):
-        rc = lib.kt_dtam_run(vol.data_ptr(), int(vol.dtype == torch.bfloat16), g.data_ptr(),
-                             d.data_ptr(), a.data_ptr(), planes.data_ptr(), thetas.ctypes.data,
-                             D, H, W, int(sd), float(lam), float(sigma_q), float(sigma_d),
-                             float(huber_alpha), int(iterations), backend.stream_handle(vol))
-        backend.check_launch(rc, "dtam")
-        launches += int(iterations > 0)
-        wta_cuda.sq_launches += int(iterations)
+        rc = getattr(lib, entry)(vol.data_ptr(), int(vol.dtype == torch.bfloat16), g.data_ptr(),
+                                 d.data_ptr(), a.data_ptr(), planes.data_ptr(), thetas.ctypes.data,
+                                 D, H, W, int(sd), float(lam), float(sigma_q), float(sigma_d),
+                                 float(huber_alpha), int(iterations), backend.stream_handle(vol))
+    backend.check_launch(rc, "dtam")
     theta_out = torch.tensor(thetas[-1], dtype=torch.float32, device=vol.device)
     return d, a, planes.permute(1, 2, 0).contiguous(), theta_out
+
+
+def dtam_run(vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: torch.Tensor,
+             q: torch.Tensor, theta, n0, lam, sigma_q, sigma_d, huber_alpha, beta,
+             iterations: int, sd: int = -1):
+    """``iterations`` steps of the alternation on the card from the state
+    (d, a, q, theta); the i-th step anneals with n0 + i. vol (D, H, W)
+    float32 or bfloat16; g, d, a (H, W) float32; q (H, W, 2) float32; the
+    scalars are numbers or 0-dim tensors (read on the host). The inputs are
+    not modified. Returns (d, a, q, theta) with theta a float32 0-dim
+    tensor on the card."""
+    global launches
+    out = _run("kt_dtam_run", vol, g, d, a, q, theta, n0, lam, sigma_q, sigma_d, huber_alpha,
+               beta, iterations, sd)
+    launches += int(iterations > 0)
+    wta_cuda.sq_launches += int(iterations)
+    return out
+
+
+def _dtam_run_split(vol, g, d, a, q, theta, n0, lam, sigma_q, sigma_d, huber_alpha, beta,
+                    iterations: int, sd: int = -1):
+    """``dtam_run`` through ``kt_dtam_run_split`` (the design it replaced:
+    three launches an iteration, the one-thread-per-pixel search): the
+    yardstick that the card checks hold ``kt_dtam_run`` against. No path
+    calls it and no count records it."""
+    return _run("kt_dtam_run_split", vol, g, d, a, q, theta, n0, lam, sigma_q, sigma_d,
+                huber_alpha, beta, iterations, sd)
 
 
 def dtam_solve(vol, g, d0, lam, theta_start, sigma_q, sigma_d, huber_alpha, beta,

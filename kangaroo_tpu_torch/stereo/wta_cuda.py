@@ -47,20 +47,36 @@ def check_volume_and_plane(vol: torch.Tensor, plane: torch.Tensor, name: str, op
                          f"vol {tuple(vol.shape)} on {vol.device}")
 
 
-def cost_vol_minimum_square_penalty_subpix(vol: torch.Tensor, last_disp: torch.Tensor, lam,
-                                           theta, sd: int = -1) -> torch.Tensor:
-    """The DTAM auxiliary search on the card: vol (D, H, W) float32 or
-    bfloat16, last_disp (H, W) float32 -> (H, W) float32. ``lam`` and
-    ``theta`` are numbers or 0-dim tensors (read on the host)."""
-    global sq_launches
+def _search(entry: str, vol: torch.Tensor, last_disp: torch.Tensor, lam, theta,
+            sd: int) -> torch.Tensor:
     check_volume_and_plane(vol, last_disp, "last_disp", "wta_sq")
     D, H, W = vol.shape
     out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
     lib = _build.library()
     with torch.cuda.device(vol.device):
-        rc = lib.kt_wta_sq(vol.data_ptr(), int(vol.dtype == torch.bfloat16), last_disp.data_ptr(),
-                           out.data_ptr(), D, H, W, int(sd), float(lam), float(theta),
-                           backend.stream_handle(vol))
-        backend.check_launch(rc, "wta_sq")
-        sq_launches += 1
+        rc = getattr(lib, entry)(vol.data_ptr(), int(vol.dtype == torch.bfloat16),
+                                 last_disp.data_ptr(), out.data_ptr(), D, H, W, int(sd),
+                                 float(lam), float(theta), backend.stream_handle(vol))
+    backend.check_launch(rc, "wta_sq")
     return out
+
+
+def cost_vol_minimum_square_penalty_subpix(vol: torch.Tensor, last_disp: torch.Tensor, lam,
+                                           theta, sd: int = -1) -> torch.Tensor:
+    """The DTAM auxiliary search on the card (``kt_wta_sq``, a span of 4
+    pixels a thread): vol (D, H, W) float32 or bfloat16, last_disp (H, W)
+    float32 -> (H, W) float32. ``lam`` and ``theta`` are numbers or 0-dim
+    tensors (read on the host)."""
+    global sq_launches
+    out = _search("kt_wta_sq", vol, last_disp, lam, theta, sd)
+    sq_launches += 1
+    return out
+
+
+def _square_penalty_pixel(vol: torch.Tensor, last_disp: torch.Tensor, lam, theta,
+                          sd: int = -1) -> torch.Tensor:
+    """``cost_vol_minimum_square_penalty_subpix`` through ``kt_wta_sq_pixel``
+    (the one-thread-per-pixel design it replaced): the yardstick that the
+    card checks hold ``kt_wta_sq`` against. No path calls it and no count
+    records it."""
+    return _search("kt_wta_sq_pixel", vol, last_disp, lam, theta, sd)

@@ -893,3 +893,145 @@ def test_sgm_segment_refuses_other_steps(dev, step):
     out = torch.empty(vol.shape, device=dev)
     with pytest.raises(RuntimeError, match="cudaError"):
         sgm_cuda._launch(vol, img, out, None, step, -1, 0, 40, 0, 0.01, 0.02, "sgm_segment")
+
+
+# --- the DTAM search and alternation against the designs they replaced -----
+# kt_wta_sq (16-byte spans of pixels a thread) against kt_wta_sq_pixel (one
+# thread per pixel), and kt_dtam_run (the primal step fused into the search)
+# against kt_dtam_run_split (three launches an iteration): the same
+# operations per pixel in the same order, so exactly equal.
+
+
+def _sq_volume(shape, dev, dtype, seed, offset=0):
+    """Costs k/256 (exact in bfloat16, with ties) as a contiguous (D, H, W)
+    view ``offset`` elements into its storage."""
+    D, H, W = shape
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy((rng.integers(0, 257, offset + D * H * W) / 256.0)
+                            .astype(np.float32)).to(dev, dtype)
+    return flat[offset:].view(D, H, W)
+
+
+def _sq_last(shape, dev, seed, offset=0):
+    D, H, W = shape
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.uniform(-2, D + 2, offset + H * W).astype(np.float32)).to(dev)
+    return flat[offset:].view(H, W)
+
+
+def _assert_sq_designs_equal(vol, last, sd, thetas=(100.0, 1.0, 1e-3)):
+    for theta in thetas:
+        got = wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, theta, sd)
+        want = wta_cuda._square_penalty_pixel(vol, last, 20.0, theta, sd)
+        assert torch.equal(got, want), theta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", SHAPES + FRAME_SHAPES)
+def test_wta_sq_matches_pixel_design(dev, shape, sd, dtype):
+    _assert_sq_designs_equal(_sq_volume(shape, dev, dtype, 60), _sq_last(shape, dev, 61), sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", [(16, 16, 128), (64, 480, 640), (128, 375, 1242)])
+def test_wta_sq_odd_offset_views_match_pixel_design(dev, shape, sd, dtype):
+    """Volume and last_disp as views at odd element offsets: every plane
+    off its 16-byte alignment, the element-load path."""
+    vol = _sq_volume(shape, dev, dtype, 62, offset=1)
+    last = _sq_last(shape, dev, 63, offset=3)
+    _assert_sq_designs_equal(vol, last, sd)
+    # the same values aligned take the 16-byte path where H*W allows it
+    _assert_sq_designs_equal(vol.clone(), last.clone(), sd)
+    torch.testing.assert_close(
+        wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, last, 20.0, 1.0, sd),
+        wta_cuda.cost_vol_minimum_square_penalty_subpix(vol.clone(), last.clone(), 20.0, 1.0,
+                                                        sd), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+def test_wta_sq_nan_costs_match_pixel_design(dev, sd, dtype):
+    shape = (64, 48, 80)
+    rng = np.random.default_rng(64)
+    vol = _sq_volume(shape, dev, torch.float32, 64)
+    vol[torch.from_numpy(rng.random(shape) < 0.03).to(dev)] = float("nan")
+    vol[torch.from_numpy(rng.random(shape) < 0.01).to(dev)] = float("inf")
+    _assert_sq_designs_equal(vol.to(dtype), _sq_last(shape, dev, 65), sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", [(64, 48, 80), (128, 37, 1242)])
+def test_wta_sq_short_prefix_tail_matches_pixel_design(dev, shape, sd, dtype):
+    """Pixels whose valid prefix is short (x < D at sd = -1, x >= W - D at
+    sd = +1) with a last so large that every valid cost exceeds 1e10 (or
+    is infinite): the 1e10 tail wins there."""
+    D, H, W = shape
+    last = _sq_last(shape, dev, 66)
+    x = torch.arange(W, device=dev)
+    edge = (x < D) if sd < 0 else (x >= W - D)
+    rows = torch.arange(H, device=dev)[:, None] % 3
+    big = torch.where(rows == 0, 1e20, torch.where(rows == 1, 1e6, -3e5))
+    last = torch.where(edge[None, :], big, last)
+    _assert_sq_designs_equal(_sq_volume(shape, dev, dtype, 67), last.contiguous(), sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", [(1, 37, 61), (1, 48, 64), (256, 40, 72), (256, 9, 13)])
+def test_wta_sq_extreme_depths_match_pixel_design(dev, shape, sd, dtype):
+    _assert_sq_designs_equal(_sq_volume(shape, dev, dtype, 68), _sq_last(shape, dev, 69), sd)
+
+
+def _dtam_both(vol, g, d0, sd, iterations=50, q0=None, theta=100.0, n0=1.0, beta=1e-5):
+    q0 = torch.zeros(d0.shape + (2,), device=d0.device) if q0 is None else q0
+    args = (vol, g, d0, d0, q0, theta, n0, *DTAM_ARGS, beta, iterations, sd)
+    return dtam_cuda.dtam_run(*args), dtam_cuda._dtam_run_split(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", SHAPES + FRAME_SHAPES)
+def test_dtam_solve_matches_split_design(dev, shape, sd, dtype):
+    vol, g, d0 = _dtam_inputs(shape, dev)
+    got, want = _dtam_both(vol.to(dtype), g, d0, sd)
+    for name, a, b in zip("d a q theta".split(), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", [(64, 480, 640), (128, 375, 1242)])
+def test_dtam_odd_offset_views_match_split_design(dev, shape, sd):
+    """The volume and g as views at odd element offsets: the element-load
+    path of the fused step."""
+    D, H, W = shape
+    vol, g, d0 = _dtam_inputs(shape, dev, seed=12)
+    vbuf = torch.empty(D * H * W + 1, dtype=vol.dtype, device=dev)
+    vbuf[1:] = vol.flatten()
+    gbuf = torch.empty(H * W + 1, device=dev)
+    gbuf[1:] = g.flatten()
+    got, want = _dtam_both(vbuf[1:].view(D, H, W), gbuf[1:].view(H, W), d0, sd, iterations=10)
+    for name, a, b in zip("d a q theta".split(), got, want):
+        assert torch.equal(a, b), name
+    aligned = _dtam_both(vol, g, d0, sd, iterations=10)[0]
+    for name, a, b in zip("d a q theta".split(), got, aligned):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("theta", [100.0, 1.0, 1e-3])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", FRAME_SHAPES)
+def test_dtam_steps_match_split_design(dev, shape, sd, theta):
+    """3 + 3 steps through the fused design against 6 through the split
+    one, from a running state (q non-zero), at three thetas."""
+    vol, g, d0 = _dtam_inputs(shape, dev, seed=13)
+    q = torch.from_numpy(np.random.default_rng(14).uniform(-0.5, 0.5, d0.shape + (2,))
+                         .astype(np.float32)).to(dev)
+    state = (d0, d0, q, theta, 7.0)
+    s1 = dtam_cuda.dtam_step(vol, g, *state, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
+    s2 = dtam_cuda.dtam_step(vol, g, *s1, *DTAM_ARGS, 1e-3, iterations=3, sd=sd)
+    six = dtam_cuda._dtam_run_split(vol, g, d0, d0, q, theta, 7.0, *DTAM_ARGS, 1e-3, 6, sd)
+    for name, a, b in zip("d a q theta".split(), s2, six):
+        assert torch.equal(a, b), name
