@@ -17,11 +17,15 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    alternation each also against the designs they replaced
    (``kt_wta_sq_pixel``, ``kt_dtam_run_split``, exactly), the ROF (tv, huber,
    lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
-   and 375x1242, plus one backward pass through each autograd op against
-   the plain version's gradient; the plane-sweep TSDF fuse at 256^3 with
-   640x480 depth and at (200, 136, 248) with 1242x375 depth, on the three
-   sweep axes, an empty and a fused volume, three plane windows, and
-   enable=False (a bit-exact passthrough); the SGM segment kernels of the
+   and 375x1242, each ROF solve, inpainting and Huber solves of 9 and 37
+   iterations also through the design it replaced
+   (``kt_rof_denoise_steps``, exactly), plus one backward pass through each
+   autograd op against the plain version's gradient; the plane-sweep TSDF
+   fuse at 256^3 with 640x480 depth and at (200, 136, 248) with 1242x375
+   depth, on the three sweep axes, an empty and a fused volume, three plane
+   windows, and enable=False (a bit-exact passthrough), each case and an
+   empty window also through the voxel design it replaced
+   (``kt_separable_fuse_voxel``, exactly); the SGM segment kernels of the
    multi-device and batched paths on a 4-way split of 640x480/64 and a
    3-way split of 1242x375/128: column shards' vertical pairs at their
    lattice offsets, row segments and the four diagonal segments chained
@@ -72,8 +76,17 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    turns (old, new, new, old), with device times, the search's TB/s and
    the solve's chained byte floor, and the search against builds of its
    source with one constant changed (pixels a thread, slices a group,
-   threads a block); the fuse kernel (the frame's window and
-   every plane), one KinectFusion frame against the frame of plain
+   threads a block); the 100-iteration ROF solve and inpainting against the
+   design they replaced in turns, with device time and the kernel launches
+   a solve (torch.profiler; ceil(100 / ROF_STEPS) required), and the solve
+   against builds of ``csrc/rof.cu`` with its tile, its iterations a launch
+   or its threads a block changed, and builds cut short (no steps;
+   inexact divisions) that say where its time goes; the fuse kernel (the
+   frame's window and every plane), also against the voxel design in turns
+   with device time, and against builds of ``csrc/separable_fuse.cu`` with
+   its chunk, blocks an SM or rows a block changed and builds cut
+   short after the projection and after the taps; one
+   KinectFusion frame against the frame of plain
    versions, the sequence replay per frame, the frame's host
    synchronisations and its device time by stage (torch.profiler); the
    segment kernels (a wavefront row segment, a diagonal segment, the seam
@@ -363,19 +376,26 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         return sites
 
-    def device_us(run):
-        """Device time by kernel of ``run()`` (torch.profiler): {name: (launches,
-        us)}, and the wall time in us."""
+    def device_us(run, reps=1):
+        """Device time by kernel of ``reps`` runs of ``run()`` (torch.profiler):
+        {name: (launches, us)}, and the wall time in us. The stream is
+        drained first; a profile that recorded no device activity (a short
+        one now and then does) is taken again, up to three times."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
+        for _ in range(3):
             torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = {e.key: (e.count, e.self_device_time_total)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    run()
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            kernels = {e.key: (e.count, e.self_device_time_total)
+                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            if kernels:
+                break
         return kernels, wall_us
 
     # --- phase 2: each kernel against its plain version -----------------------
@@ -642,18 +662,34 @@ def main() -> int:
                                       0.0)
 
     def solvers_vs_plain(H, W):
-        """The solves on a noisy image and on uniform noise (bench.py's input)."""
+        """The solves on a noisy image and on uniform noise (bench.py's input);
+        each ROF solve, inpaint through its public entry, and Huber solves
+        of iteration counts that ROF_STEPS does not divide, also through the
+        design it replaced (``kt_rof_denoise_steps``, exactly)."""
         _, noisy, keep = noisy_image(H, W, seed=1)
         uniform = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
         for src, g in (("noisy", noisy), ("uniform", uniform)):
             for mode in ("tv", "huber", "lambda-weight"):
-                weight = keep if mode == "lambda-weight" else None
-                model = "tv" if mode == "tv" else "huber"
-                smoke.compare("rof", f"{W}x{H} {src} {mode} {SOLVER_ITERS} it",
-                              solvers_cuda.rof_denoise(g, 8.0, iterations=SOLVER_ITERS,
-                                                       model=model, lam_weight=weight),
-                              rof.denoise_plain(g, 8.0, iterations=SOLVER_ITERS, model=model,
-                                                lam_weight=weight), ATOL["rof"])
+                args = dict(iterations=SOLVER_ITERS, model="tv" if mode == "tv" else "huber",
+                            lam_weight=keep if mode == "lambda-weight" else None)
+                what = f"{W}x{H} {src} {mode} {SOLVER_ITERS} it"
+                got = solvers_cuda.rof_denoise(g, 8.0, **args)
+                smoke.compare("rof", what, got, rof.denoise_plain(g, 8.0, **args), ATOL["rof"])
+                smoke.compare("rof", f"{what} vs kt_rof_denoise_steps", got,
+                              solvers_cuda._rof_denoise_steps(g, 8.0, **args), 0.0)
+            masked = g * keep
+            got = deconvolution.inpaint(masked, keep, iterations=SOLVER_ITERS)
+            what = f"{W}x{H} {src} inpaint {SOLVER_ITERS} it"
+            smoke.compare("rof", what, got, rof.denoise_plain(masked, 10.0,
+                                                              iterations=SOLVER_ITERS,
+                                                              lam_weight=keep), ATOL["rof"])
+            smoke.compare("rof", f"{what} vs kt_rof_denoise_steps", got,
+                          solvers_cuda._rof_denoise_steps(masked, 10.0, iterations=SOLVER_ITERS,
+                                                          lam_weight=keep), 0.0)
+            for its in (solvers_cuda.ROF_STEPS + 1, 37):
+                smoke.compare("rof", f"{W}x{H} {src} huber {its} it vs kt_rof_denoise_steps",
+                              solvers_cuda.rof_denoise(g, 8.0, iterations=its),
+                              solvers_cuda._rof_denoise_steps(g, 8.0, iterations=its), 0.0)
             smoke.compare("tgv", f"{W}x{H} {src} {SOLVER_ITERS} it",
                           solvers_cuda.tgv_denoise(g, iterations=SOLVER_ITERS),
                           tgv.denoise_plain(g, iterations=SOLVER_ITERS), ATOL["tgv"])
@@ -757,9 +793,15 @@ def main() -> int:
                         near=near, far=far)
                     got = (v.val.clone(), v.weight.clone())
                     want = (v.val.clone(), v.weight.clone())
+                    old = (v.val.clone(), v.weight.clone())
                     separable_cuda.fuse_planes(*got, gmd, gct, params, window, axis, Wi, Hi)
                     separable.fuse_planes_plain(*want, gmd, gct, params, window, axis, Wi, Hi)
+                    separable_cuda._fuse_planes_voxel(*old, gmd, gct, params, window, axis, Wi,
+                                                      Hi)
                     what = f"{tag} axis {axis} {state} window {win} {window.tolist()}"
+                    for k, part in enumerate(("val", "weight")):
+                        smoke.compare("separable_fuse", f"{what} {part} vs "
+                                      "kt_separable_fuse_voxel", got[k], old[k], 0.0)
                     gu, wu = got[1] > 0, want[1] > 0
                     flips = int((gu != wu).sum())
                     both = gu & wu
@@ -784,6 +826,18 @@ def main() -> int:
                           fused.val, 0.0)
             smoke.compare("separable_fuse", f"{tag} axis {axis} enable=False weight", got[1],
                           fused.weight, 0.0)
+            # an empty window touches nothing; both designs, enable=False too
+            empty = torch.tensor([5, 5], dtype=torch.int32, device=dev)
+            for win, w in (("enable=False", window), ("empty window", empty)):
+                new_, old_ = ((fused.val.clone(), fused.weight.clone()) for _ in range(2))
+                separable_cuda.fuse_planes(*new_, gmd, gct, params, w, axis, Wi, Hi)
+                separable_cuda._fuse_planes_voxel(*old_, gmd, gct, params, w, axis, Wi, Hi)
+                for k, part in enumerate(("val", "weight")):
+                    smoke.compare("separable_fuse", f"{tag} axis {axis} {win} {part} vs "
+                                  "kt_separable_fuse_voxel", new_[k], old_[k], 0.0)
+                    if w is empty:
+                        smoke.compare("separable_fuse", f"{tag} axis {axis} {win} {part}",
+                                      new_[k], (fused.val, fused.weight)[k], 0.0)
 
     for tag, vol_shape, wh, f in FUSE_SHAPES:
         print(f"phase 2 separable_fuse vs plain at {tag}: volume {vol_shape}, depth "
@@ -1059,7 +1113,7 @@ def main() -> int:
             err = (out - clean).abs().mean().item()
             ok = tuple(out.shape) == (H, W) and bool(torch.isfinite(out).all()) and err < err_in_k
             print(f"  {'ok  ' if ok else 'FAIL'} {name}: mean error against the clean image "
-                  f"{err_in_k:.6f} -> {err:.6f}")
+                  f"{err_in_k:.6f} -> {err:.6f} ({err!r})")
             if not ok:
                 smoke.failures.append(f"phase 3 denoise: {name} error {err_in_k} -> {err}")
 
@@ -1201,8 +1255,11 @@ def main() -> int:
         agg = sgm_cuda.semi_global_matching(vol, img)
         dl = wta_cuda.cost_vol_minimum_subpix(agg, -1)
         dr = wta_cuda.cost_vol_minimum_subpix(costvolume.reanchor_right(agg), 1)
-        # bench.py bench_variational's input and parameters
+        # bench.py bench_variational's input and parameters; an inpainting
+        # mask that keeps four pixels in five
         u01 = torch.from_numpy(np.random.default_rng(0).random((H, W)).astype(np.float32)).to(dev)
+        keep01 = torch.from_numpy((np.random.default_rng(1).random((H, W)) > 0.2)
+                                  .astype(np.float32)).to(dev)
         # the DTAM solve's inputs as the cold frame makes them
         left_p = stereo.preprocess_intensity(left, dcfg)
         g = costvolume.exponential_edge_weight(left_p, dcfg.g_alpha, dcfg.g_beta)
@@ -1333,25 +1390,49 @@ def main() -> int:
             "dtam solve": (solve_split, cases["dtam"][0]),
             "dtam 5 it": (lambda: dtam_cuda._dtam_run_split(vol, g, *state5, *step_args, 5),
                           lambda: dtam_cuda.dtam_run(vol, g, *state5, *step_args, 5)),
+            # the 100-iteration Huber ROF solve and inpainting (kt_rof_denoise
+            # against kt_rof_denoise_steps)
+            "rof solve": (lambda: solvers_cuda._rof_denoise_steps(u01, 8.0,
+                                                                  iterations=SOLVER_ITERS),
+                          cases["rof"][0]),
+            "inpaint": (lambda: solvers_cuda._rof_denoise_steps(u01, 10.0,
+                                                                iterations=SOLVER_ITERS,
+                                                                lam_weight=keep01),
+                        lambda: deconvolution.inpaint(u01, keep01, iterations=SOLVER_ITERS)),
         }
+        rof_launches_per_solve = -(-SOLVER_ITERS // solvers_cuda.ROF_STEPS)
+
+        def kernel_launches(kernels):
+            """Device time (us) and launches of the kernels, copies and fills
+            aside."""
+            ks = [v for k, v in kernels.items() if "Memcpy" not in k and "Memset" not in k]
+            return sum(us for _, us in ks), sum(n for n, _ in ks)
+
         for name, (old, new) in designs.items():
             o1 = timing.time_fn(old, warmup=3, runs=20)["median_ms"]
             n1 = timing.time_fn(new, warmup=3, runs=20)["median_ms"]
             n2 = timing.time_fn(new, warmup=0, runs=20)["median_ms"]
             o2 = timing.time_fn(old, warmup=0, runs=20)["median_ms"]
-            dev_new, _ = device_us(new)
-            dev_old, _ = device_us(old)
-            dn = sum(us for k, (_, us) in dev_new.items() if "Memcpy" not in k)
-            do = sum(us for k, (_, us) in dev_old.items() if "Memcpy" not in k)
-            print(f"  design {name:12s} new {n1:.4f} / {n2:.4f} ms (device {dn / 1e3:.4f}), "
-                  f"old {o1:.4f} / {o2:.4f} ms (device {do / 1e3:.4f}); "
-                  f"{min(o1, o2) / min(n1, n2):.2f}x [{card}]")
-            if name.startswith("wta_sq"):
+            # launches a call: the most that three one-call profiles record (a
+            # profile may miss a launch now and then); device time a call: the
+            # time a recorded launch over 5 calls, times those launches
+            ln, lo = (max(kernel_launches(device_us(run)[0])[1] for _ in range(3))
+                      for run in (new, old))
+            (tn, rn), (to, ro) = (kernel_launches(device_us(run, 5)[0]) for run in (new, old))
+            dn, do = (t / r * n if r else 0.0 for t, r, n in ((tn, rn, ln), (to, ro, lo)))
+            print(f"  design {name:12s} new {n1:.4f} / {n2:.4f} ms (device {dn / 1e3:.4f}, "
+                  f"{ln:g} launches), old {o1:.4f} / {o2:.4f} ms (device {do / 1e3:.4f}, {lo:g} "
+                  f"launches); {min(o1, o2) / min(n1, n2):.2f}x [{card}]")
+            if name in ("rof solve", "inpaint") and ln != rof_launches_per_solve:
+                smoke.failures.append(f"phase 4 {name}: {ln:g} kernel launches a solve, not "
+                                      f"{rof_launches_per_solve}")
+            if name.startswith("wta_sq") and dn and do:
                 v = vol32 if name.endswith("f32") else vol
                 print(f"    {name}: {nbytes(v) / 1e6:.1f} MB volume, new {nbytes(v) / dn / 1e6:.3f} "
                       f"TB/s by device time, {nbytes(v) / min(n1, n2) / 1e9:.3f} TB/s by events; "
                       f"old {nbytes(v) / do / 1e6:.3f} TB/s by device time")
         search_alternatives(vol, vol32, dl)
+        rof_alternatives(u01)
         chained = DTAM_ITERS * (nbytes(vol) + 13 * nbytes(d0))
         print(f"  dtam solve {times['dtam'][0]:.4f} ms: chained byte floor {chained / 1e6:.1f} MB "
               f"-> {1e3 * chained / HBM_BPS:.4f} ms ({DTAM_ITERS} x the volume alone "
@@ -1469,6 +1550,135 @@ def main() -> int:
                           f"the repo's build {r1:.2f} / {r2:.2f} us; equal {same} [{card}]")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    @contextlib.contextmanager
+    def variant_builds(source, names, variants, entry):
+        """Builds of ``csrc/<source>`` alone with its compile-time constants
+        ``names`` changed, all compiled together: yields {variant: (its
+        constants, its ``entry``)}, the repo's own build first as "repo". A
+        variant given as a list of (text, replacement) pairs is the source
+        edited so (its constants the repo's)."""
+        import ctypes
+        import re
+        import shutil
+        import tempfile
+
+        text = (_build.CSRC_DIR / source).read_text()
+        repo = {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+                for n in names}
+        configs = {"repo": repo}
+        configs.update({name: {**repo, **change} for name, change in variants.items()
+                        if isinstance(change, dict) and {**repo, **change} != repo})
+        configs.update({name: repo for name, change in variants.items()
+                        if isinstance(change, list)})
+        tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+        try:
+            procs = {}
+            for i, (name, cfg) in enumerate(configs.items()):
+                if name == "repo":
+                    continue
+                changed = text
+                for n in names:
+                    changed = changed.replace(f"constexpr int {n} = {repo[n]};",
+                                              f"constexpr int {n} = {cfg[n]};")
+                for a, b in variants[name] if isinstance(variants[name], list) else ():
+                    if a not in changed:
+                        raise RuntimeError(f"{source} variant {name}: {a!r} not in the source")
+                    changed = changed.replace(a, b)
+                src = tmp / str(i)
+                src.mkdir()
+                (src / source).write_text(changed)
+                procs[name] = (src / "lib.so", subprocess.Popen(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(src / "lib.so"),
+                     str(src / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            fns = {"repo": (repo, getattr(lib, entry))}
+            for name, (so, proc) in procs.items():
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{source} variant {name}: nvcc failed\n{log}")
+                fn = getattr(ctypes.CDLL(str(so)), entry)
+                fn.argtypes = _build.SIGNATURES[entry]
+                fns[name] = (configs[name], fn)
+            yield fns
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def ms_per_call(fn, args, n=20):
+        """CUDA-event ms a call of a C entry, ``n`` calls back to back."""
+        for _ in range(2):
+            fn(*args)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            if fn(*args) != 0:
+                raise RuntimeError("variant: launch failed")
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def rof_alternatives(g):
+        """The ROF solve's tile, iterations a launch (kSteps) and threads a
+        block against alternatives (``variant_builds`` of ``csrc/rof.cu``)
+        and the replaced design (``kt_rof_denoise_steps``). A 100-iteration
+        Huber solve of each on ``g``, 20 solves back to back under CUDA
+        events, in turns (the repo's build, the variant, the variant, the
+        repo's build), each variant's result equal to the repo's; beside
+        each, its launches a solve and the bound of the cells it computes
+        (the tiles and their halos clipped to the image, 27 float32
+        operations a cell and iteration: the cone's savings not counted)."""
+        H_, W_ = g.shape
+        variants = {"K = 8": {"kSteps": 8}, "K = 3": {"kSteps": 3},
+                    "256 threads": {"kThreads": 256}, "1024 threads": {"kThreads": 1024},
+                    "tile 40x16": {"kTileX": 40}, "tile 32x20": {"kTileY": 20},
+                    "tile 64x32, 1024 threads": {"kTileX": 64, "kTileY": 32, "kThreads": 1024},
+                    # where the time goes (results not the solve's): the launches
+                    # without their steps, and the steps with inexact divisions
+                    "cut: no steps": [("  for (int m = 0; m < steps; ++m) {",
+                                       "  for (int m = 0; m < 0; ++m) {")],
+                    "cut: fast divisions": [
+                        ("n0 = n0 / shrink;", "n0 = __fdividef(n0, shrink);"),
+                        ("n1 = n1 / shrink;", "n1 = __fdividef(n1, shrink);"),
+                        ("p0[r] = n0 / d;", "p0[r] = __fdividef(n0, d);"),
+                        ("p1[r] = n1 / d;", "p1[r] = __fdividef(n1, d);"),
+                        ("u[r] = (u[r] + fmul(tau, divp + lg[r])) / den[r];",
+                         "u[r] = __fdividef(u[r] + fmul(tau, divp + lg[r]), den[r]);")]}
+
+        def work(cfg):
+            """(launches, cells a launch) of a tile configuration."""
+            tx, ty, k = cfg["kTileX"], cfg["kTileY"], cfg["kSteps"]
+            cols = sum(min(x + tx + k, W_) - max(x - k, 0) for x in range(0, W_, tx))
+            rows = sum(min(y + ty + k, H_) - max(y - k, 0) for y in range(0, H_, ty))
+            return -(-SOLVER_ITERS // k), cols * rows
+
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = torch.empty((5, H_, W_), device=dev)
+        ref, out = torch.empty_like(g), torch.empty_like(g)
+
+        def args(o):
+            return (g.data_ptr(), None, o.data_ptr(), scratch.data_ptr(), H_, W_, 8.0, 0.5,
+                    0.25, 0.002, 1, SOLVER_ITERS, stream)
+
+        table = 1e3 * 27 * H_ * W_ * SOLVER_ITERS / F32_OPS
+        with variant_builds("rof.cu", ("kTileX", "kTileY", "kSteps", "kThreads"), variants,
+                            "kt_rof_denoise") as fns:
+            fns["old kt_rof_denoise_steps"] = (None, lib.kt_rof_denoise_steps)
+            repo = fns["repo"][1]
+            for name, (cfg, fn) in fns.items():
+                r1 = ms_per_call(repo, args(ref))
+                a1 = ms_per_call(fn, args(out))
+                a2 = ms_per_call(fn, args(out))
+                r2 = ms_per_call(repo, args(ref))
+                same = torch.equal(out, ref)
+                if not same and not name.startswith("cut"):
+                    smoke.failures.append(f"phase 4 rof variant {name}: differs")
+                n_launch, cells = work(cfg) if cfg else (2 * SOLVER_ITERS, H_ * W_)
+                what = (f"{cfg['kTileX']}x{cfg['kTileY']} K={cfg['kSteps']} "
+                        f"{cfg['kThreads']} threads" if cfg else "one thread a pixel")
+                print(f"  rof variant {name:24s} ({what}) {a1:.4f} / {a2:.4f} ms a solve, the "
+                      f"repo's build {r1:.4f} / {r2:.4f}; {n_launch} launches, {cells} cells a "
+                      f"step -> bound {1e3 * 27 * cells * SOLVER_ITERS / F32_OPS:.5f} ms (the "
+                      f"table's {table:.5f}); equal {same} [{card}]")
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)
@@ -1653,25 +1863,95 @@ def main() -> int:
             kf_cfg.min_cos_theta, axis, near=kf_cfg.near, far=kf_cfg.far)
         full = torch.tensor([0, kf_cfg.vol_res], dtype=torch.int32, device=dev)
         kvol = (pipe.vol.val.clone(), pipe.vol.weight.clone())
+        ovol = (pipe.vol.val.clone(), pipe.vol.weight.clone())
         pvol = (pipe.vol.val.clone(), pipe.vol.weight.clone())
-        fuse_cases = {
-            "separable_fuse": (
-                lambda: separable_cuda.fuse_planes(*kvol, gmd, gct, params, window, axis, W, H),
-                lambda: separable.fuse_planes_plain(*pvol, gmd, gct, params, window, axis, W, H)),
-            "separable_fuse_full": (
-                lambda: separable_cuda.fuse_planes(*kvol, gmd, gct, params, full, axis, W, H),
-                lambda: separable.fuse_planes_plain(*pvol, gmd, gct, params, full, axis, W, H)),
-        }
-        for name, (kern, plain) in fuse_cases.items():
+
+        def fuse_case(win):
+            """The fuse on the window ``win``: the kernel, the voxel design it
+            replaced (kt_separable_fuse_voxel) and the plain version."""
+            args = (gmd, gct, params, win, axis, W, H)
+            return (lambda: separable_cuda.fuse_planes(*kvol, *args),
+                    lambda: separable_cuda._fuse_planes_voxel(*ovol, *args),
+                    lambda: separable.fuse_planes_plain(*pvol, *args))
+
+        fuse_cases = {"separable_fuse": fuse_case(window), "separable_fuse_full": fuse_case(full)}
+        for name, (kern, old, plain) in fuse_cases.items():
+            # plain, old, kernel, kernel, old, plain
             p1 = timing.time_fn(plain, warmup=1, runs=5)
+            o1 = timing.time_fn(old, warmup=3, runs=20)["median_ms"]
             k1 = timing.time_fn(kern, warmup=3, runs=20)
             k2 = timing.time_fn(kern, warmup=0, runs=20)
+            o2 = timing.time_fn(old, warmup=0, runs=20)["median_ms"]
             p2 = timing.time_fn(plain, warmup=0, runs=5)
             times[name] = (min(k1["median_ms"], k2["median_ms"]),
                            min(p1["median_ms"], p2["median_ms"]))
-            print(f"  {name:19s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, plain "
+            print(f"  {name:19s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, voxel "
+                  f"design {o1:.4f} / {o2:.4f} ms ({min(o1, o2) / times[name][0]:.2f}x), plain "
                   f"{p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms (256^3, {W}x{H} depth, "
                   f"axis {axis}) [{card}]")
+            dev_ms = {}
+            for design, run in (("kernel", kern), ("voxel design", old)):
+                # a fuse is one launch: the device time a recorded launch over
+                # 5 fuses (a profile may miss a launch now and then)
+                kernels, _ = device_us(run, 5)
+                hits = [(n, us) for k, (n, us) in kernels.items() if "separable_fuse" in k]
+                n = sum(n for n, _ in hits)
+                dev_ms[design] = (sum(us for _, us in hits) / n / 1e3 if n else float("nan"), n)
+            print(f"  {name:19s} device time a fuse: kernel {dev_ms['kernel'][0]:.4f} ms "
+                  f"({dev_ms['kernel'][1]} of 5 launches recorded), voxel design "
+                  f"{dev_ms['voxel design'][0]:.4f} ms ({dev_ms['voxel design'][1]} of 5) "
+                  f"[{card}]")
+        # the fuse's chunk (voxels a thread loads together) and its blocks
+        # an SM against alternatives (variant_builds of csrc/separable_fuse.cu),
+        # and the voxel design, on the frame's window: 20 fuses back to back
+        # under CUDA events, in turns (the repo's build, the variant, the
+        # variant, the repo's build), each variant's volume equal to the
+        # repo's after one fuse
+        stream = torch.cuda.current_stream().cuda_stream
+        D_ = kf_cfg.vol_res
+
+        def fuse_args(v, w):
+            return (v.data_ptr(), w.data_ptr(), gmd.data_ptr(), gct.data_ptr(),
+                    params.data_ptr(), window.data_ptr(), D_, D_, D_, axis, *gmd.shape, W, H,
+                    stream)
+
+        variants = {"1 voxel a chunk": {"kChunk": 1}, "2 voxels a chunk": {"kChunk": 2},
+                    "8 voxels a chunk": {"kChunk": 8}, "2 blocks an SM": {"kMinBlocks": 2},
+                    "8 blocks an SM": {"kMinBlocks": 8}, "32 rows a block": {"kPlaneRows": 32},
+                    "64 rows a block": {"kPlaneRows": 64},
+                    # where the time goes (results not the fuse's): every voxel
+                    # without an update; the projection alone; the taps too
+                    "cut: no sample": [("  const int b = tab.b[ei], row = tab.row[ej];\n",
+                                        "  return false;\n  const int b = tab.b[ei], "
+                                        "row = tab.row[ej];\n")],
+                    "cut: projection": [("  const float ra0 = tab.ra0[ej], ra1",
+                                         "  return uu == 12345.f && vv == 54321.f;\n"
+                                         "  const float ra0 = tab.ra0[ej], ra1")],
+                    "cut: projection, taps": [("  const float sd = fmul(ct, fsub(md, qz));",
+                                               "  return md == 12345.f && ct == 54321.f;\n"
+                                               "  const float sd = fmul(ct, fsub(md, qz));")]}
+        with variant_builds("separable_fuse.cu", ("kChunk", "kMinBlocks", "kPlaneRows"), variants,
+                            "kt_separable_fuse") as fns:
+            fns["old kt_separable_fuse_voxel"] = (None, lib.kt_separable_fuse_voxel)
+            repo = fns["repo"][1]
+            ref = (pipe.vol.val.clone(), pipe.vol.weight.clone())
+            repo(*fuse_args(*ref))
+            for name, (cfg, fn) in fns.items():
+                got = (pipe.vol.val.clone(), pipe.vol.weight.clone())
+                fn(*fuse_args(*got))
+                same = (torch.equal(got[0].nan_to_num(7.0), ref[0].nan_to_num(7.0))
+                        and torch.equal(got[1], ref[1]))
+                if not same and not name.startswith("cut"):
+                    smoke.failures.append(f"phase 4 fuse variant {name}: differs")
+                r1 = ms_per_call(repo, fuse_args(*kvol))
+                a1 = ms_per_call(fn, fuse_args(*kvol))
+                a2 = ms_per_call(fn, fuse_args(*kvol))
+                r2 = ms_per_call(repo, fuse_args(*kvol))
+                what = (f"chunk {cfg['kChunk']}, {cfg['kMinBlocks']} blocks, "
+                        f"{cfg['kPlaneRows']} rows" if cfg else "one thread a voxel")
+                print(f"  fuse variant {name:26s} ({what}) {a1:.4f} / {a2:.4f} ms a fuse, the "
+                      f"repo's build {r1:.4f} / {r2:.4f}; equal {same} [{card}]")
+
         # the bound of what this run's data needs: the weight of every voxel
         # of the window read (its limit applies to all), val read and val
         # and weight written for the voxels updated, the two grids read;

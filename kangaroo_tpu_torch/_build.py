@@ -38,6 +38,11 @@ _WTA_SQ = [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P]
 # vol, vol_is_bf16, g, d, a, q, thetas (host), D, H, W, sd, lam, sigma_q,
 # sigma_d, huber_alpha, iterations, stream
 _DTAM = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P]
+# g, lam_weight (or null), u, scratch, H, W, lam, sigma, tau, alpha, huber,
+# iterations, stream
+_ROF = [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P]
+# val, weight, gmd, gct, params, window, D, H, W, axis, gh, gw, Wi, Hi, stream
+_FUSE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # C entry points (csrc/*.cu) and their argument types; every entry returns
 # cudaGetLastError() as an int
 SIGNATURES = {
@@ -54,9 +59,10 @@ SIGNATURES = {
     "kt_median_reject_invalid": [_P, _P, _I, _I, _I, _I, _P],
     # disp_l, disp_r, out, H, W, sd, max_diff, k_min, k_max, stream
     "kt_lr_check": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    # g, lam_weight (or null), u, p, H, W, lam, sigma, tau, alpha, huber,
-    # iterations, stream
-    "kt_rof_denoise": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    # the ROF solve on tiles in shared memory (csrc/rof.cu), and the
+    # two-launches-an-iteration design it is held against
+    "kt_rof_denoise": _ROF,
+    "kt_rof_denoise_steps": _ROF,
     # f, u, state, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
     "kt_tgv_denoise": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P],
     # the DTAM search (csrc/wta_sq.cu), and the one-thread-per-pixel design
@@ -67,9 +73,10 @@ SIGNATURES = {
     # held against
     "kt_dtam_run": _DTAM,
     "kt_dtam_run_split": _DTAM,
-    # val, weight, gmd, gct, params, window, D, H, W, axis, gh, gw, Wi, Hi,
-    # stream
-    "kt_separable_fuse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the fuse on plane tiles (csrc/separable_fuse.cu), and the
+    # voxel-per-thread design it is held against
+    "kt_separable_fuse": _FUSE,
+    "kt_separable_fuse_voxel": _FUSE,
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,9 @@ Counterpart of ``kangaroo_tpu/fusion/separable_pallas.py``
 (``_make_fuse_kernel``, ``fuse_planes_pallas``): one launch updates every
 voxel of the plane window in place on the current stream, reading the
 20 params, the enable gate and the window from device tensors, so the
-fuse adds no host round trip. The plain version is
+fuse adds no host round trip. A block takes a tile of a plane (or 32
+planes on the x sweep) with the plane geometry in shared-memory tables
+(``kt_separable_fuse``). The plain version is
 ``separable.fuse_planes_plain``. The JAX package's fuse has a gradient
 (its windowed loop's custom_vjp) that nothing on the ported paths uses;
 the kernel has none, so an input that requires grad is refused rather than
@@ -21,12 +23,9 @@ from .separable import N_PARAMS, sweep_shape
 launches = 0
 
 
-def fuse_planes(val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor, gct: torch.Tensor,
-                params: torch.Tensor, window: torch.Tensor, axis: int, Wi: int, Hi: int):
-    """Fuse in place on the card: val, weight (D, H, W) float32 [z, y, x];
-    gmd, gct (gh, gw) float32 warped grids; params (20,) float32; window (2,)
-    int32 planes [k_lo, k_hi) of the sweep along ``axis`` (0 z, 1 y, 2 x)."""
-    global launches
+def _fuse(entry: str, val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor,
+          gct: torch.Tensor, params: torch.Tensor, window: torch.Tensor, axis: int, Wi: int,
+          Hi: int):
     for name, t, ndim in (("val", val, 3), ("weight", weight, 3), ("gmd", gmd, 2),
                           ("gct", gct, 2), ("params", params, 1)):
         backend.require_kernels(t, "separable_fuse")
@@ -52,10 +51,27 @@ def fuse_planes(val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor, gct:
     gh, gw = gmd.shape
     lib = _build.library()
     with torch.cuda.device(val.device):
-        rc = lib.kt_separable_fuse(val.data_ptr(), weight.data_ptr(), gmd.data_ptr(),
-                                   gct.data_ptr(), params.data_ptr(), window.data_ptr(), D, H, W,
-                                   int(axis), gh, gw, int(Wi), int(Hi),
-                                   backend.stream_handle(val))
-        backend.check_launch(rc, "separable_fuse")
-        launches += 1
+        rc = getattr(lib, entry)(val.data_ptr(), weight.data_ptr(), gmd.data_ptr(),
+                                 gct.data_ptr(), params.data_ptr(), window.data_ptr(), D, H, W,
+                                 int(axis), gh, gw, int(Wi), int(Hi), backend.stream_handle(val))
+    backend.check_launch(rc, "separable_fuse")
     return val, weight
+
+
+def fuse_planes(val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor, gct: torch.Tensor,
+                params: torch.Tensor, window: torch.Tensor, axis: int, Wi: int, Hi: int):
+    """Fuse in place on the card: val, weight (D, H, W) float32 [z, y, x];
+    gmd, gct (gh, gw) float32 warped grids; params (20,) float32; window (2,)
+    int32 planes [k_lo, k_hi) of the sweep along ``axis`` (0 z, 1 y, 2 x)."""
+    global launches
+    out = _fuse("kt_separable_fuse", val, weight, gmd, gct, params, window, axis, Wi, Hi)
+    launches += 1
+    return out
+
+
+def _fuse_planes_voxel(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: int):
+    """``fuse_planes`` through ``kt_separable_fuse_voxel`` (the design it
+    replaced: one thread a voxel over the whole volume): the yardstick that
+    the card checks hold ``kt_separable_fuse`` against. No path calls it and
+    no count records it."""
+    return _fuse("kt_separable_fuse_voxel", val, weight, gmd, gct, params, window, axis, Wi, Hi)

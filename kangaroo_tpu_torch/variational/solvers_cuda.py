@@ -1,11 +1,12 @@
 """The ROF and TGV kernels (``csrc/rof.cu``, ``csrc/tgv.cu``) and their wrappers.
 
 Counterpart of ``kangaroo_tpu/variational/pallas_solvers.py``
-(``rof_denoise``, ``tgv_denoise``): one C call runs a whole solve, two
-kernel launches per iteration on the current stream. The plain versions
-are ``rof.denoise_plain`` and ``tgv.denoise_plain``. The kernels have no
-gradient (the JAX package's solvers have none either), so an input that
-requires grad is refused rather than cut from the graph.
+(``rof_denoise``, ``tgv_denoise``): one C call runs a whole solve on the
+current stream. ROF runs ``ROF_STEPS`` iterations a launch on tiles in
+shared memory (``kt_rof_denoise``), TGV two launches an iteration. The
+plain versions are ``rof.denoise_plain`` and ``tgv.denoise_plain``. The
+kernels have no gradient (the JAX package's solvers have none either), so
+an input that requires grad is refused rather than cut from the graph.
 """
 from __future__ import annotations
 
@@ -13,10 +14,13 @@ import torch
 
 from .. import _build, backend
 
-# solves launched since the last reset (each is 2 * iterations kernel launches;
-# a solve of 0 iterations launches none and is not counted)
+# solves launched since the last reset (a ROF solve is ceil(iterations /
+# ROF_STEPS) kernel launches, a TGV solve 2 * iterations; a solve of 0
+# iterations launches none and is not counted)
 rof_launches = 0
 tgv_launches = 0
+# iterations a ROF launch runs (kSteps of csrc/rof.cu)
+ROF_STEPS = 4
 
 
 def _check_image(t: torch.Tensor, name: str, op: str) -> None:
@@ -26,13 +30,8 @@ def _check_image(t: torch.Tensor, name: str, op: str) -> None:
         raise RuntimeError(f"{op}: the kernel has no gradient; {name} requires grad")
 
 
-def rof_denoise(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
-                iterations: int = 100, model: str = "huber",
-                lam_weight: torch.Tensor | None = None) -> torch.Tensor:
-    """Whole ROF / Huber-ROF solve on the card: g (H, W) float32 -> u (H, W)
-    float32. ``lam_weight`` (H, W) float32 makes the data weight pixelwise
-    (lam * weight), the inpainting mode."""
-    global rof_launches
+def _rof(entry: str, planes: int, g: torch.Tensor, lam, sigma, tau, alpha, iterations: int,
+         model: str, lam_weight: torch.Tensor | None) -> torch.Tensor:
     _check_image(g, "g", "rof")
     if lam_weight is not None:
         _check_image(lam_weight, "lam_weight", "rof")
@@ -45,16 +44,40 @@ def rof_denoise(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
         raise ValueError(f"iterations must be >= 0, got {iterations}")
     H, W = g.shape
     u = torch.empty_like(g)
-    p = torch.empty((2, H, W), dtype=torch.float32, device=g.device)
+    scratch = torch.empty((planes, H, W), dtype=torch.float32, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):
-        rc = lib.kt_rof_denoise(
+        rc = getattr(lib, entry)(
             g.data_ptr(), None if lam_weight is None else lam_weight.data_ptr(), u.data_ptr(),
-            p.data_ptr(), H, W, float(lam), float(sigma), float(tau), float(alpha),
+            scratch.data_ptr(), H, W, float(lam), float(sigma), float(tau), float(alpha),
             int(model == "huber"), int(iterations), backend.stream_handle(g))
-        backend.check_launch(rc, "rof")
-        rof_launches += int(iterations > 0)
+    backend.check_launch(rc, "rof")
     return u
+
+
+def rof_denoise(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
+                iterations: int = 100, model: str = "huber",
+                lam_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Whole ROF / Huber-ROF solve on the card: g (H, W) float32 -> u (H, W)
+    float32. ``lam_weight`` (H, W) float32 makes the data weight pixelwise
+    (lam * weight), the inpainting mode. The scratch is the second copy of u
+    and both copies of p0, p1: each launch reads one copy of the state and
+    writes the other."""
+    global rof_launches
+    u = _rof("kt_rof_denoise", 5, g, lam, sigma, tau, alpha, iterations, model, lam_weight)
+    rof_launches += int(iterations > 0)
+    return u
+
+
+def _rof_denoise_steps(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
+                       iterations: int = 100, model: str = "huber",
+                       lam_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """``rof_denoise`` through ``kt_rof_denoise_steps`` (the design it
+    replaced: a dual and a primal launch an iteration, one thread a pixel,
+    in place on one copy of p): the yardstick that the card checks hold
+    ``kt_rof_denoise`` against. No path calls it and no count records it."""
+    return _rof("kt_rof_denoise_steps", 2, g, lam, sigma, tau, alpha, iterations, model,
+                lam_weight)
 
 
 def tgv_denoise(f: torch.Tensor, alpha0=2.0, alpha1=1.0, sigma=0.5, tau=0.25, delta=0.1,

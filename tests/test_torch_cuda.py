@@ -16,7 +16,9 @@ but TGV amplifies any last-bit difference); the DTAM auxiliary search
 order, each rounded on its own, so 0 is expected). The whole-image path
 kernel and the segment kernel (``csrc/sgm_path.cu``) equal the warp-per-line
 design (``csrc/sgm.cu``, ``kt_sgm_segment_lines``) exactly: the same
-operations per element in the same order.
+operations per element in the same order; so do the ROF solve on tiles and
+the fuse on plane tiles the designs they replaced (``kt_rof_denoise_steps``,
+``kt_separable_fuse_voxel``).
 """
 import numpy as np
 import pytest
@@ -1035,3 +1037,151 @@ def test_dtam_steps_match_split_design(dev, shape, sd, theta):
     six = dtam_cuda._dtam_run_split(vol, g, d0, d0, q, theta, 7.0, *DTAM_ARGS, 1e-3, 6, sd)
     for name, a, b in zip("d a q theta".split(), s2, six):
         assert torch.equal(a, b), name
+
+
+# --- the ROF solve and the fuse against the designs they replaced ----------
+# kt_rof_denoise (solvers_cuda.ROF_STEPS iterations a launch on tiles in
+# shared memory) against kt_rof_denoise_steps (a dual and a primal launch an
+# iteration), and kt_separable_fuse (plane tiles with shared-memory tables)
+# against kt_separable_fuse_voxel (one thread a voxel): the same operations
+# per element in the same order, so exactly equal, NaN positions included.
+
+# (H, W): one pixel, a row, a column, smaller than a tile, one 32x16 tile
+# plus a pixel each way, VGA, KITTI-sized and KITTI-sized standing up
+ROF_SHAPES = [(1, 1), (1, 37), (37, 1), (9, 20), (17, 33)] + IMAGE_SHAPES
+ROF_ITERS = [0, 1, solvers_cuda.ROF_STEPS - 1, solvers_cuda.ROF_STEPS,
+             solvers_cuda.ROF_STEPS + 1, 100]
+
+
+def _equal(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(7.0),
+                                                            b.nan_to_num(7.0))
+
+
+def _rof_both(g, mode, iterations, keep):
+    weight = keep if mode == "lambda_weight" else None
+    model = "tv" if mode == "tv" else "huber"
+    args = dict(iterations=iterations, model=model, lam_weight=weight)
+    return (solvers_cuda.rof_denoise(g, 8.0, **args),
+            solvers_cuda._rof_denoise_steps(g, 8.0, **args),
+            rof.denoise_plain(g, 8.0, **args))
+
+
+@pytest.mark.parametrize("iterations", ROF_ITERS)
+@pytest.mark.parametrize("mode", ["tv", "huber", "lambda_weight"])
+@pytest.mark.parametrize("shape", ROF_SHAPES)
+def test_rof_matches_steps_design(dev, shape, mode, iterations):
+    g, keep = _noisy_image(shape, dev)
+    before = solvers_cuda.rof_launches
+    new, old, plain = _rof_both(g, mode, iterations, keep)
+    assert solvers_cuda.rof_launches == before + int(iterations > 0)
+    assert torch.equal(new, old)
+    torch.testing.assert_close(new, plain, atol=1e-4, rtol=0)
+    if iterations == 0:
+        assert torch.equal(new, g)
+
+
+@pytest.mark.parametrize("mode", ["tv", "huber", "lambda_weight"])
+@pytest.mark.parametrize("shape", [(17, 33), (480, 640), (375, 1242)])
+def test_rof_non_finite_inputs_match_steps_design(dev, shape, mode):
+    """NaN and infinity in g (and a NaN weight) spread the same way through
+    both designs; the plain version agrees where finite, NaN where NaN."""
+    g, keep = _noisy_image(shape, dev)
+    rng = np.random.default_rng(30)
+    flat = g.view(-1)
+    flat[torch.from_numpy(rng.integers(0, g.numel(), 5)).to(dev)] = float("nan")
+    flat[torch.from_numpy(rng.integers(0, g.numel(), 3)).to(dev)] = float("inf")
+    flat[torch.from_numpy(rng.integers(0, g.numel(), 2)).to(dev)] = float("-inf")
+    keep.view(-1)[7] = float("nan")
+    for iterations in (3, solvers_cuda.ROF_STEPS + 5):
+        new, old, plain = _rof_both(g, mode, iterations, keep)
+        assert _equal(new, old), iterations
+        torch.testing.assert_close(new, plain, atol=1e-4, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("shape", [(17, 33)] + IMAGE_SHAPES)
+def test_inpaint_runs_the_tile_design(dev, shape):
+    """``deconvolution.inpaint`` goes through ``rof_denoise(lam_weight=)``:
+    one counted solve, equal to the replaced design with the mask as the
+    weight."""
+    g, keep = _noisy_image(shape, dev)
+    before = solvers_cuda.rof_launches
+    got = deconvolution.inpaint(g, keep, iterations=37)
+    assert solvers_cuda.rof_launches == before + 1
+    want = solvers_cuda._rof_denoise_steps(g, 10.0, iterations=37, model="huber",
+                                           lam_weight=keep)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, rof.denoise_plain(g, 10.0, iterations=37, lam_weight=keep),
+                               atol=1e-4, rtol=0)
+
+
+def test_rof_steps_design_counts_nothing(dev):
+    g, _ = _noisy_image((17, 33), dev)
+    before = solvers_cuda.rof_launches
+    solvers_cuda._rof_denoise_steps(g, 8.0, iterations=5)
+    assert solvers_cuda.rof_launches == before
+
+
+def _over_max_weight(vol):
+    """Every 97th fused voxel's weight above max_w (1000): the limit applies."""
+    fused = (vol.weight.view(-1) > 0).nonzero()[::97, 0]
+    vol.weight.view(-1)[fused] = 2000.0
+
+
+def _fuse_both(vol, gmd, gct, params, window, axis, wh):
+    """The fuse through both designs and the plain version, each on its own
+    copy of the volume."""
+    from kangaroo_tpu_torch.fusion import separable, separable_cuda
+
+    new, old, plain = ((vol.val.clone(), vol.weight.clone()) for _ in range(3))
+    before = separable_cuda.launches
+    separable_cuda.fuse_planes(*new, gmd, gct, params, window, axis, *wh)
+    separable_cuda._fuse_planes_voxel(*old, gmd, gct, params, window, axis, *wh)
+    assert separable_cuda.launches == before + 1
+    separable.fuse_planes_plain(*plain, gmd, gct, params, window, axis, *wh)
+    return new, old, plain
+
+
+@pytest.mark.parametrize("seed_frames", [0, 2])
+@pytest.mark.parametrize("near_far", [None, (0.5, 6.0), (2.2, 3.2)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("vol_shape,wh", [((256, 256, 256), (640, 480)),
+                                          ((200, 136, 248), (1242, 375)),
+                                          ((40, 36, 20), (160, 120))])
+def test_separable_fuse_matches_voxel_design(dev, vol_shape, wh, axis, near_far, seed_frames):
+    """Every sweep axis on an empty and a fused volume, the full, near/far
+    and a tight window; (40, 36, 20) has fewer x planes than a block's 32."""
+    from kangaroo_tpu_torch.fusion import separable
+
+    vol, d, n, T_cw, K, trunc = _fuse_case(dev, vol_shape, wh, axis, seed_frames)
+    if seed_frames:
+        _over_max_weight(vol)
+    nf = near_far or (None, None)
+    gmd, gct, params, window = separable.fuse_inputs(vol, d, n, T_cw, K, trunc, 1000.0, 0.1, axis,
+                                                     clip_planes=near_far is not None,
+                                                     near=nf[0], far=nf[1])
+    new, old, plain = _fuse_both(vol, gmd, gct, params, window, axis, wh)
+    assert _equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    if vol_shape[0] > 40:
+        _check_fused(new, plain)
+
+
+@pytest.mark.parametrize("enable", [True, False])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_separable_fuse_empty_window_and_enable_match_voxel_design(dev, axis, enable):
+    """An empty window touches nothing; enable=False limits the weight and
+    passes val through; both as the voxel design does."""
+    from kangaroo_tpu_torch.fusion import separable
+
+    vol, d, n, T_cw, K, trunc = _fuse_case(dev, (96, 80, 112), (160, 120), axis, seed_frames=2)
+    _over_max_weight(vol)
+    gmd, gct, params, window = separable.fuse_inputs(vol, d, n, T_cw, K, trunc, 1000.0, 0.1, axis,
+                                                     enable=enable, near=0.5, far=6.0)
+    empty = torch.tensor([5, 5], dtype=torch.int32, device=dev)
+    for win in (window, empty):
+        new, old, _ = _fuse_both(vol, gmd, gct, params, win, axis, (160, 120))
+        assert _equal(new[0], old[0]) and torch.equal(new[1], old[1])
+        if not enable or win is empty:
+            assert _equal(new[0], vol.val)
+        if win is empty:
+            assert torch.equal(new[1], vol.weight)
