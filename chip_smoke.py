@@ -19,7 +19,10 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    lambda-weighted) and TGV solves for 100 iterations at 640x480, 1242x375
    and 375x1242, each ROF solve, inpainting and Huber solves of 9 and 37
    iterations also through the design it replaced
-   (``kt_rof_denoise_steps``, exactly), plus one backward pass through each
+   (``kt_rof_denoise_steps``, exactly), TGV solves of 0, 9, 37 and 100
+   iterations, on an input with NaN and infinity and on images smaller
+   than a tile also through the design it replaced
+   (``kt_tgv_denoise_steps``, exactly), plus one backward pass through each
    autograd op against the plain version's gradient; the plane-sweep TSDF
    fuse at 256^3 with 640x480 depth and at (200, 136, 248) with 1242x375
    depth, on the three sweep axes, an empty and a fused volume, three plane
@@ -76,12 +79,15 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    turns (old, new, new, old), with device times, the search's TB/s and
    the solve's chained byte floor, and the search against builds of its
    source with one constant changed (pixels a thread, slices a group,
-   threads a block); the 100-iteration ROF solve and inpainting against the
-   design they replaced in turns, with device time and the kernel launches
-   a solve (torch.profiler; ceil(100 / ROF_STEPS) required), and the solve
-   against builds of ``csrc/rof.cu`` with its tile, its iterations a launch
-   or its threads a block changed, and builds cut short (no steps;
-   inexact divisions) that say where its time goes; the fuse kernel (the
+   threads a block); the device time a launch of WTA, median and LR check
+   (100 calls back to back, torch.profiler); the 100-iteration ROF solve,
+   inpainting and TGV solve against the designs they replaced in turns,
+   with device time and the kernel launches a solve (torch.profiler;
+   ceil(100 / ROF_STEPS) and ceil(100 / TGV_STEPS) required), and the ROF
+   and TGV solves against builds of ``csrc/rof.cu`` and ``csrc/tgv.cu``
+   with their tile, their iterations a launch or their threads a block
+   changed, and ROF builds cut short (no steps; inexact divisions) that say
+   where its time goes; the fuse kernel (the
    frame's window and every plane), also against the voxel design in turns
    with device time, and against builds of ``csrc/separable_fuse.cu`` with
    its chunk, blocks an SM or rows a block changed and builds cut
@@ -122,6 +128,11 @@ SHAPES = (("vga", 480, 640, 64), ("kitti", 375, 1242, 128))
 SOLVER_SHAPES = ((480, 640), (375, 1242), (1242, 375))
 FRAMES = 3
 SOLVER_ITERS = 100
+# TGV's iteration counts held against the replaced design: none, counts that
+# TGV_STEPS (4) does not divide, and the solve; the images smaller than a
+# 32x16 tile (and one a pixel past it each way)
+TGV_ITERS = (0, 9, 37, SOLVER_ITERS)
+TGV_SMALL_SHAPES = ((1, 1), (1, 19), (19, 1), (3, 5), (17, 33))
 # the segment checks split VGA 4 ways and KITTI-sized 3 ways (3 divides 375
 # and 1242); the main paths' virtual mesh has 4 shards, the batch 4 frames
 SEGMENT_SHARDS = {"vga": 4, "kitti": 3}
@@ -665,7 +676,10 @@ def main() -> int:
         """The solves on a noisy image and on uniform noise (bench.py's input);
         each ROF solve, inpaint through its public entry, and Huber solves
         of iteration counts that ROF_STEPS does not divide, also through the
-        design it replaced (``kt_rof_denoise_steps``, exactly)."""
+        design it replaced (``kt_rof_denoise_steps``, exactly); TGV at
+        ``TGV_ITERS`` (0, and counts that TGV_STEPS does not divide) and on
+        the noisy image with NaN and infinity, also through the design it
+        replaced (``kt_tgv_denoise_steps``, exactly)."""
         _, noisy, keep = noisy_image(H, W, seed=1)
         uniform = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
         for src, g in (("noisy", noisy), ("uniform", uniform)):
@@ -690,9 +704,29 @@ def main() -> int:
                 smoke.compare("rof", f"{W}x{H} {src} huber {its} it vs kt_rof_denoise_steps",
                               solvers_cuda.rof_denoise(g, 8.0, iterations=its),
                               solvers_cuda._rof_denoise_steps(g, 8.0, iterations=its), 0.0)
-            smoke.compare("tgv", f"{W}x{H} {src} {SOLVER_ITERS} it",
-                          solvers_cuda.tgv_denoise(g, iterations=SOLVER_ITERS),
+            solve = solvers_cuda.tgv_denoise(g, iterations=SOLVER_ITERS)
+            smoke.compare("tgv", f"{W}x{H} {src} {SOLVER_ITERS} it", solve,
                           tgv.denoise_plain(g, iterations=SOLVER_ITERS), ATOL["tgv"])
+            for its in TGV_ITERS:
+                got = solve if its == SOLVER_ITERS else solvers_cuda.tgv_denoise(g, iterations=its)
+                smoke.compare("tgv", f"{W}x{H} {src} {its} it vs kt_tgv_denoise_steps", got,
+                              solvers_cuda._tgv_denoise_steps(g, iterations=its), 0.0)
+        bad = with_bad(noisy, 2e-5, 1e-5)
+        bad[H // 2, W // 3] = float("-inf")
+        for its in (9, SOLVER_ITERS):
+            smoke.compare("tgv", f"{W}x{H} noisy with NaN and inf {its} it vs "
+                          "kt_tgv_denoise_steps", solvers_cuda.tgv_denoise(bad, iterations=its),
+                          solvers_cuda._tgv_denoise_steps(bad, iterations=its), 0.0)
+
+    def small_tgv_vs_steps():
+        """TGV on images smaller than a tile (and one a pixel past a tile
+        each way) through both designs, exactly."""
+        for H_, W_ in TGV_SMALL_SHAPES:
+            g = torch.from_numpy(rng.standard_normal((H_, W_)).astype(np.float32)).to(dev)
+            for its in TGV_ITERS:
+                smoke.compare("tgv", f"{W_}x{H_} {its} it vs kt_tgv_denoise_steps",
+                              solvers_cuda.tgv_denoise(g, iterations=its),
+                              solvers_cuda._tgv_denoise_steps(g, iterations=its), 0.0)
 
     def backward_vs_plain():
         D, H, W = 16, 40, 72
@@ -745,6 +779,8 @@ def main() -> int:
     for H, W in SOLVER_SHAPES:
         print(f"phase 2 solver kernels vs plain at {W}x{H}, {SOLVER_ITERS} iterations:")
         smoke.phase(f"phase 2 solvers {W}x{H}", solvers_vs_plain, H, W)
+    print("phase 2 TGV on images smaller than a tile vs kt_tgv_denoise_steps:")
+    smoke.phase("phase 2 tgv small", small_tgv_vs_steps)
     print("phase 2 backward through each autograd op vs the plain gradient:")
     smoke.phase("phase 2 backward", backward_vs_plain)
 
@@ -1399,8 +1435,15 @@ def main() -> int:
                                                                 iterations=SOLVER_ITERS,
                                                                 lam_weight=keep01),
                         lambda: deconvolution.inpaint(u01, keep01, iterations=SOLVER_ITERS)),
+            # the 100-iteration TGV solve (kt_tgv_denoise against
+            # kt_tgv_denoise_steps)
+            "tgv solve": (lambda: solvers_cuda._tgv_denoise_steps(u01, iterations=SOLVER_ITERS),
+                          cases["tgv"][0]),
         }
-        rof_launches_per_solve = -(-SOLVER_ITERS // solvers_cuda.ROF_STEPS)
+        # kernel launches a 100-iteration solve must take
+        launches_per_solve = {"rof solve": -(-SOLVER_ITERS // solvers_cuda.ROF_STEPS),
+                              "inpaint": -(-SOLVER_ITERS // solvers_cuda.ROF_STEPS),
+                              "tgv solve": -(-SOLVER_ITERS // solvers_cuda.TGV_STEPS)}
 
         def kernel_launches(kernels):
             """Device time (us) and launches of the kernels, copies and fills
@@ -1423,16 +1466,38 @@ def main() -> int:
             print(f"  design {name:12s} new {n1:.4f} / {n2:.4f} ms (device {dn / 1e3:.4f}, "
                   f"{ln:g} launches), old {o1:.4f} / {o2:.4f} ms (device {do / 1e3:.4f}, {lo:g} "
                   f"launches); {min(o1, o2) / min(n1, n2):.2f}x [{card}]")
-            if name in ("rof solve", "inpaint") and ln != rof_launches_per_solve:
+            if name in launches_per_solve and ln != launches_per_solve[name]:
                 smoke.failures.append(f"phase 4 {name}: {ln:g} kernel launches a solve, not "
-                                      f"{rof_launches_per_solve}")
+                                      f"{launches_per_solve[name]}")
             if name.startswith("wta_sq") and dn and do:
                 v = vol32 if name.endswith("f32") else vol
                 print(f"    {name}: {nbytes(v) / 1e6:.1f} MB volume, new {nbytes(v) / dn / 1e6:.3f} "
                       f"TB/s by device time, {nbytes(v) / min(n1, n2) / 1e9:.3f} TB/s by events; "
                       f"old {nbytes(v) / do / 1e6:.3f} TB/s by device time")
+        # kernels 2-4 (WTA, median, LR check): device time a launch over 100
+        # calls back to back (torch.profiler), beside the events time of one
+        # call, the bound and launches x (device time - bound) on the main path
+        for name, part in (("wta", "wta_kernel"), ("median", "median_reject_kernel"),
+                           ("lr_check", "lr_check_kernel")):
+            kern = cases[name][0]
+            kern()
+            kernels, _ = device_us(kern, 100)
+            hits = [(n, us) for k, (n, us) in kernels.items() if part + "<" in k
+                    or part + "(" in k]
+            n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            if not n:
+                smoke.failures.append(f"phase 4 device time {name}: no {part} recorded")
+                continue
+            other = {k: v for k, v in kernels.items() if part + "<" not in k
+                     and part + "(" not in k}
+            dev_ms = us / n / 1e3
+            print(f"  device {name:8s} {us / n:.3f} us a launch ({n} launches of {part} in 100 "
+                  f"calls; other device work {other}); events {1e3 * times[name][0]:.2f} us a "
+                  f"call; bound {1e3 * bound[name][0]:.3f} us; main-path launches "
+                  f"{launches.get(name)} x (device - bound) = "
+                  f"{(launches.get(name) or 0) * (dev_ms - bound[name][0]):.5f} ms [{card}]")
         search_alternatives(vol, vol32, dl)
-        rof_alternatives(u01)
+        solver_alternatives(u01)
         chained = DTAM_ITERS * (nbytes(vol) + 13 * nbytes(d0))
         print(f"  dtam solve {times['dtam'][0]:.4f} ms: chained byte floor {chained / 1e6:.1f} MB "
               f"-> {1e3 * chained / HBM_BPS:.4f} ms ({DTAM_ITERS} x the volume alone "
@@ -1552,56 +1617,68 @@ def main() -> int:
             shutil.rmtree(tmp, ignore_errors=True)
 
     @contextlib.contextmanager
-    def variant_builds(source, names, variants, entry):
-        """Builds of ``csrc/<source>`` alone with its compile-time constants
-        ``names`` changed, all compiled together: yields {variant: (its
-        constants, its ``entry``)}, the repo's own build first as "repo". A
-        variant given as a list of (text, replacement) pairs is the source
-        edited so (its constants the repo's)."""
+    def variant_builds(*specs):
+        """For each (source, names, variants, entry) of ``specs``: builds of
+        ``csrc/<source>`` alone with its compile-time constants ``names``
+        changed, those of every spec compiled together; yields for each spec
+        {variant: (its constants, its ``entry``)}, the repo's own build first
+        as "repo". A variant given as a list of (text, replacement) pairs is
+        the source edited so (its constants the repo's)."""
         import ctypes
         import re
         import shutil
         import tempfile
 
-        text = (_build.CSRC_DIR / source).read_text()
-        repo = {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
-                for n in names}
-        configs = {"repo": repo}
-        configs.update({name: {**repo, **change} for name, change in variants.items()
-                        if isinstance(change, dict) and {**repo, **change} != repo})
-        configs.update({name: repo for name, change in variants.items()
-                        if isinstance(change, list)})
         tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
         try:
-            procs = {}
-            for i, (name, cfg) in enumerate(configs.items()):
-                if name == "repo":
-                    continue
-                changed = text
-                for n in names:
-                    changed = changed.replace(f"constexpr int {n} = {repo[n]};",
-                                              f"constexpr int {n} = {cfg[n]};")
-                for a, b in variants[name] if isinstance(variants[name], list) else ():
-                    if a not in changed:
-                        raise RuntimeError(f"{source} variant {name}: {a!r} not in the source")
-                    changed = changed.replace(a, b)
-                src = tmp / str(i)
-                src.mkdir()
-                (src / source).write_text(changed)
-                procs[name] = (src / "lib.so", subprocess.Popen(
-                    [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(src / "lib.so"),
-                     str(src / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            fns = {"repo": (repo, getattr(lib, entry))}
-            for name, (so, proc) in procs.items():
-                log = proc.communicate()[0]
-                if proc.returncode != 0:
-                    raise RuntimeError(f"{source} variant {name}: nvcc failed\n{log}")
-                fn = getattr(ctypes.CDLL(str(so)), entry)
-                fn.argtypes = _build.SIGNATURES[entry]
-                fns[name] = (configs[name], fn)
-            yield fns
+            started = []
+            for k, (source, names, variants, entry) in enumerate(specs):
+                text = (_build.CSRC_DIR / source).read_text()
+                repo = {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+                        for n in names}
+                configs = {"repo": repo}
+                configs.update({name: {**repo, **change} for name, change in variants.items()
+                                if isinstance(change, dict) and {**repo, **change} != repo})
+                configs.update({name: repo for name, change in variants.items()
+                                if isinstance(change, list)})
+                procs = {}
+                for i, (name, cfg) in enumerate(configs.items()):
+                    if name == "repo":
+                        continue
+                    changed = text
+                    for n in names:
+                        changed = changed.replace(f"constexpr int {n} = {repo[n]};",
+                                                  f"constexpr int {n} = {cfg[n]};")
+                    for a, b in variants[name] if isinstance(variants[name], list) else ():
+                        if a not in changed:
+                            raise RuntimeError(f"{source} variant {name}: {a!r} not in the source")
+                        changed = changed.replace(a, b)
+                    src = tmp / f"{k}-{i}"
+                    src.mkdir()
+                    (src / source).write_text(changed)
+                    procs[name] = (src / "lib.so", subprocess.Popen(
+                        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(src / "lib.so"),
+                         str(src / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True))
+                started.append((source, entry, configs, procs))
+            out = []
+            for source, entry, configs, procs in started:
+                fns = {"repo": (configs["repo"], getattr(lib, entry))}
+                for name, (so, proc) in procs.items():
+                    log = proc.communicate()[0]
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"{source} variant {name}: nvcc failed\n{log}")
+                    fn = getattr(ctypes.CDLL(str(so)), entry)
+                    fn.argtypes = _build.SIGNATURES[entry]
+                    fns[name] = (configs[name], fn)
+                out.append(fns)
+            yield out
         finally:
+            for _, _, _, procs in started:
+                for _, proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
             shutil.rmtree(tmp, ignore_errors=True)
 
     def ms_per_call(fn, args, n=20):
@@ -1617,32 +1694,48 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
 
-    def rof_alternatives(g):
-        """The ROF solve's tile, iterations a launch (kSteps) and threads a
-        block against alternatives (``variant_builds`` of ``csrc/rof.cu``)
-        and the replaced design (``kt_rof_denoise_steps``). A 100-iteration
-        Huber solve of each on ``g``, 20 solves back to back under CUDA
-        events, in turns (the repo's build, the variant, the variant, the
-        repo's build), each variant's result equal to the repo's; beside
-        each, its launches a solve and the bound of the cells it computes
-        (the tiles and their halos clipped to the image, 27 float32
-        operations a cell and iteration: the cone's savings not counted)."""
+    def solver_alternatives(g):
+        """The ROF and TGV solves' tile, iterations a launch (kSteps) and
+        threads a block against alternatives (``variant_builds`` of
+        ``csrc/rof.cu`` and ``csrc/tgv.cu``, all compiled together) and the
+        replaced designs (``kt_rof_denoise_steps``, ``kt_tgv_denoise_steps``).
+        A 100-iteration solve (ROF: Huber) of each on ``g``, 20 solves back to
+        back under CUDA events, in turns (the repo's build, the variant, the
+        variant, the repo's build), each variant's result equal to the
+        repo's; beside each, its launches a solve and the bound of the cells
+        it computes (the tiles and their halos clipped to the image, 27 (ROF)
+        or 72 (TGV) float32 operations a cell and iteration: the cone's
+        savings not counted)."""
         H_, W_ = g.shape
-        variants = {"K = 8": {"kSteps": 8}, "K = 3": {"kSteps": 3},
-                    "256 threads": {"kThreads": 256}, "1024 threads": {"kThreads": 1024},
-                    "tile 40x16": {"kTileX": 40}, "tile 32x20": {"kTileY": 20},
-                    "tile 64x32, 1024 threads": {"kTileX": 64, "kTileY": 32, "kThreads": 1024},
-                    # where the time goes (results not the solve's): the launches
-                    # without their steps, and the steps with inexact divisions
-                    "cut: no steps": [("  for (int m = 0; m < steps; ++m) {",
-                                       "  for (int m = 0; m < 0; ++m) {")],
-                    "cut: fast divisions": [
-                        ("n0 = n0 / shrink;", "n0 = __fdividef(n0, shrink);"),
-                        ("n1 = n1 / shrink;", "n1 = __fdividef(n1, shrink);"),
-                        ("p0[r] = n0 / d;", "p0[r] = __fdividef(n0, d);"),
-                        ("p1[r] = n1 / d;", "p1[r] = __fdividef(n1, d);"),
-                        ("u[r] = (u[r] + fmul(tau, divp + lg[r])) / den[r];",
-                         "u[r] = __fdividef(u[r] + fmul(tau, divp + lg[r]), den[r]);")]}
+        stream = torch.cuda.current_stream().cuda_stream
+        rof_variants = {
+            "K = 8": {"kSteps": 8}, "K = 3": {"kSteps": 3},
+            "256 threads": {"kThreads": 256}, "1024 threads": {"kThreads": 1024},
+            "tile 40x16": {"kTileX": 40}, "tile 32x20": {"kTileY": 20},
+            "tile 64x32, 1024 threads": {"kTileX": 64, "kTileY": 32, "kThreads": 1024},
+            # where the time goes (results not the solve's): the launches
+            # without their steps, and the steps with inexact divisions
+            "cut: no steps": [("  for (int m = 0; m < steps; ++m) {",
+                               "  for (int m = 0; m < 0; ++m) {")],
+            "cut: fast divisions": [
+                ("n0 = n0 / shrink;", "n0 = __fdividef(n0, shrink);"),
+                ("n1 = n1 / shrink;", "n1 = __fdividef(n1, shrink);"),
+                ("p0[r] = n0 / d;", "p0[r] = __fdividef(n0, d);"),
+                ("p1[r] = n1 / d;", "p1[r] = __fdividef(n1, d);"),
+                ("u[r] = (u[r] + fmul(tau, divp + lg[r])) / den[r];",
+                 "u[r] = __fdividef(u[r] + fmul(tau, divp + lg[r]), den[r]);")]}
+        tgv_variants = {"K = 2": {"kSteps": 2}, "K = 3": {"kSteps": 3}, "K = 8": {"kSteps": 8},
+                        "tile 32x8": {"kTileY": 8}, "256 threads": {"kThreads": 256}}
+        rof_scratch = torch.empty((5, H_, W_), device=dev)
+        tgv_scratch = torch.empty((17, H_, W_), device=dev)
+        solvers = {
+            "rof": ("rof.cu", "kt_rof_denoise", rof_variants, 27,
+                    lambda o: (g.data_ptr(), None, o.data_ptr(), rof_scratch.data_ptr(), H_, W_,
+                               8.0, 0.5, 0.25, 0.002, 1, SOLVER_ITERS, stream)),
+            "tgv": ("tgv.cu", "kt_tgv_denoise", tgv_variants, 72,
+                    lambda o: (g.data_ptr(), o.data_ptr(), tgv_scratch.data_ptr(), H_, W_, 2.0,
+                               1.0, 0.5, 0.25, 0.1, SOLVER_ITERS, stream)),
+        }
 
         def work(cfg):
             """(launches, cells a launch) of a tile configuration."""
@@ -1651,34 +1744,29 @@ def main() -> int:
             rows = sum(min(y + ty + k, H_) - max(y - k, 0) for y in range(0, H_, ty))
             return -(-SOLVER_ITERS // k), cols * rows
 
-        stream = torch.cuda.current_stream().cuda_stream
-        scratch = torch.empty((5, H_, W_), device=dev)
-        ref, out = torch.empty_like(g), torch.empty_like(g)
-
-        def args(o):
-            return (g.data_ptr(), None, o.data_ptr(), scratch.data_ptr(), H_, W_, 8.0, 0.5,
-                    0.25, 0.002, 1, SOLVER_ITERS, stream)
-
-        table = 1e3 * 27 * H_ * W_ * SOLVER_ITERS / F32_OPS
-        with variant_builds("rof.cu", ("kTileX", "kTileY", "kSteps", "kThreads"), variants,
-                            "kt_rof_denoise") as fns:
-            fns["old kt_rof_denoise_steps"] = (None, lib.kt_rof_denoise_steps)
-            repo = fns["repo"][1]
-            for name, (cfg, fn) in fns.items():
-                r1 = ms_per_call(repo, args(ref))
-                a1 = ms_per_call(fn, args(out))
-                a2 = ms_per_call(fn, args(out))
-                r2 = ms_per_call(repo, args(ref))
-                same = torch.equal(out, ref)
-                if not same and not name.startswith("cut"):
-                    smoke.failures.append(f"phase 4 rof variant {name}: differs")
-                n_launch, cells = work(cfg) if cfg else (2 * SOLVER_ITERS, H_ * W_)
-                what = (f"{cfg['kTileX']}x{cfg['kTileY']} K={cfg['kSteps']} "
-                        f"{cfg['kThreads']} threads" if cfg else "one thread a pixel")
-                print(f"  rof variant {name:24s} ({what}) {a1:.4f} / {a2:.4f} ms a solve, the "
-                      f"repo's build {r1:.4f} / {r2:.4f}; {n_launch} launches, {cells} cells a "
-                      f"step -> bound {1e3 * 27 * cells * SOLVER_ITERS / F32_OPS:.5f} ms (the "
-                      f"table's {table:.5f}); equal {same} [{card}]")
+        names = ("kTileX", "kTileY", "kSteps", "kThreads")
+        with variant_builds(*((source, names, variants, entry) for source, entry, variants, _, _
+                              in solvers.values())) as builds:
+            for (tag, (_, entry, _, ops, args)), fns in zip(solvers.items(), builds):
+                fns[f"old {entry}_steps"] = (None, getattr(lib, f"{entry}_steps"))
+                repo = fns["repo"][1]
+                table = 1e3 * ops * H_ * W_ * SOLVER_ITERS / F32_OPS
+                ref, out = torch.empty_like(g), torch.empty_like(g)
+                for name, (cfg, fn) in fns.items():
+                    r1 = ms_per_call(repo, args(ref))
+                    a1 = ms_per_call(fn, args(out))
+                    a2 = ms_per_call(fn, args(out))
+                    r2 = ms_per_call(repo, args(ref))
+                    same = torch.equal(out, ref)
+                    if not same and not name.startswith("cut"):
+                        smoke.failures.append(f"phase 4 {tag} variant {name}: differs")
+                    n_launch, cells = work(cfg) if cfg else (2 * SOLVER_ITERS, H_ * W_)
+                    what = (f"{cfg['kTileX']}x{cfg['kTileY']} K={cfg['kSteps']} "
+                            f"{cfg['kThreads']} threads" if cfg else "one thread a pixel")
+                    print(f"  {tag} variant {name:24s} ({what}) {a1:.4f} / {a2:.4f} ms a solve, "
+                          f"the repo's build {r1:.4f} / {r2:.4f}; {n_launch} launches, {cells} "
+                          f"cells a step -> bound {1e3 * ops * cells * SOLVER_ITERS / F32_OPS:.5f}"
+                          f" ms (the table's {table:.5f}); equal {same} [{card}]")
 
     print(f"phase 4 CUDA-event times at {W}x{H}/{D}:")
     smoke.phase("phase 4", timing_phase)
@@ -1930,8 +2018,8 @@ def main() -> int:
                     "cut: projection, taps": [("  const float sd = fmul(ct, fsub(md, qz));",
                                                "  return md == 12345.f && ct == 54321.f;\n"
                                                "  const float sd = fmul(ct, fsub(md, qz));")]}
-        with variant_builds("separable_fuse.cu", ("kChunk", "kMinBlocks", "kPlaneRows"), variants,
-                            "kt_separable_fuse") as fns:
+        with variant_builds(("separable_fuse.cu", ("kChunk", "kMinBlocks", "kPlaneRows"), variants,
+                             "kt_separable_fuse")) as (fns,):
             fns["old kt_separable_fuse_voxel"] = (None, lib.kt_separable_fuse_voxel)
             repo = fns["repo"][1]
             ref = (pipe.vol.val.clone(), pipe.vol.weight.clone())

@@ -41,6 +41,8 @@ _DTAM = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P]
 # g, lam_weight (or null), u, scratch, H, W, lam, sigma, tau, alpha, huber,
 # iterations, stream
 _ROF = [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P]
+# f, u, scratch, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
+_TGV = [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P]
 # val, weight, gmd, gct, params, window, D, H, W, axis, gh, gw, Wi, Hi, stream
 _FUSE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # C entry points (csrc/*.cu) and their argument types; every entry returns
@@ -63,8 +65,10 @@ SIGNATURES = {
     # two-launches-an-iteration design it is held against
     "kt_rof_denoise": _ROF,
     "kt_rof_denoise_steps": _ROF,
-    # f, u, state, H, W, alpha0, alpha1, sigma, tau, delta, iterations, stream
-    "kt_tgv_denoise": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P],
+    # the TGV solve on tiles in shared memory (csrc/tgv.cu), and the
+    # two-launches-an-iteration design it is held against
+    "kt_tgv_denoise": _TGV,
+    "kt_tgv_denoise_steps": _TGV,
     # the DTAM search (csrc/wta_sq.cu), and the one-thread-per-pixel design
     # it is held against
     "kt_wta_sq": _WTA_SQ,

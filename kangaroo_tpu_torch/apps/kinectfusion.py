@@ -19,9 +19,9 @@ Ported: ``KinectFusionConfig`` (+ ``from_dict``), ``preprocess_depth``,
 ``make_sequence_runner`` and ``KinectFusion`` (``reset``,
 ``process_frame``, ``run_sequence``, ``render``) on the separable engine,
 and :func:`state_from_numpy` to start from the JAX package's state. Not
-ported yet, and refused with ``NotImplementedError`` (ROADMAP Queue 1 item
-7): the 'exact' and 'guided' engines, colour fusion (``use_colour``),
-``mesh=`` (model-parallel), the moving workspace
+ported yet, and refused with ``NotImplementedError`` (ROADMAP Queue 1,
+KinectFusion leftovers): the 'exact' and 'guided' engines, colour fusion
+(``use_colour``), ``mesh=`` (model-parallel), the moving workspace
 (``moving_threshold_voxels > 0``), and meshing, volume I/O and keyframe
 texturing (``save_mesh``, ``save_volume``, ``load_volume``,
 ``save_keyframe``, ``render_textured``).
@@ -47,7 +47,7 @@ from ..ops import bilateral as bf
 from ..solvers import icp as icp_mod
 from ..solvers.lss import LSS
 
-_TODO = "is not ported yet (ROADMAP Queue 1 item 7)"
+_TODO = "is not ported yet (ROADMAP Queue 1, KinectFusion leftovers)"
 
 
 @dataclasses.dataclass

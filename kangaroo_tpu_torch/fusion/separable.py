@@ -461,7 +461,7 @@ def raycast_sdf_separable(vol, T_wc, K, w: int, h: int, near=0.1, far=10.0, trun
     (depth (gh, gw), vbo (gh, gw, 4), normals (gh, gw, 4))."""
     if normals != "depth":
         raise NotImplementedError(f"raycast_sdf_separable: normals={normals!r} is not ported "
-                                  "yet, only 'depth' (ROADMAP Queue 1 item 7)")
+                                  "yet, only 'depth' (ROADMAP Queue 1, KinectFusion leftovers)")
     if output not in ("pixels", "cloud"):
         raise ValueError(f"output must be 'pixels' or 'cloud', got {output!r}")
     axis = (_view_axis_index(se3.inverse(T_wc)) if sweep_axis == "auto" else int(sweep_axis))

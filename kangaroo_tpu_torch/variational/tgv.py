@@ -31,13 +31,25 @@ def init(f: torch.Tensor) -> TgvState:
                     q=torch.zeros((H, W, 3), **kw), r=torch.zeros((H, W), **kw))
 
 
-def iteration(s: TgvState, f, alpha0, alpha1, sigma, tau, delta) -> TgvState:
-    """One TGV-L1 primal-dual iteration; the half-steps in order."""
+def ascent(s: TgvState, f, alpha0, alpha1, sigma, delta):
+    """AscentP, AscentQ, AscentR: the new duals (p, q, r)."""
     p = ops.project_unit_ball(s.p + sigma * alpha1 * (ops.grad_forward(s.u) - s.v))
     q = ops.project_unit_ball_sym(s.q + sigma * alpha0 * ops.epsilon(s.v))
     r = ops.project_unit_ball_scalar((s.r + sigma * (s.u - f)) / (1.0 + sigma * delta))
+    return p, q, r
+
+
+def descent(s: TgvState, p, q, r, alpha0, alpha1, tau):
+    """DescentU, DescentV from the new duals: the new primals (u, v)."""
     u = s.u - tau * (r - alpha1 * ops.divergence(p))
     v = s.v - tau * (-alpha1 * p - alpha0 * ops.divergence_sym(q))
+    return u, v
+
+
+def iteration(s: TgvState, f, alpha0, alpha1, sigma, tau, delta) -> TgvState:
+    """One TGV-L1 primal-dual iteration; the half-steps in order."""
+    p, q, r = ascent(s, f, alpha0, alpha1, sigma, delta)
+    u, v = descent(s, p, q, r, alpha0, alpha1, tau)
     return TgvState(u, v, p, q, r)
 
 

@@ -16,8 +16,9 @@ but TGV amplifies any last-bit difference); the DTAM auxiliary search
 order, each rounded on its own, so 0 is expected). The whole-image path
 kernel and the segment kernel (``csrc/sgm_path.cu``) equal the warp-per-line
 design (``csrc/sgm.cu``, ``kt_sgm_segment_lines``) exactly: the same
-operations per element in the same order; so do the ROF solve on tiles and
-the fuse on plane tiles the designs they replaced (``kt_rof_denoise_steps``,
+operations per element in the same order; so do the ROF and TGV solves on
+tiles and the fuse on plane tiles the designs they replaced
+(``kt_rof_denoise_steps``, ``kt_tgv_denoise_steps``,
 ``kt_separable_fuse_voxel``).
 """
 import numpy as np
@@ -1120,6 +1121,52 @@ def test_rof_steps_design_counts_nothing(dev):
     before = solvers_cuda.rof_launches
     solvers_cuda._rof_denoise_steps(g, 8.0, iterations=5)
     assert solvers_cuda.rof_launches == before
+
+
+# kt_tgv_denoise (solvers_cuda.TGV_STEPS iterations a launch on tiles in
+# shared memory) against kt_tgv_denoise_steps (an ascent and a descent launch
+# an iteration): the same operations per element in the same order.
+TGV_ITERS = [0, 1, solvers_cuda.TGV_STEPS - 1, solvers_cuda.TGV_STEPS,
+             solvers_cuda.TGV_STEPS + 1, 9, 37, 100]
+
+
+@pytest.mark.parametrize("iterations", TGV_ITERS)
+@pytest.mark.parametrize("shape", ROF_SHAPES)
+def test_tgv_matches_steps_design(dev, shape, iterations):
+    f, _ = _noisy_image(shape, dev)
+    before = solvers_cuda.tgv_launches
+    new = solvers_cuda.tgv_denoise(f, iterations=iterations)
+    assert solvers_cuda.tgv_launches == before + int(iterations > 0)
+    assert torch.equal(new, solvers_cuda._tgv_denoise_steps(f, iterations=iterations))
+    if iterations == 0:
+        assert torch.equal(new, f)
+    if iterations == 100:
+        torch.testing.assert_close(new, tgv.denoise_plain(f, iterations=100), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 5), (17, 33), (480, 640), (375, 1242)])
+def test_tgv_non_finite_inputs_match_steps_design(dev, shape):
+    """NaN and infinity in f spread the same way through both designs; the
+    plain version agrees where finite, NaN where NaN."""
+    f, _ = _noisy_image(shape, dev)
+    rng = np.random.default_rng(31)
+    flat = f.view(-1)
+    flat[torch.from_numpy(rng.integers(0, f.numel(), 5)).to(dev)] = float("nan")
+    flat[torch.from_numpy(rng.integers(0, f.numel(), 3)).to(dev)] = float("inf")
+    flat[torch.from_numpy(rng.integers(0, f.numel(), 2)).to(dev)] = float("-inf")
+    for iterations in (3, 9, 37):
+        new = solvers_cuda.tgv_denoise(f, iterations=iterations)
+        assert _equal(new, solvers_cuda._tgv_denoise_steps(f, iterations=iterations)), iterations
+        torch.testing.assert_close(new, tgv.denoise_plain(f, iterations=iterations), atol=1e-4,
+                                   rtol=0, equal_nan=True)
+
+
+def test_tgv_steps_design_counts_nothing(dev):
+    f, _ = _noisy_image((17, 33), dev)
+    before = solvers_cuda.tgv_launches
+    solvers_cuda._tgv_denoise_steps(f, iterations=5)
+    assert solvers_cuda.tgv_launches == before
 
 
 def _over_max_weight(vol):

@@ -1,17 +1,18 @@
-"""The routing and argument marshalling of the ROF and fuse wrappers
+"""The routing and argument marshalling of the ROF, TGV and fuse wrappers
 (``variational/solvers_cuda.py``, ``fusion/separable_cuda.py``), checked on
 the CPU through a stand-in for the kernels' library that records each call:
-the entry points launch ``kt_rof_denoise`` (``ROF_STEPS`` iterations a
-launch on tiles in shared memory, reading one copy of the state and writing
-the other) and ``kt_separable_fuse`` (plane tiles) and count them; the
-private helpers of the designs they replaced (``kt_rof_denoise_steps``,
-``kt_separable_fuse_voxel``), which only the card checks call, pass the same
-arguments and count nothing. A PyTorch emulation of the ROF kernel's tile
-schedule (tiles with a halo, the cone, ping-pong copies, a last launch of
-fewer steps, the image's edge rules by global coordinate) is held to the
-plain version exactly. The kernels themselves are held against the
-replaced designs and the plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+the entry points launch ``kt_rof_denoise`` and ``kt_tgv_denoise``
+(``ROF_STEPS`` and ``TGV_STEPS`` iterations a launch on tiles in shared
+memory, reading one copy of the state and writing the other) and
+``kt_separable_fuse`` (plane tiles) and count them; the private helpers of
+the designs they replaced (``kt_rof_denoise_steps``,
+``kt_tgv_denoise_steps``, ``kt_separable_fuse_voxel``), which only the card
+checks call, pass the same arguments and count nothing. PyTorch emulations
+of the ROF and TGV kernels' tile schedule (tiles with a halo, the cone,
+ping-pong copies, a last launch of fewer steps, the image's edge rules by
+global coordinate) are held to the plain versions exactly. The kernels
+themselves are held against the replaced designs and the plain versions on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import contextlib
 import re
@@ -23,10 +24,12 @@ import torch
 from kangaroo_tpu_torch import _build, backend
 from kangaroo_tpu_torch.backend import f32_scalars
 from kangaroo_tpu_torch.fusion import separable_cuda
-from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda
+from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
 ROF_NAMES = ("g", "lam_weight", "u", "scratch", "H", "W", "lam", "sigma", "tau", "alpha",
              "huber", "iterations", "stream")
+TGV_NAMES = ("f", "u", "scratch", "H", "W", "alpha0", "alpha1", "sigma", "tau", "delta",
+             "iterations", "stream")
 FUSE_NAMES = ("val", "weight", "gmd", "gct", "params", "window", "D", "H", "W", "axis", "gh",
               "gw", "Wi", "Hi", "stream")
 
@@ -46,7 +49,7 @@ class _Library:
 @pytest.fixture
 def library(monkeypatch):
     """The wrappers on CPU (or meta) tensors, launching into a recording
-    stand-in; ``library.scratch`` records the shapes of the ROF scratch."""
+    stand-in; ``library.scratch`` records the shapes of the solvers' scratch."""
     lib = _Library()
     lib.scratch = []
     empty = torch.empty
@@ -62,6 +65,7 @@ def library(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(solvers_cuda.torch, "empty", recording_empty)
     monkeypatch.setattr(solvers_cuda, "rof_launches", 0)
+    monkeypatch.setattr(solvers_cuda, "tgv_launches", 0)
     monkeypatch.setattr(separable_cuda, "launches", 0)
     return lib
 
@@ -158,6 +162,94 @@ def test_rof_checks_before_it_launches(library):
     with pytest.raises(TypeError):
         solvers_cuda.rof_denoise(g.double(), 1.0)
     assert library.calls == [] and solvers_cuda.rof_launches == 0
+
+
+def test_tgv_steps_is_the_kernels_constant():
+    """``solvers_cuda.TGV_STEPS`` is ``kSteps`` of ``csrc/tgv.cu``."""
+    src = (_build.CSRC_DIR / "tgv.cu").read_text()
+    assert re.findall(r"constexpr int kSteps = (\d+);", src) == [str(solvers_cuda.TGV_STEPS)]
+    assert _build.SIGNATURES["kt_tgv_denoise_steps"] == _build.SIGNATURES["kt_tgv_denoise"]
+
+
+@pytest.mark.parametrize("iterations", [1, solvers_cuda.TGV_STEPS + 1, 100])
+def test_tgv_launches_the_tile_solve(library, iterations):
+    f = torch.ones(5, 9)
+    u = solvers_cuda.tgv_denoise(f, 3.0, 1.5, 0.4, 0.3, 0.05, iterations)
+    (name, args), = library.calls
+    c = _named(TGV_NAMES, name, args)
+    assert name == "kt_tgv_denoise" and u.shape == (5, 9) and u.dtype == torch.float32
+    assert (c["f"], c["u"]) == (f.data_ptr(), u.data_ptr())
+    # the scratch: the second copy of u and both copies of the other eight planes
+    assert library.scratch[-1] == (17, 5, 9)
+    assert c["scratch"] not in (f.data_ptr(), u.data_ptr())
+    assert (c["H"], c["W"], c["iterations"], c["stream"]) == (5, 9, iterations, 0)
+    assert [c[k] for k in ("alpha0", "alpha1", "sigma", "tau", "delta")] == [
+        3.0, 1.5, 0.4, 0.3, 0.05]
+    assert solvers_cuda.tgv_launches == 1
+
+
+def test_tgv_zero_iterations_count_nothing(library):
+    solvers_cuda.tgv_denoise(torch.ones(3, 4), iterations=0)
+    (name, args), = library.calls
+    assert name == "kt_tgv_denoise" and _named(TGV_NAMES, name, args)["iterations"] == 0
+    assert solvers_cuda.tgv_launches == 0
+
+
+def test_tgv_steps_design_takes_the_same_arguments(library):
+    """``_tgv_denoise_steps`` passes ``kt_tgv_denoise_steps`` what
+    ``tgv_denoise`` passes ``kt_tgv_denoise`` (the output and a scratch of
+    eight planes aside), counting nothing."""
+    f = torch.ones(6, 7)
+    new = solvers_cuda.tgv_denoise(f, 2.5, iterations=13)
+    old = solvers_cuda._tgv_denoise_steps(f, 2.5, iterations=13)
+    (n_new, a_new), (n_old, a_old) = library.calls
+    assert (n_new, n_old) == ("kt_tgv_denoise", "kt_tgv_denoise_steps")
+    c_new, c_old = _named(TGV_NAMES, n_new, a_new), _named(TGV_NAMES, n_old, a_old)
+    assert c_new.pop("u") == new.data_ptr() and c_old.pop("u") == old.data_ptr()
+    c_new.pop("scratch"), c_old.pop("scratch")
+    assert c_new == c_old
+    assert library.scratch[-2:] == [(17, 6, 7), (8, 6, 7)]
+    assert solvers_cuda.tgv_launches == 1
+
+
+def test_tgv_denoise_runs_one_tile_solve(library):
+    """Off the CPU (a meta tensor stands in for the card's) ``tgv.denoise``
+    launches ``kt_tgv_denoise`` once a solve, with its own defaults."""
+    tgv.denoise(torch.empty(12, 20, device="meta"), iterations=30)
+    (name, args), = library.calls
+    c = _named(TGV_NAMES, name, args)
+    assert name == "kt_tgv_denoise" and (c["H"], c["W"], c["iterations"]) == (12, 20, 30)
+    assert [c[k] for k in ("alpha0", "alpha1", "sigma", "tau", "delta")] == [
+        2.0, 1.0, 0.5, 0.25, 0.1]
+    assert solvers_cuda.tgv_launches == 1
+
+
+def test_tgv_checks_before_it_launches(library):
+    f = torch.zeros(4, 6)
+    with pytest.raises(ValueError, match="iterations"):
+        solvers_cuda.tgv_denoise(f, iterations=-1)
+    with pytest.raises(ValueError, match="iterations"):
+        solvers_cuda._tgv_denoise_steps(f, iterations=-2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        solvers_cuda.tgv_denoise(f.clone().requires_grad_(True))
+    with pytest.raises(TypeError):
+        solvers_cuda.tgv_denoise(f.double())
+    assert library.calls == [] and solvers_cuda.tgv_launches == 0
+
+
+def test_tgv_failed_launch_raises_and_counts_nothing(library):
+    library.rc = 1
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        solvers_cuda.tgv_denoise(torch.ones(3, 4), iterations=3)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        solvers_cuda._tgv_denoise_steps(torch.ones(3, 4), iterations=3)
+    assert solvers_cuda.tgv_launches == 0
+
+
+def test_cpu_tensors_take_the_plain_tgv_solve(library):
+    f = torch.from_numpy(np.random.default_rng(5).random((9, 11), dtype=np.float32))
+    assert torch.equal(tgv.denoise(f, iterations=4), tgv.denoise_plain(f, iterations=4))
+    assert library.calls == [] and solvers_cuda.tgv_launches == 0
 
 
 def _fuse_inputs(shape=(6, 5, 9)):
@@ -291,3 +383,75 @@ def test_tile_schedule_on_images_smaller_than_a_tile(shape):
     for iterations in (0, 3, 8):
         got = tiled_rof(g, 8.0, 0.5, 0.25, 0.002, iterations, "huber", None, 3, (4, 8))
         assert torch.equal(got, rof.denoise_plain(g, 8.0, iterations=iterations))
+
+
+# --- the TGV kernel's tile schedule, emulated -------------------------------
+
+def tiled_tgv(f, alpha0, alpha1, sigma, tau, delta, iterations, steps, tile):
+    """``kt_tgv_denoise``'s schedule in PyTorch: launches of ``steps``
+    iterations (the last of what is left), each tile of ``tile`` (rows,
+    columns) with a halo ``steps`` wide, clipped to the image, read from one
+    copy of the nine planes (the first launch from u = f, the rest 0) and run
+    there; step m's ascent updates p, q, r at depth >= m and its descent u, v
+    at depth >= m + 1, depth being the distance from the nearest side of the
+    halo with image beyond it; the tile's interior goes to the other copy."""
+    alpha0, alpha1, sigma, tau, delta = f32_scalars(f.device, alpha0, alpha1, sigma, tau, delta)
+    H, W = f.shape
+    TY, TX = tile
+    launches = -(-iterations // steps)
+    copies = [tgv.TgvState(*(torch.full(t.shape, float("nan")) for t in tgv.init(f)))
+              for _ in range(2)]
+    for launch in range(launches):
+        src, dst = copies[(launches - launch) % 2], copies[(launches - 1 - launch) % 2]
+        n = min(steps, iterations - launch * steps)
+        for y0 in range(0, H, TY):
+            for x0 in range(0, W, TX):
+                ya, yb = max(y0 - steps, 0), min(y0 + TY + steps, H)
+                xa, xb = max(x0 - steps, 0), min(x0 + TX + steps, W)
+                ys, xs = torch.arange(ya, yb)[:, None], torch.arange(xa, xb)[None, :]
+                big = torch.tensor(1 << 20)
+                depth = torch.minimum(
+                    torch.minimum(ys - ya if ya > 0 else big, yb - 1 - ys if yb < H else big),
+                    torch.minimum(xs - xa if xa > 0 else big, xb - 1 - xs if xb < W else big))
+                ft = f[ya:yb, xa:xb]
+                s = (tgv.init(ft) if launch == 0
+                     else tgv.TgvState(*(t[ya:yb, xa:xb] for t in src)))
+                for m in range(n):
+                    p, q, r = tgv.ascent(s, ft, alpha0, alpha1, sigma, delta)
+                    on = depth >= m
+                    p = torch.where(on[..., None], p, s.p)
+                    q = torch.where(on[..., None], q, s.q)
+                    r = torch.where(on, r, s.r)
+                    u, v = tgv.descent(s, p, q, r, alpha0, alpha1, tau)
+                    on = depth >= m + 1
+                    s = tgv.TgvState(torch.where(on, u, s.u), torch.where(on[..., None], v, s.v),
+                                     p, q, r)
+                ty, tx = slice(y0 - ya, y0 - ya + TY), slice(x0 - xa, x0 - xa + TX)
+                for d, t in zip(dst, s):
+                    d[y0:y0 + TY, x0:x0 + TX] = t[ty, tx]
+    return copies[0].u if iterations else f.clone()
+
+
+TGV_ARGS = (2.0, 1.0, 0.5, 0.25, 0.1)  # alpha0, alpha1, sigma, tau, delta: the defaults
+
+
+@pytest.mark.parametrize("steps,iterations", [(1, 5), (3, 7), (3, 11), (8, 21)])
+def test_tgv_tile_schedule_equals_the_plain_solve(steps, iterations):
+    """The schedule on 4x8 tiles of a 13x27 image (ragged tiles, halos
+    wider than a tile, cut and uncut sides) equals ``denoise_plain`` bit
+    for bit, NaN and infinity included."""
+    rng = np.random.default_rng(steps * 100 + iterations + 7)
+    f = torch.from_numpy(rng.standard_normal((13, 27)).astype(np.float32))
+    f[3, 5], f[9, 20], f[0, 26] = float("nan"), float("inf"), float("-inf")
+    got = tiled_tgv(f, *TGV_ARGS, iterations, steps, (4, 8))
+    want = tgv.denoise_plain(f, *TGV_ARGS, iterations)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 19), (19, 1), (3, 5)])
+def test_tgv_tile_schedule_on_images_smaller_than_a_tile(shape):
+    f = torch.from_numpy(np.random.default_rng(6).random(shape, dtype=np.float32))
+    for iterations in (0, 3, 8):
+        got = tiled_tgv(f, *TGV_ARGS, iterations, 3, (4, 8))
+        assert torch.equal(got, tgv.denoise_plain(f, *TGV_ARGS, iterations))
