@@ -28,7 +28,17 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    depth, on the three sweep axes, an empty and a fused volume, three plane
    windows, and enable=False (a bit-exact passthrough), each case and an
    empty window also through the voxel design it replaced
-   (``kt_separable_fuse_voxel``, exactly); the SGM segment kernels of the
+   (``kt_separable_fuse_voxel``, exactly); the median on tiles against the
+   one-thread-per-pixel design it replaced
+   (``kt_median_reject_invalid_pixel``, exactly; +0 equal to -0) and plain
+   at radius 1, 2 and 3 and max_bad 0, 1, 12, K and K + 5, on inputs with
+   NaN, +inf and -inf, a bad row and column and +0 and -0 taps, at
+   640x480, 1242x375, 375x1242 and images narrower than a tile or smaller
+   than a window, and on a stack of 4 VGA frames against 4 single launches;
+   the LR check one way and as the pair of both directions against
+   ``kt_lr_check_pixel`` (the pair against two launches in the reference's
+   order, exactly) on the frame's disparities, random ones and W = 1, and a
+   backward pass through the pair; the SGM segment kernels of the
    multi-device and batched paths on a 4-way split of 640x480/64 and a
    3-way split of 1242x375/128: column shards' vertical pairs at their
    lattice offsets, row segments and the four diagonal segments chained
@@ -43,15 +53,17 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 3. the main paths, each run with every launch count set to 0 just before
    and read just after: ``sgm_pipeline`` at 640x480/64 (default SgmConfig)
    and with ``do_diagonal=True`` on the synthetic pair for 3 frames each
-   (every kernel of the frame is launched every frame, the frame agrees
+   (every kernel of the frame is launched every frame, a median of each
+   image and one LR launch for both directions a frame, the frame agrees
    with the plain frame on the card, its disparity error against the
    ground truth is within bounds); the same two frames on a virtual
    4-shard mesh of the card (``make_mesh(devices=["cuda:0"] * 4)``: the
    reshard and the wavefront, with the segment kernels launched every
    frame, the frame agreeing with the single-device frame and with the
    mesh frame of plain versions, no host synchronisation inside the
-   aggregation) and ``sgm_pipeline_batched`` on 4 pairs (equal to the 4
-   frames one by one, exactly); DTAM stereo: ``stereo_pipeline`` (the
+   aggregation) and ``sgm_pipeline_batched`` on 4 pairs (one median launch
+   a stack and one LR launch; equal to the 4 frames one by one, exactly);
+   DTAM stereo: ``stereo_pipeline`` (the
    cold 50-iteration solve, 16x16 census) for 3 frames and
    ``VariationalStereo(its_per_frame=5)`` for 10 frames on the same pair
    (the alternation, the auxiliary search, WTA, median and LR check
@@ -80,7 +92,12 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    the solve's chained byte floor, and the search against builds of its
    source with one constant changed (pixels a thread, slices a group,
    threads a block); the device time a launch of WTA, median and LR check
-   (100 calls back to back, torch.profiler); the 100-iteration ROF solve,
+   (100 calls back to back, torch.profiler), the median and the LR check
+   (one way, and the pair against two launches) also through the designs
+   they replaced in turns, with the events and host time of a call, and
+   against builds of ``csrc/median.cu`` (pixels a thread, rows a block) and
+   ``csrc/lr_check.cu`` (rows a block, threads a row) with one constant
+   changed; the 100-iteration ROF solve,
    inpainting and TGV solve against the designs they replaced in turns,
    with device time and the kernel launches a solve (torch.profiler;
    ceil(100 / ROF_STEPS) and ceil(100 / TGV_STEPS) required), and the ROF
@@ -133,6 +150,10 @@ SOLVER_ITERS = 100
 # 32x16 tile (and one a pixel past it each way)
 TGV_ITERS = (0, 9, 37, SOLVER_ITERS)
 TGV_SMALL_SHAPES = ((1, 1), (1, 19), (19, 1), (3, 5), (17, 33))
+# (H, W) of the median's checks against the replaced design: VGA, KITTI-sized
+# both ways, and images narrower than a 64x4 tile or smaller than a 7x7 window
+MEDIAN_SHAPES = ((480, 640), (375, 1242), (1242, 375), (1, 1), (1, 19), (19, 1), (3, 5), (5, 3),
+                 (17, 33))
 # the segment checks split VGA 4 ways and KITTI-sized 3 ways (3 divides 375
 # and 1242); the main paths' virtual mesh has 4 shards, the batch 4 frames
 SEGMENT_SHARDS = {"vga": 4, "kitti": 3}
@@ -409,6 +430,29 @@ def main() -> int:
                 break
         return kernels, wall_us
 
+    def per_launch(run, part, reps=100):
+        """Device us a launch of the kernels named ``part`` over ``reps``
+        calls of ``run()`` back to back (torch.profiler), their launches, and
+        the other device work {name: (launches, us)}."""
+        run()
+        kernels, _ = device_us(run, reps)
+        named = lambda k: part + "<" in k or part + "(" in k  # noqa: E731
+        n = sum(v[0] for k, v in kernels.items() if named(k))
+        us = sum(v[1] for k, v in kernels.items() if named(k))
+        return (us / n if n else 0.0), n, {k: v for k, v in kernels.items() if not named(k)}
+
+    def host_us(run, reps=100):
+        """Host us a call of ``run()``: a host clock over ``reps`` calls
+        without a synchronise (what a caller's thread spends)."""
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        us = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        return us
+
     # --- phase 2: each kernel against its plain version -----------------------
     def kernels_vs_plain(tag, H, W, D):
         left, right, _ = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
@@ -504,12 +548,66 @@ def main() -> int:
         # LR: the frame's disparities, and random ones spilling past the sweep
         rnd = [with_bad(torch.from_numpy(rng.uniform(-3, D + 3, (H, W)).astype(np.float32))
                         .to(dev), 0.05) for _ in range(2)]
-        for src, (a, b) in (("disparity", (disps[-1], disps[1])), ("random", rnd)):
+        for src, (a, b) in (("disparity", (disps[-1], disps[1])), ("random", rnd),
+                            ("random W=1", [t[:, :1].contiguous() for t in rnd])):
             for sd, (dl, dr) in ((-1, (a, b)), (1, (b, a))):
-                smoke.compare("lr_check", f"{tag} {src} sd={sd:+d}",
-                              lr_cuda.left_right_check(dl, dr, sd, 1.0, max_disp=D),
+                got = lr_cuda.left_right_check(dl, dr, sd, 1.0, max_disp=D)
+                smoke.compare("lr_check", f"{tag} {src} sd={sd:+d}", got,
                               costvolume.left_right_check(dl, dr, sd, 1.0, max_disp=D),
                               ATOL["lr_check"])
+                smoke.compare("lr_check", f"{tag} {src} sd={sd:+d} vs kt_lr_check_pixel", got,
+                              lr_cuda._check_pixel(dl, dr, sd, 1.0, D), 0.0)
+            # both directions in one launch against two launches of the
+            # replaced design in the reference's order, and the plain pair
+            got_l, got_r = lr_cuda.left_right_check_pair(a, b, 1.0, max_disp=D)
+            old_r = lr_cuda._check_pixel(b, a, 1, 1.0, D)
+            old_l = lr_cuda._check_pixel(a, old_r, -1, 1.0, D)
+            plain_l, plain_r = costvolume.left_right_check_pair(a, b, 1.0, D)
+            for side, g, o, pl in (("right", got_r, old_r, plain_r), ("left", got_l, old_l,
+                                                                       plain_l)):
+                smoke.compare("lr_check", f"{tag} {src} pair {side}", g, pl, ATOL["lr_check"])
+                smoke.compare("lr_check", f"{tag} {src} pair {side} vs two kt_lr_check_pixel",
+                              g, o, 0.0)
+
+    def median_vs_pixel_design():
+        """The median on tiles against ``kt_median_reject_invalid_pixel`` and
+        plain, exactly (+0 and -0 equal), on inputs with NaN, +inf and -inf at
+        10 %, a bad row and a bad column, and +0 and -0 taps: every radius
+        and max_bad 0, 1, 12, K and K + 5 at each shape, and a stack of 4
+        VGA frames against 4 single launches."""
+        def bad_input(shape, seed):
+            r = np.random.default_rng(seed)
+            a = r.uniform(0, 64, shape).astype(np.float32)
+            for v in (np.nan, np.inf, -np.inf):
+                a[r.random(shape) < 0.1 / 3] = v
+            a[r.random(shape) < 0.1] = 0.0
+            a[r.random(shape) < 0.1] = -0.0
+            a[..., shape[-2] // 2, :] = np.nan
+            a[..., :, shape[-1] // 3] = np.inf
+            return torch.from_numpy(a).to(dev)
+
+        for k, shape in enumerate(MEDIAN_SHAPES):
+            img = bad_input(shape, 100 + k)
+            for rad in median_cuda.RADII:
+                bads = (0, 1, 12, (2 * rad + 1) ** 2, (2 * rad + 1) ** 2 + 5)
+                got = torch.stack([median_cuda.median_filter_reject_invalid(img, b, rad)
+                                   for b in bads])
+                what = f"{shape[1]}x{shape[0]} rad={rad} max_bad {bads}"
+                smoke.compare("median", what, got, torch.stack(
+                    [median_plain.median_filter_reject_invalid(img, b, rad) for b in bads]),
+                    ATOL["median"])
+                smoke.compare("median", f"{what} vs kt_median_reject_invalid_pixel", got,
+                              torch.stack([median_cuda._median_pixel(img, b, rad) for b in bads]),
+                              0.0)
+        stack = bad_input((BATCH, 480, 640), 99)
+        for rad in median_cuda.RADII:
+            got = median_cuda.median_filter_reject_invalid(stack, 12, rad)
+            what = f"stack of {BATCH} 640x480 rad={rad}"
+            smoke.compare("median", what, got,
+                          median_plain.median_filter_reject_invalid(stack, 12, rad), ATOL["median"])
+            smoke.compare("median", f"{what} vs {BATCH} kt_median_reject_invalid_pixel", got,
+                          torch.stack([median_cuda._median_pixel(f.contiguous(), 12, rad)
+                                       for f in stack]), 0.0)
 
     def segments_vs_plain(tag, H, W, D, n):
         """The segment kernels against their plain versions on an n-way
@@ -748,6 +846,10 @@ def main() -> int:
             "lr_check": (lambda a, b: dispatch.left_right_check(a, b, -1, 1.0, D),
                          lambda a, b: costvolume.left_right_check(a, b, -1, 1.0, D),
                          (disp, disp_r)),
+            # both outputs, each weighted (the stack is differentiable)
+            "lr_pair": (lambda a, b: torch.stack(dispatch.left_right_check_pair(a, b, 1.0, D)),
+                        lambda a, b: torch.stack(costvolume.left_right_check_pair(a, b, 1.0, D)),
+                        (disp, disp_r)),
             "wta_sq": (lambda v, d: dispatch.cost_vol_minimum_square_penalty_subpix(v, d, 2.0, 0.5),
                        lambda v, d: costvolume.cost_vol_minimum_square_penalty_subpix(v, d, 2.0,
                                                                                       0.5),
@@ -781,6 +883,8 @@ def main() -> int:
         smoke.phase(f"phase 2 solvers {W}x{H}", solvers_vs_plain, H, W)
     print("phase 2 TGV on images smaller than a tile vs kt_tgv_denoise_steps:")
     smoke.phase("phase 2 tgv small", small_tgv_vs_steps)
+    print("phase 2 median on tiles vs the one-thread-per-pixel design and plain:")
+    smoke.phase("phase 2 median", median_vs_pixel_design)
     print("phase 2 backward through each autograd op vs the plain gradient:")
     smoke.phase("phase 2 backward", backward_vs_plain)
 
@@ -888,6 +992,15 @@ def main() -> int:
     left, right, gt = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
     frame_kernels = {"4-path": ("sgm", "wta", "median", "lr_check"),
                      "8-path": ("sgm", "sgm_8path", "wta", "median", "lr_check")}
+    # launches a frame of a single-device SGM frame: a median of each
+    # image, one LR launch for both directions
+    frame_want = {"median": 2, "lr_check": 1}
+
+    def check_per_frame(name, frame, prev, now, want):
+        for k, n in want.items():
+            if now[k] - prev[k] != n:
+                smoke.failures.append(f"phase 3 {name}: {k} launched {now[k] - prev[k]} times "
+                                      f"in frame {frame}, not {n}")
 
     def plain_frame(left, right, cfg):
         """The frame composed of the plain versions, called by name."""
@@ -919,6 +1032,7 @@ def main() -> int:
             for k in frame_kernels[name]:
                 if now[k] <= prev[k]:
                     smoke.failures.append(f"phase 3 {name}: {k} was not launched in frame {f}")
+            check_per_frame(name, f, prev, now, frame_want)
             prev = now
         for k in frame_kernels[name]:
             launches.setdefault(k, prev[k])
@@ -964,7 +1078,8 @@ def main() -> int:
         sgm_aggregate_diag_block=sgm_plain.sgm_aggregate_diag_block,
         cost_vol_minimum_subpix=costvolume.cost_vol_minimum_subpix,
         median_filter_reject_invalid=median_plain.median_filter_reject_invalid,
-        left_right_check=costvolume.left_right_check)
+        left_right_check=costvolume.left_right_check,
+        left_right_check_pair=costvolume.left_right_check_pair)
 
     def plain_mesh_frame(left, right, cfg):
         """The mesh frame with every op the sharded code calls swapped for
@@ -1004,6 +1119,8 @@ def main() -> int:
                 if now[k] <= prev[k]:
                     smoke.failures.append(f"phase 3 {name} mesh: {k} was not launched in "
                                           f"frame {f}")
+            check_per_frame(f"{name} mesh", f, prev, now,
+                            {k: n * MESH_SHARDS for k, n in frame_want.items()})
             prev = now
         slice_launches[name] = prev
         if (tuple(disp.shape) != (H, W) or disp.dtype != torch.float32
@@ -1041,6 +1158,8 @@ def main() -> int:
         for k in mesh_kernels["4-path"]:
             if now[k] == 0:
                 smoke.failures.append(f"phase 3 batch: {k} was not launched")
+        # one median launch a stack of frames, one LR launch a batch
+        check_per_frame("batch", 0, {k: 0 for k in now}, now, frame_want)
         if tuple(disp.shape) != (BATCH, H, W) or disp.dtype != torch.float32:
             smoke.failures.append(f"phase 3 batch: output {tuple(disp.shape)} {disp.dtype}")
         for k in range(BATCH):
@@ -1094,10 +1213,8 @@ def main() -> int:
         for k in dtam_kernels:
             if now[k] <= prev[k]:
                 smoke.failures.append(f"phase 3 {name}: {k} was not launched in frame {frame}")
-        if want is not None and now["wta_sq"] - prev["wta_sq"] != want:
-            smoke.failures.append(f"phase 3 {name}: wta_sq launched "
-                                  f"{now['wta_sq'] - prev['wta_sq']} times in frame {frame}, "
-                                  f"not {want}")
+        if want is not None:
+            check_per_frame(name, frame, prev, now, {"wta_sq": want, "median": 1, "lr_check": 1})
 
     def dtam_phase():
         reset_counts()
@@ -1348,6 +1465,30 @@ def main() -> int:
             print(f"  {name:11s} kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} ms, "
                   f"plain {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms "
                   f"(median of runs, at {W}x{H}/{D}) [{card}]")
+        # kernels 2-4 (WTA, median, LR check), the median and the LR check also
+        # through the designs they replaced, and the LR pair against two
+        # launches of the replaced design in the reference's order: each
+        # call's events time and host time (a host clock over 100 calls
+        # without a synchronise), taken here, before the profiles of this
+        # phase
+        pair_old = lambda: lr_cuda._check_pixel(  # noqa: E731
+            dl, lr_cuda._check_pixel(dr, dl, 1, 1.0, D), -1, 1.0, D)
+        device_cases = {
+            "wta": ((cases["wta"][0], "wta_kernel"), None),
+            "median": ((cases["median"][0], "median_tile_kernel"),
+                       (lambda: median_cuda._median_pixel(dl, 12, 2), "median_reject_kernel")),
+            "lr_check": ((cases["lr_check"][0], "lr_rows_kernel"),
+                         (lambda: lr_cuda._check_pixel(dl, dr, -1, 1.0, D), "lr_check_kernel")),
+            "lr_pair": ((lambda: lr_cuda.left_right_check_pair(dl, dr, 1.0, D), "lr_rows_kernel"),
+                        (pair_old, "lr_check_kernel")),
+        }
+        call_us = {}
+        for name, (new, old) in device_cases.items():
+            for design, case in (("new", new), ("old", old)):
+                if case is not None:
+                    call_us[name, design] = (
+                        [1e3 * timing.time_fn(case[0], warmup=3, runs=20)["median_ms"]
+                         for _ in range(2)], host_us(case[0]))
         for name in ("frame", "frame_8path", "dtam_frame", "dtam_incremental"):
             k, p = times[name]
             print(f"  {name}: {1e3 / k:.2f} fps on the kernel path, {1e3 / p:.2f} fps on the "
@@ -1474,28 +1615,37 @@ def main() -> int:
                 print(f"    {name}: {nbytes(v) / 1e6:.1f} MB volume, new {nbytes(v) / dn / 1e6:.3f} "
                       f"TB/s by device time, {nbytes(v) / min(n1, n2) / 1e9:.3f} TB/s by events; "
                       f"old {nbytes(v) / do / 1e6:.3f} TB/s by device time")
-        # kernels 2-4 (WTA, median, LR check): device time a launch over 100
-        # calls back to back (torch.profiler), beside the events time of one
-        # call, the bound and launches x (device time - bound) on the main path
-        for name, part in (("wta", "wta_kernel"), ("median", "median_reject_kernel"),
-                           ("lr_check", "lr_check_kernel")):
-            kern = cases[name][0]
-            kern()
-            kernels, _ = device_us(kern, 100)
-            hits = [(n, us) for k, (n, us) in kernels.items() if part + "<" in k
-                    or part + "(" in k]
-            n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
-            if not n:
-                smoke.failures.append(f"phase 4 device time {name}: no {part} recorded")
+        bound["lr_pair"] = (1e3 * 4 * nbytes(dl) / HBM_BPS, "bytes")
+        # their device time a launch over 100 calls back to back
+        # (torch.profiler), new and old in turns (old, new, new, old), beside
+        # the events and host time of a call, the bound (the pair's its own 4
+        # images) and launches x (device - bound) on the main path
+        for name, (new, old) in device_cases.items():
+            turns = [old, new, new, old] if old else [new]
+            got = [per_launch(*t) for t in turns]
+            if any(n == 0 for _, n, _ in got):
+                smoke.failures.append(f"phase 4 device time {name}: a kernel was not recorded")
                 continue
-            other = {k: v for k, v in kernels.items() if part + "<" not in k
-                     and part + "(" not in k}
-            dev_ms = us / n / 1e3
-            print(f"  device {name:8s} {us / n:.3f} us a launch ({n} launches of {part} in 100 "
-                  f"calls; other device work {other}); events {1e3 * times[name][0]:.2f} us a "
-                  f"call; bound {1e3 * bound[name][0]:.3f} us; main-path launches "
-                  f"{launches.get(name)} x (device - bound) = "
-                  f"{(launches.get(name) or 0) * (dev_ms - bound[name][0]):.5f} ms [{card}]")
+            us_new = [u for (u, _, _), t in zip(got, turns) if t is new]
+            n_new, other = got[turns.index(new)][1:]
+            ev, host = call_us[name, "new"]
+            line = (f"  device {name:8s} {' / '.join(f'{u:.3f}' for u in us_new)} us a launch "
+                    f"({n_new // 100} a call; other device work {other}); events "
+                    f"{' / '.join(f'{e:.2f}' for e in ev)} us a call, host {host:.2f} us a call; "
+                    f"bound {1e3 * bound[name][0]:.3f} us")
+            if old:
+                us_old = [u for (u, _, _), t in zip(got, turns) if t is old]
+                n_old = got[0][1] // 100
+                ev, host = call_us[name, "old"]
+                line += (f"; old {' / '.join(f'{u:.3f}' for u in us_old)} us a launch, "
+                         f"{n_old} a call ({n_old * min(us_old):.3f} us of device time a call), "
+                         f"events {' / '.join(f'{e:.2f}' for e in ev)} us a call, host "
+                         f"{host:.2f} us")
+            if name in launches:
+                line += (f"; main-path launches {launches[name]} x (device - bound) = "
+                         f"{launches[name] * (min(us_new) / 1e3 - bound[name][0]):.5f} ms")
+            print(line + f" [{card}]")
+        median_lr_alternatives(dl, dr)
         search_alternatives(vol, vol32, dl)
         solver_alternatives(u01)
         chained = DTAM_ITERS * (nbytes(vol) + 13 * nbytes(d0))
@@ -1656,6 +1806,8 @@ def main() -> int:
                     src = tmp / f"{k}-{i}"
                     src.mkdir()
                     (src / source).write_text(changed)
+                    for header, generated in _build.generated_headers().items():
+                        (src / header).write_text(generated)
                     procs[name] = (src / "lib.so", subprocess.Popen(
                         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(src / "lib.so"),
                          str(src / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1680,6 +1832,50 @@ def main() -> int:
                         proc.kill()
                         proc.wait()
             shutil.rmtree(tmp, ignore_errors=True)
+
+    def median_lr_alternatives(dl, dr):
+        """The median's pixels a thread and rows a block, and the LR check's
+        rows a block and threads a row, against alternatives: builds of
+        ``csrc/median.cu`` and ``csrc/lr_check.cu`` with one constant changed,
+        all compiled together; each build's output against plain on the
+        frame's disparities, and its device time a launch over 100 calls
+        (torch.profiler), the repo's build beside it."""
+        median_variants = {"1 pixel a thread": {"kPix": 1}, "4 pixels a thread": {"kPix": 4},
+                           "2 rows a block": {"kRows": 2}, "8 rows a block": {"kRows": 8},
+                           "16 rows a block": {"kRows": 16}}
+        lr_variants = {"1 row a block": {"kRows": 1}, "4 rows a block": {"kRows": 4},
+                       "256 threads a row": {"kThreads": 256}}
+        stream = torch.cuda.current_stream().cuda_stream
+        Hd, Wd = dl.shape
+        want = median_plain.median_filter_reject_invalid(dl, 12, 2)
+        want_l, want_r = costvolume.left_right_check_pair(dl, dr, 1.0, D)
+        out, out_l, out_r = (torch.empty_like(dl) for _ in range(3))
+        with variant_builds(("median.cu", ("kPix", "kRows"), median_variants,
+                             "kt_median_reject_invalid"),
+                            ("lr_check.cu", ("kRows", "kThreads"), lr_variants,
+                             "kt_lr_check")) as (med, lr):
+            for tag, fns, part, args, check in (
+                    ("median", med, "median_tile_kernel",
+                     (dl.data_ptr(), out.data_ptr(), 1, Hd, Wd, 2, 12, stream),
+                     lambda n: smoke.compare("median", f"build {n} vs plain", out, want, 0.0)),
+                    ("lr pair", lr, "lr_rows_kernel",
+                     (dl.data_ptr(), dr.data_ptr(), out_l.data_ptr(), out_r.data_ptr(), Hd, Wd, 0,
+                      1.0, D, stream),
+                     lambda n: smoke.compare("lr_check", f"pair build {n} vs plain",
+                                             torch.stack([out_l, out_r]),
+                                             torch.stack([want_l, want_r]), 0.0))):
+                repo = fns["repo"][1]
+                for name, (cfg, fn) in fns.items():
+                    if fn(*args) != 0:
+                        raise RuntimeError(f"{tag} variant {name}: launch failed")
+                    torch.cuda.synchronize()
+                    same = check(name)
+                    r1 = per_launch(lambda: repo(*args), part)[0]
+                    a1 = per_launch(lambda: fn(*args), part)[0]
+                    a2 = per_launch(lambda: fn(*args), part)[0]
+                    r2 = per_launch(lambda: repo(*args), part)[0]
+                    print(f"  {tag} variant {name:18s} {cfg}: {a1:.3f} / {a2:.3f} us a launch, the "
+                          f"repo's build {r1:.3f} / {r2:.3f}; equal {same} [{card}]")
 
     def ms_per_call(fn, args, n=20):
         """CUDA-event ms a call of a C entry, ``n`` calls back to back."""

@@ -57,10 +57,17 @@ SIGNATURES = {
     "kt_sgm_segment_lines": _SEGMENT,
     # vol, vol_is_bf16, out, D, H, W, sd, stream
     "kt_wta_subpix": [_P, _I, _P, _I, _I, _I, _I, _P],
-    # img, out, H, W, rad, max_bad, stream
-    "kt_median_reject_invalid": [_P, _P, _I, _I, _I, _I, _P],
-    # disp_l, disp_r, out, H, W, sd, max_diff, k_min, k_max, stream
-    "kt_lr_check": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # the median on tiles (csrc/median.cu): img, out, N, H, W, rad, max_bad,
+    # stream; and the one-thread-per-pixel design it is held against: img,
+    # out, H, W, rad, max_bad, stream
+    "kt_median_reject_invalid": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "kt_median_reject_invalid_pixel": [_P, _P, _I, _I, _I, _I, _P],
+    # the LR check on rows (csrc/lr_check.cu): disp_l, disp_r, out_l, out_r,
+    # H, W, sd (0: both directions), max_diff, max_disp, stream; and the
+    # one-thread-per-pixel design it is held against: disp_l, disp_r, out,
+    # H, W, sd, max_diff, k_min, k_max, stream
+    "kt_lr_check": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "kt_lr_check_pixel": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     # the ROF solve on tiles in shared memory (csrc/rof.cu), and the
     # two-launches-an-iteration design it is held against
     "kt_rof_denoise": _ROF,

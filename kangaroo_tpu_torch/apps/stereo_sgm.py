@@ -170,10 +170,8 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
     if cfg.lr_check:
         # both directions in reference order: disp_r is checked first, so the
         # second check also rejects left pixels whose partner was rejected
-        disp_r = fast.left_right_check(disp_r, disp_l, 1, cfg.max_disp_diff,
-                                       max_disp=cfg.max_disp)
-        disp_l = fast.left_right_check(disp_l, disp_r, -1, cfg.max_disp_diff,
-                                       max_disp=cfg.max_disp)
+        disp_l, _ = fast.left_right_check_pair(disp_l, disp_r, cfg.max_disp_diff,
+                                               max_disp=cfg.max_disp)
     return disp_l
 
 
@@ -186,10 +184,11 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
     not read across a seam), the cost volume on the stacked census images
     (its shifts are along x), one aggregation re-seeds the vertical paths at
     every seam (``seam_period=H``, kernel 7), WTA, re-anchor and LR check
-    run stacked (row-local), the median per frame. Configurations whose
-    stages would read across a seam or that the stacked aggregation lacks
-    (``do_diagonal``, ``lr_from_left=False``, either volume filter) run
-    ``sgm_pipeline`` frame by frame, as in the JAX package."""
+    run stacked (row-local), the median on the stack of frames, each with
+    its own edges. Configurations whose stages would read across a seam or
+    that the stacked aggregation lacks (``do_diagonal``,
+    ``lr_from_left=False``, either volume filter) run ``sgm_pipeline`` frame
+    by frame, as in the JAX package."""
     _check_supported(cfg)
     B, H, W = lefts.shape
     if (cfg.do_diagonal or not cfg.lr_from_left or cfg.guided_filter
@@ -215,17 +214,14 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
             disp_r = cv.cost_vol_minimum(agg_r, cfg.max_disp).to(torch.float32)
 
     def median_per_frame(d):  # the 5x5 stencil must not read across a seam
-        return torch.cat([fast.median_filter_reject_invalid(d[k * H:(k + 1) * H],
-                                                            cfg.median_max_bad, rad=2)
-                          for k in range(B)])
+        return fast.median_filter_reject_invalid(d.reshape(B, H, W), cfg.median_max_bad,
+                                                 rad=2).reshape(B * H, W)
 
     for _ in range(cfg.median_its):
         disp_l = median_per_frame(disp_l)
         if cfg.lr_check:
             disp_r = median_per_frame(disp_r)
     if cfg.lr_check:
-        disp_r = fast.left_right_check(disp_r, disp_l, 1, cfg.max_disp_diff,
-                                       max_disp=cfg.max_disp)
-        disp_l = fast.left_right_check(disp_l, disp_r, -1, cfg.max_disp_diff,
-                                       max_disp=cfg.max_disp)
+        disp_l, _ = fast.left_right_check_pair(disp_l, disp_r, cfg.max_disp_diff,
+                                               max_disp=cfg.max_disp)
     return disp_l.reshape(B, H, W)

@@ -12,15 +12,16 @@ from ..core import invalid as invalid_mod
 
 
 def _window_stack(img: torch.Tensor, rad: int) -> torch.Tensor:
-    """(H, W, (2r+1)**2) window taps in row-major (dy, dx) order."""
-    H, W = img.shape
+    """(..., H, W, (2r+1)**2) window taps in row-major (dy, dx) order, each
+    image of a stack with its own edges."""
+    H, W = img.shape[-2:]
     taps = []
     for dy in range(-rad, rad + 1):
         ys = (torch.arange(H, device=img.device) + dy).clamp_(0, H - 1)
-        rows = img.index_select(0, ys)
+        rows = img.index_select(-2, ys)
         for dx in range(-rad, rad + 1):
             xs = (torch.arange(W, device=img.device) + dx).clamp_(0, W - 1)
-            taps.append(rows.index_select(1, xs))
+            taps.append(rows.index_select(-1, xs))
     return torch.stack(taps, dim=-1)
 
 
@@ -33,7 +34,8 @@ def median_filter(img: torch.Tensor, rad: int = 1) -> torch.Tensor:
 def median_filter_reject_invalid(img: torch.Tensor, max_bad: int, rad: int = 2) -> torch.Tensor:
     """Median ignoring invalid entries: they sort to the top (+inf) and the
     output is sorted element (k + bad) // 2 (capped at k-1), or invalid when
-    bad >= max_bad or every tap is bad."""
+    bad >= max_bad or every tap is bad. ``img`` is (H, W), or an (N, H, W)
+    stack whose images are filtered alone."""
     win = _window_stack(img, rad)
     k = win.shape[-1]
     valid = invalid_mod.is_valid(win)

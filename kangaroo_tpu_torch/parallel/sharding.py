@@ -204,8 +204,6 @@ def sharded_sgm_tail(agg: list[torch.Tensor], mesh: Mesh, max_disp: int, *,
         if lr_check:
             disp_r = median(disp_r)
     if lr_check:
-        disp_r = [fast.left_right_check(r, l, 1, max_disp_diff, max_disp=max_disp)
-                  for r, l in zip(disp_r, disp_l)]
-        disp_l = [fast.left_right_check(l, r, -1, max_disp_diff, max_disp=max_disp)
+        disp_l = [fast.left_right_check_pair(l, r, max_disp_diff, max_disp=max_disp)[0]
                   for l, r in zip(disp_l, disp_r)]
     return disp_l

@@ -4,9 +4,9 @@ right re-anchoring, the LR check and the truncated abs-and-gradient volume.
 
 Volumes are (D, H, W); disparity images are (H, W) float32 with NaN for
 invalid, or int32. ``cost_vol_minimum_subpix``,
-``cost_vol_minimum_square_penalty_subpix`` and ``left_right_check`` are the
-plain versions of the WTA, auxiliary-search and LR-check kernels
-(``stereo/dispatch.py`` picks between them).
+``cost_vol_minimum_square_penalty_subpix``, ``left_right_check`` and
+``left_right_check_pair`` are the plain versions of the WTA, auxiliary-search
+and LR-check kernels (``stereo/dispatch.py`` picks between them).
 """
 from __future__ import annotations
 
@@ -187,3 +187,14 @@ def left_right_check(disp_l: torch.Tensor, disp_r: torch.Tensor, sd: int = -1,
         k_min, k_max = (-1, max_disp - 1) if sd < 0 else (-max_disp, 1)
         ok = ok & (k >= k_min) & (k <= k_max)
     return torch.where(ok, disp_l, float("nan"))
+
+
+def left_right_check_pair(disp_l: torch.Tensor, disp_r: torch.Tensor, max_diff: float = 0.5,
+                          max_disp: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both directions of a frame in the reference's order: the right
+    disparity against the left first, then the left against the checked
+    right, so the second check also rejects left pixels whose partner was
+    rejected. Returns (disp_l', disp_r'); the plain version of the pair
+    kernel (``stereo/lr_cuda.left_right_check_pair``)."""
+    disp_r = left_right_check(disp_r, disp_l, 1, max_diff, max_disp)
+    return left_right_check(disp_l, disp_r, -1, max_diff, max_disp), disp_r

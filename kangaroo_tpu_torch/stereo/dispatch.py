@@ -25,8 +25,9 @@ from . import sgm as _sgm
 
 
 class _KernelOp(torch.autograd.Function):
-    """forward: ``kernel(*inputs, **kwargs)``; backward: the vector-Jacobian
-    product of ``plain(*inputs, **kwargs)``."""
+    """forward: ``kernel(*inputs, **kwargs)``, a tensor or a tuple of them;
+    backward: the vector-Jacobian product of ``plain(*inputs, **kwargs)``,
+    each output with its own incoming gradient."""
 
     @staticmethod
     def forward(ctx, kernel, plain, kwargs, *inputs):
@@ -35,15 +36,18 @@ class _KernelOp(torch.autograd.Function):
         return kernel(*inputs, **kwargs)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         needs = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
             out = ctx.plain(*leaves, **ctx.kwargs)
+        outs = [(o, g) for o, g in zip(out if isinstance(out, tuple) else (out,), grads)
+                if o.requires_grad and g is not None]
         wrt = [t for t in leaves if t.requires_grad]
-        if out.requires_grad:
-            grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
-        else:  # the output does not depend on the inputs asked for
+        if outs:
+            grads = iter(torch.autograd.grad([o for o, _ in outs], wrt, [g for _, g in outs],
+                                             allow_unused=True))
+        else:  # no output depends on the inputs asked for
             grads = iter([None] * len(wrt))
         return (None, None, None, *(next(grads) if n else None for n in needs))
 
@@ -101,6 +105,7 @@ def cost_vol_minimum_square_penalty_subpix(vol, last_disp, lam, theta, sd=-1):
 
 
 def median_filter_reject_invalid(img, max_bad: int, rad: int = 2):
+    """An (H, W) image, or each image of an (N, H, W) stack."""
     kw = dict(max_bad=int(max_bad), rad=int(rad))
     if _on_cpu(img):
         return _median.median_filter_reject_invalid(img, **kw)
@@ -113,4 +118,14 @@ def left_right_check(disp_l, disp_r, sd: int = -1, max_diff=1.0, max_disp: int =
     if _on_cpu(disp_l):
         return _cv.left_right_check(disp_l, disp_r, **kw)
     return _KernelOp.apply(lr_cuda.left_right_check, _cv.left_right_check, kw,
+                           disp_l, disp_r)
+
+
+def left_right_check_pair(disp_l, disp_r, max_diff=1.0, max_disp: int = 192):
+    """Both directions of a frame, the right image checked first; returns
+    (disp_l', disp_r')."""
+    kw = dict(max_diff=float(max_diff), max_disp=int(max_disp))
+    if _on_cpu(disp_l):
+        return _cv.left_right_check_pair(disp_l, disp_r, **kw)
+    return _KernelOp.apply(lr_cuda.left_right_check_pair, _cv.left_right_check_pair, kw,
                            disp_l, disp_r)

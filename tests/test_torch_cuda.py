@@ -19,7 +19,10 @@ design (``csrc/sgm.cu``, ``kt_sgm_segment_lines``) exactly: the same
 operations per element in the same order; so do the ROF and TGV solves on
 tiles and the fuse on plane tiles the designs they replaced
 (``kt_rof_denoise_steps``, ``kt_tgv_denoise_steps``,
-``kt_separable_fuse_voxel``).
+``kt_separable_fuse_voxel``). The median on tiles equals
+``kt_median_reject_invalid_pixel`` (another exact sorting network selects
+the same value; +0 and -0 count as equal), and the LR check on rows, one
+way and as the pair of both directions, ``kt_lr_check_pixel`` exactly.
 """
 import numpy as np
 import pytest
@@ -123,7 +126,7 @@ def test_pipeline_on_card_matches_cpu(dev):
     counts = [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)]
     got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
     assert [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)] == \
-        [c + n for c, n in zip(counts, (4, 2, 2, 2))]
+        [c + n for c, n in zip(counts, (4, 2, 2, 1))]
     want = stereo_sgm.sgm_pipeline(left, right, cfg)
     agree = (torch.isnan(got) & torch.isnan(want)) | ((got - want).abs() <= 1e-3)
     assert agree.float().mean().item() >= 0.995
@@ -622,7 +625,10 @@ def test_batched_pipeline_on_card_equals_frames(dev):
     pairs = [synthetic.stereo_pair(96, 32, 16, seed=k, device=dev) for k in range(3)]
     lefts, rights = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
     cfg = stereo_sgm.SgmConfig(max_disp=16)
+    counts = (median_cuda.launches, lr_cuda.launches)
     got = stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg)
+    # one median launch a stack (left and right), one LR launch a batch
+    assert (median_cuda.launches, lr_cuda.launches) == (counts[0] + 2, counts[1] + 1)
     for k in range(3):
         frame = stereo_sgm.sgm_pipeline(lefts[k], rights[k], cfg)
         assert bool(((torch.isnan(got[k]) & torch.isnan(frame)) | (got[k] == frame)).all())
@@ -1232,3 +1238,132 @@ def test_separable_fuse_empty_window_and_enable_match_voxel_design(dev, axis, en
             assert _equal(new[0], vol.val)
         if win is empty:
             assert torch.equal(new[1], vol.weight)
+
+
+# --- the median on tiles and the LR check on rows (csrc/median.cu,
+# csrc/lr_check.cu) against the designs they replaced and the plain versions
+
+# images narrower than a 64x4 tile or smaller than a 7x7 window, and larger ones
+MEDIAN_SHAPES = [(1, 1), (1, 19), (19, 1), (3, 5), (5, 3), (17, 33), (37, 61), (480, 640),
+                 (375, 1242), (1242, 375)]
+
+
+def _median_input(shape, seed, dev):
+    """NaN, +inf and -inf at 10 %, a bad row and a bad column, +0 and -0."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 16, shape).astype(np.float32)
+    for v in (np.nan, np.inf, -np.inf):
+        img[rng.random(shape) < 0.1 / 3] = v
+    img[rng.random(shape) < 0.1] = 0.0
+    img[rng.random(shape) < 0.1] = -0.0
+    img[..., shape[-2] // 2, :] = np.nan
+    img[..., :, shape[-1] // 3] = np.inf
+    return torch.from_numpy(img).to(dev)
+
+
+def _same(got, want):
+    """Exact, +0 equal to -0, NaN positions equal."""
+    return bool(((torch.isnan(got) & torch.isnan(want)) | (got == want)).all())
+
+
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+@pytest.mark.parametrize("rad", [1, 2, 3])
+def test_median_matches_pixel_design(dev, rad, shape):
+    img = _median_input(shape, rad, dev)
+    K = (2 * rad + 1) ** 2
+    for max_bad in (0, 1, 12, K, K + 5):
+        got = median_cuda.median_filter_reject_invalid(img, max_bad, rad)
+        assert _same(got, median_cuda._median_pixel(img, max_bad, rad)), max_bad
+        assert _same(got, median_plain.median_filter_reject_invalid(img, max_bad, rad)), max_bad
+
+
+@pytest.mark.parametrize("shape", [(4, 480, 640), (3, 5, 3), (2, 17, 33)])
+@pytest.mark.parametrize("rad", [1, 2, 3])
+def test_median_stack_equals_single_launches(dev, rad, shape):
+    stack = _median_input(shape, 10 + rad, dev)
+    before = median_cuda.launches
+    got = median_cuda.median_filter_reject_invalid(stack, 12, rad)
+    assert median_cuda.launches == before + 1
+    assert _same(got, median_plain.median_filter_reject_invalid(stack, 12, rad))
+    for n in range(shape[0]):
+        assert _same(got[n], median_cuda._median_pixel(stack[n].contiguous(), 12, rad))
+
+
+def test_median_pixel_design_counts_nothing(dev):
+    before = median_cuda.launches
+    median_cuda._median_pixel(torch.zeros(8, 8, device=dev), 12, 2)
+    assert median_cuda.launches == before
+
+
+LR_SHAPES = [(37, 61), (480, 640), (375, 1242), (5, 1), (1, 1), (3, 4097)]
+
+
+def _lr_inputs(shape, D, seed, dev, offset=0):
+    """Disparities spilling past [0, D) both ways with NaN, a right image in
+    agreement with the left within ~1 px; ``offset`` elements into their
+    storage (loads narrower than 16 bytes)."""
+    rng = np.random.default_rng(seed)
+    dl = rng.uniform(-3, D + 3, shape).astype(np.float32)
+    dr = (dl + rng.normal(0, 0.8, shape)).astype(np.float32)
+    dl[rng.random(shape) < 0.1] = np.nan
+    dr[rng.random(shape) < 0.1] = np.nan
+    out = []
+    for a in (dl, dr):
+        buf = torch.empty(a.size + offset, device=dev)
+        buf[offset:] = torch.from_numpy(a.ravel()).to(dev)
+        out.append(buf[offset:].view(shape))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("shape", LR_SHAPES)
+def test_lr_pair_matches_two_pixel_launches(dev, shape, offset):
+    D = 64
+    dl, dr = _lr_inputs(shape, D, 30, dev, offset)
+    before = lr_cuda.launches
+    got_l, got_r = lr_cuda.left_right_check_pair(dl, dr, 1.0, max_disp=D)
+    assert lr_cuda.launches == before + 1
+    want_r = lr_cuda._check_pixel(dr, dl, 1, 1.0, D)
+    assert _same(got_r, want_r)
+    assert _same(got_l, lr_cuda._check_pixel(dl, want_r, -1, 1.0, D))
+    plain_l, plain_r = costvolume.left_right_check_pair(dl, dr, 1.0, D)
+    assert _same(got_l, plain_l) and _same(got_r, plain_r)
+
+
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("shape", LR_SHAPES)
+def test_lr_one_way_matches_pixel_design(dev, shape, sd):
+    dl, dr = _lr_inputs(shape, 64, 31, dev, offset=1 if shape[1] % 2 else 0)
+    got = lr_cuda.left_right_check(dl, dr, sd, 1.0, max_disp=64)
+    assert _same(got, lr_cuda._check_pixel(dl, dr, sd, 1.0, 64))
+    assert _same(got, costvolume.left_right_check(dl, dr, sd, 1.0, 64))
+
+
+@pytest.mark.parametrize("W", [6200, lr_cuda.MAX_WIDTH])
+def test_lr_rows_past_the_default_shared_memory(dev, W):
+    """Rows wider than 48 KB of shared memory a pair take the opted-in 227 KB."""
+    dl, dr = _lr_inputs((3, W), 256, 32, dev)
+    got_l, got_r = lr_cuda.left_right_check_pair(dl, dr, 1.0, max_disp=256)
+    plain_l, plain_r = costvolume.left_right_check_pair(dl, dr, 1.0, 256)
+    assert _same(got_l, plain_l) and _same(got_r, plain_r)
+    with pytest.raises(ValueError, match="shared memory"):
+        lr_cuda.left_right_check_pair(*(torch.zeros(2, lr_cuda.MAX_WIDTH + 1, device=dev),) * 2)
+
+
+def test_lr_pixel_design_counts_nothing(dev):
+    before = lr_cuda.launches
+    lr_cuda._check_pixel(torch.zeros(4, 8, device=dev), torch.zeros(4, 8, device=dev), -1)
+    assert lr_cuda.launches == before
+
+
+def test_lr_pair_backward_is_the_plain_gradient(dev):
+    dl, dr = _lr_inputs((12, 40), 16, 33, dev)
+    dr = dr.nan_to_num(3.0)
+    grads = []
+    for fn in (dispatch.left_right_check_pair, costvolume.left_right_check_pair):
+        xs = [dl.clone().requires_grad_(True), dr.clone().requires_grad_(True)]
+        out_l, out_r = fn(*xs, 1.0, max_disp=16)
+        (out_l.nan_to_num(0.0).sum() + 2.0 * out_r.nan_to_num(0.0).sum()).backward()
+        grads.append([x.grad for x in xs])
+    for g_op, g_plain in zip(*grads):
+        torch.testing.assert_close(g_op, g_plain, atol=0, rtol=0)

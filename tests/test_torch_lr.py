@@ -1,6 +1,7 @@
 """kangaroo_tpu_torch's left-right check and its kernel's wrapper against
 kangaroo_tpu: the XLA gather twin (no sweep bound), and the Pallas sweep
-kernel in interpret mode (with ``max_disp``). Exact, NaN positions included.
+kernel in interpret mode (with ``max_disp``), one direction and the pair of
+both in the reference's order. Exact, NaN positions included.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +52,19 @@ def test_matches_pallas_kernel(interpret, sd):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("seed", [2, 3])
+def test_pair_matches_two_pallas_calls(interpret, seed):
+    """The pair equals the JAX package's two checks in its order: the right
+    image against the left, then the left against the checked right."""
+    dl, dr = _disparities(seed)
+    want_r = lr_pallas.left_right_check(jnp.asarray(dr), jnp.asarray(dl), 1, 1.0, max_disp=D)
+    want_l = lr_pallas.left_right_check(jnp.asarray(dl), want_r, -1, 1.0, max_disp=D)
+    got_l, got_r = dispatch.left_right_check_pair(torch.from_numpy(dl), torch.from_numpy(dr),
+                                                  1.0, max_disp=D)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
+
+
 def test_sweep_bound_rejects_far_offsets():
     """An offset past the TPU kernel's sweep reads NaN there: rejected with
     max_disp, kept by the unbounded gather."""
@@ -67,5 +81,7 @@ def test_kernel_wrapper_refuses_cpu_tensor():
     before = lr_cuda.launches
     with pytest.raises(RuntimeError, match="sm_90"):
         lr_cuda.left_right_check(torch.zeros(H, W), torch.zeros(H, W), -1, 1.0, D)
+    with pytest.raises(RuntimeError, match="sm_90"):
+        lr_cuda.left_right_check_pair(torch.zeros(H, W), torch.zeros(H, W), 1.0, D)
     assert lr_cuda.launches == before
 

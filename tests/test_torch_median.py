@@ -1,7 +1,8 @@
 """kangaroo_tpu_torch.ops.median and the median kernel's wrapper against
 kangaroo_tpu: the XLA sort twins, and the Pallas Batcher-network kernel in
-interpret mode. Medians select an input value, so every comparison is
-exact, NaN positions included.
+interpret mode, on single images and on (N, H, W) stacks frame by frame.
+Medians select an input value, so every comparison is exact, NaN positions
+included.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -83,9 +84,25 @@ def test_network_sorts():
         assert v == sorted(v)
 
 
+@pytest.mark.parametrize("rad,max_bad", CASES)
+def test_stack_matches_pallas_kernel_frame_by_frame(interpret, rad, max_bad):
+    """An (N, H, W) stack: each image filtered alone, with its own edges,
+    equal to the Pallas kernel on that image and to the plain median of it."""
+    stack = np.stack([_image(10 + k) for k in range(3)])
+    got = dispatch.median_filter_reject_invalid(torch.from_numpy(stack), max_bad, rad).numpy()
+    assert got.shape == stack.shape
+    for k in range(len(stack)):
+        want = np.asarray(median_pallas.median_filter(jnp.asarray(stack[k]), max_bad, rad,
+                                                      reject=True))
+        np.testing.assert_array_equal(got[k], want)
+        np.testing.assert_array_equal(
+            got[k], tm.median_filter_reject_invalid(torch.from_numpy(stack[k]), max_bad, rad))
+
+
 def test_kernel_wrapper_refuses_cpu_tensor():
     before = median_cuda.launches
-    with pytest.raises(RuntimeError, match="sm_90"):
-        median_cuda.median_filter_reject_invalid(torch.zeros(H, W), 12, 2)
+    for shape in ((H, W), (2, H, W)):
+        with pytest.raises(RuntimeError, match="sm_90"):
+            median_cuda.median_filter_reject_invalid(torch.zeros(shape), 12, 2)
     assert median_cuda.launches == before
 
