@@ -77,7 +77,16 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    fuse kernel launched once per frame, every frame tracked), the same 8
    through ``run_sequence`` and through a frame of plain versions (poses
    within 1e-4), and ATE and final rmse within limits set from the JAX
-   package's CPU-JAX figures;
+   package's CPU-JAX figures; BASELINE config 1 (``gaussian_blur(img, 2.0,
+   rad=10)`` and ``bilateral(img, 2.0, 0.1, 5)`` on a 640x480 float32
+   frame, the Gaussian blur also on uint8) with ``blur``, a 4-level
+   ``blur_reduce``, the integral image and ``box_filter_integral_image``,
+   each against the same call on the CPU; the SGM frame with the cost-volume
+   bilateral filter (``SgmConfig(bilateral_filter=True)``, size 18) for 2
+   frames (kernels 1-4 launched every frame, agreement with the plain frame,
+   a disparity map and not noise), the SGM and WTA kernels on the filtered
+   float32 volume against their plain versions, and one frame at size 3
+   within 0.01 of the JAX package's CPU-JAX quality;
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
@@ -119,7 +128,12 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    (bench.py's sharded configs) and on the virtual 4-shard mesh, and the
    4-shard frames, against the single-device aggregation and frame (a
    virtual mesh runs its shards one after another on one card, so these
-   times say nothing of scaling over cards).
+   times say nothing of scaling over cards); the filters of phase 3 (median
+   of 20 runs, with their launches and device time), the bilateral frames
+   at size 18 and 3 against the unfiltered frame and the plain bilateral
+   frame in turns (median of 3 runs), the volume filter alone (median of 3,
+   its launches, device time and busy share) and the 4-path SGM call on the
+   filtered float32 volume against the bf16 census volume.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound (the larger of
@@ -222,6 +236,24 @@ KF_JAX = {"loop": {"ate_rmse_m": 0.0043184165842831135, "final_rmse": 0.00062900
                        "final_rmse": 0.0006289670709520578}}
 KF_ATE_SLACK, KF_RMSE_SLACK = 0.001, 0.001
 KF_FRAMES = 8
+# BASELINE config 1 (bench.py bench_filters): one 640x480 float32 frame of
+# numpy's default_rng(0).random, gaussian_blur(img, 2.0, rad=10) and
+# bilateral(img, 2.0, 0.1, 5); beside them blur, a 4-level blur_reduce and
+# box_filter_integral_image (rad 9). Each is held to the same call on the CPU:
+# float outputs within 1e-5 relative and 1e-6 absolute (the image lies in
+# [0, 1]; exp and the scans differ in the last bits), uint8 within 1 LSB
+FILTER_RTOL, FILTER_ATOL = 1e-5, 1e-6
+# the SGM frame with the cost-volume bilateral filter (SgmConfig's default
+# window: size 18, gs 10, gr 6, gc 0.01) on the same pair: 2 frames, each a
+# disparity map and not noise (tests/test_torch_pipeline.py's bar: invalid
+# <= 0.2, median error <= 0.5 px); and one frame at bilateral_size=3 within
+# 0.01 of the JAX package's CPU-JAX figures
+# (`PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_filters.py`)
+BILATERAL_FRAMES = 2
+BILATERAL_MAX_INVALID, BILATERAL_MAX_MEDIAN_ERR = 0.2, 0.5
+BILATERAL_JAX = {"size3": {"invalid_frac": 0.021086052955665013,
+                           "median_err_px": 0.006374359130859375}}
+BILATERAL_SLACK = 0.01
 # fuse checks: (tag, (D, H, W) volume, (W, H) depth, focal length)
 FUSE_SHAPES = (("vga", (256, 256, 256), (640, 480), 550.0),
                ("kitti", (200, 136, 248), (1242, 375), 1068.0))
@@ -287,6 +319,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         die("torch.cuda.is_available() is false")
@@ -296,9 +329,10 @@ def main() -> int:
     from kangaroo_tpu_torch import _build
     from kangaroo_tpu_torch.apps import kinectfusion as kf
     from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
-    from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume
+    from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume, pyramid
     from kangaroo_tpu_torch.core import se3
     from kangaroo_tpu_torch.fusion import raycast, separable, separable_cuda
+    from kangaroo_tpu_torch.ops import bilateral, blur, integral_image
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
     from kangaroo_tpu_torch.parallel import mesh as mesh_mod
@@ -1003,11 +1037,17 @@ def main() -> int:
                                       f"in frame {frame}, not {n}")
 
     def plain_frame(left, right, cfg):
-        """The frame composed of the plain versions, called by name."""
+        """The frame composed of the plain versions, called by name (the
+        volume filter, which has no kernel, as the frame calls it)."""
         bits = census.norm_bits(cfg.census_window)
         vol = census.census_cost_volume(census.census(left, cfg.census_window),
                                         census.census(right, cfg.census_window),
-                                        cfg.max_disp, -1, bits, dtype=torch.bfloat16)
+                                        cfg.max_disp, -1, bits,
+                                        dtype=stereo_sgm._volume_dtype(cfg, bits))
+        if cfg.bilateral_filter:
+            vol = bilateral.bilateral_volume(vol, stereo_sgm._intensity(left), cfg.bilateral_gs,
+                                             cfg.bilateral_gr, cfg.bilateral_size,
+                                             gc=cfg.bilateral_gc)
         agg = sgm_plain.semi_global_matching(vol, stereo_sgm._intensity(left), cfg.p1, cfg.p2,
                                              do_diagonal=cfg.do_diagonal)
         dl = costvolume.cost_vol_minimum_subpix(agg, -1)
@@ -1395,6 +1435,121 @@ def main() -> int:
     print(f"phase 3 KinectFusion (256^3 TSDF, {W}x{H}, its (1, 0, 2, 3)): frame 0 seeded, "
           f"{KF_FRAMES} frames:")
     smoke.phase("phase 3 KinectFusion", kf_phase)
+
+    # BASELINE config 1 and the filters beside it, on the card against the
+    # same calls on the CPU (no kernel: plain PyTorch on the tensor's device)
+    filt_img = np.random.default_rng(0).random((H, W)).astype(np.float32)
+    filt_ii = F.pad(integral_image.integral_image(torch.from_numpy(filt_img)), (1, 0, 1, 0))
+    filter_cases = {
+        "gaussian_blur": (lambda x: blur.gaussian_blur(x, 2.0, rad=10), filt_img),
+        "gaussian_blur_uint8": (lambda x: blur.gaussian_blur(x, 2.0, rad=10),
+                                (255.0 * filt_img).astype(np.uint8)),
+        "bilateral": (lambda x: bilateral.bilateral(x, 2.0, 0.1, 5), filt_img),
+        "blur": (blur.blur, filt_img),
+        "blur_reduce": (lambda x: pyramid.blur_reduce(x, 4), filt_img),
+        "integral_image": (integral_image.integral_image, filt_img),
+        # from the same integral image (made on the CPU): its corner
+        # differences would amplify the scans' last bits
+        "box_filter_integral_image": (
+            lambda ii: integral_image.box_filter_integral_image(ii, 9), filt_ii.numpy()),
+    }
+
+    def filters_phase():
+        for name, (fn, x) in filter_cases.items():
+            got, want = fn(torch.from_numpy(x).to(dev)), fn(torch.from_numpy(x))
+            levels = lambda t: (t,) if torch.is_tensor(t) else t  # noqa: E731
+            for level, (g, w) in enumerate(zip(levels(got), levels(want))):
+                g = g.cpu()
+                if w.dtype == torch.uint8:
+                    err = (g.int() - w.int()).abs().max().item()
+                    ok = g.dtype == w.dtype and err <= 1
+                    limit = "1 LSB"
+                else:
+                    err = ((g - w).abs() / (FILTER_ATOL + FILTER_RTOL * w.abs())).max().item()
+                    ok = g.dtype == w.dtype and g.shape == w.shape and err <= 1.0
+                    limit = f"|d| / ({FILTER_ATOL:g} + {FILTER_RTOL:g} |cpu|) <= 1"
+                print(f"  {'ok  ' if ok else 'FAIL'} {name} level {level} {tuple(g.shape)} "
+                      f"{g.dtype} card vs CPU: {err:.3g} ({limit})")
+                if not ok:
+                    smoke.failures.append(f"phase 3 filters: {name} level {level} {err}")
+
+    bcfgs = {"bilateral": stereo_sgm.SgmConfig(bilateral_filter=True),
+             "bilateral size 3": stereo_sgm.SgmConfig(bilateral_filter=True, bilateral_size=3)}
+
+    def census_volume(cfg):
+        """The frame's float32 cost volume, before the filter."""
+        bits = census.norm_bits(cfg.census_window)
+        return census.census_cost_volume(census.census(left, cfg.census_window),
+                                         census.census(right, cfg.census_window), D, -1, bits,
+                                         dtype=torch.float32)
+
+    def filtered_volume(cfg, vol):
+        """``vol`` after the frame's bilateral filter."""
+        return bilateral.bilateral_volume(vol, stereo_sgm._intensity(left), cfg.bilateral_gs,
+                                          cfg.bilateral_gr, cfg.bilateral_size,
+                                          gc=cfg.bilateral_gc)
+
+    def bilateral_phase():
+        cfg = bcfgs["bilateral"]
+        reset_counts()
+        prev = read_counts()
+        for f in range(BILATERAL_FRAMES):
+            disp = stereo_sgm.sgm_pipeline(left, right, cfg)
+            torch.cuda.synchronize()
+            now = read_counts()
+            print(f"  bilateral frame {f}: launches so far "
+                  f"{ {k: now[k] for k in frame_kernels['4-path']} }")
+            for k in frame_kernels["4-path"]:
+                if now[k] <= prev[k]:
+                    smoke.failures.append(f"phase 3 bilateral: {k} was not launched in frame {f}")
+            check_per_frame("bilateral", f, prev, now, frame_want)
+            prev = now
+        if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
+            smoke.failures.append(f"phase 3 bilateral: output {tuple(disp.shape)} {disp.dtype}")
+        check_agreement("bilateral", disp, plain_frame(left, right, cfg))
+        q = disp_quality(disp)
+        ok = q["invalid_frac"] <= BILATERAL_MAX_INVALID and \
+            q["median_err_px"] <= BILATERAL_MAX_MEDIAN_ERR
+        print(f"  {'ok  ' if ok else 'FAIL'} bilateral quality on stereo_pair(640, 480, 64, "
+              f"seed=0): {json.dumps(q)}; limits invalid <= {BILATERAL_MAX_INVALID}, median "
+              f"error <= {BILATERAL_MAX_MEDIAN_ERR} px")
+        if not ok:
+            smoke.failures.append(f"phase 3 bilateral: quality {q}")
+        # the frame's kernels on the filtered float32 volume against plain
+        vol, img = filtered_volume(cfg, census_volume(cfg)), stereo_sgm._intensity(left)
+        agg = sgm_cuda.semi_global_matching(vol, img)
+        smoke.compare("sgm", "bilateral-filtered f32 volume", agg,
+                      sgm_plain.semi_global_matching(vol, img), ATOL["sgm"],
+                      lattice(D, W, -1).expand_as(agg))
+        smoke.compare("wta", "bilateral-filtered f32 aggregate",
+                      wta_cuda.cost_vol_minimum_subpix(agg, -1),
+                      costvolume.cost_vol_minimum_subpix(agg, -1), ATOL["wta"])
+        cfg = bcfgs["bilateral size 3"]
+        reset_counts()
+        disp = stereo_sgm.sgm_pipeline(left, right, cfg)
+        torch.cuda.synchronize()
+        now = read_counts()
+        print("  bilateral size 3 frame: launches "
+              f"{ {k: now[k] for k in frame_kernels['4-path']} }")
+        for k in frame_kernels["4-path"]:
+            if now[k] == 0:
+                smoke.failures.append(f"phase 3 bilateral size 3: {k} was not launched")
+        check_per_frame("bilateral size 3", 0, {k: 0 for k in now}, now, frame_want)
+        check_agreement("bilateral size 3", disp, plain_frame(left, right, cfg))
+        ref = BILATERAL_JAX["size3"]
+        q = disp_quality(disp)
+        lim = {k: ref[k] + BILATERAL_SLACK for k in ("invalid_frac", "median_err_px")}
+        ok = all(q[k] <= lim[k] for k in lim)
+        print(f"  {'ok  ' if ok else 'FAIL'} bilateral size 3 quality: {json.dumps(q)}; the JAX "
+              f"package on CPU-JAX: {json.dumps(ref)}; limits {json.dumps(lim)}")
+        if not ok:
+            smoke.failures.append(f"phase 3 bilateral size 3: quality {q}")
+
+    print(f"phase 3 filters of BASELINE config 1 and beside it at {W}x{H}, card vs CPU:")
+    smoke.phase("phase 3 filters", filters_phase)
+    print(f"phase 3 sgm_pipeline (bilateral_filter=True, size 18) at {W}x{H}/{D}, "
+          f"{BILATERAL_FRAMES} frames, and one at size 3:")
+    smoke.phase("phase 3 bilateral", bilateral_phase)
 
     # --- phase 4: times -------------------------------------------------------
     times, bound = {}, {}
@@ -2332,6 +2487,70 @@ def main() -> int:
 
     print(f"phase 4 KinectFusion times at 256^3, {W}x{H}:")
     smoke.phase("phase 4 KinectFusion", kf_timing_phase)
+
+    def filters_timing_phase():
+        """BASELINE config 1 and the filters beside it (median of 20 runs),
+        the bilateral frame against the unfiltered frame and the frame of
+        plain versions (median of 3), the volume filter alone (median of 3)
+        with its launches and device time, and the SGM kernel on the
+        filtered float32 volume against the bf16 census volume."""
+        for name, (fn, x) in filter_cases.items():
+            xd = torch.from_numpy(x).to(dev)
+            ms = timing.time_fn(fn, xd, warmup=3, runs=20)
+            kernels, wall_us = device_us(lambda: fn(xd))
+            busy = sum(us for _, us in kernels.values())
+            profile = (f"{sum(n for n, _ in kernels.values())} launches, device {busy / 1e3:.4f} "
+                       f"ms of {wall_us / 1e3:.4f} ms wall" if kernels
+                       else "the profile recorded no device activity")
+            print(f"  filter {name:26s} {ms['median_ms']:.4f} ms (min {ms['min_ms']:.4f}, max "
+                  f"{ms['max_ms']:.4f}); {profile} [{card}]")
+        bcfg = bcfgs["bilateral"]
+        frames = {"unfiltered": lambda: stereo_sgm.sgm_pipeline(left, right, cfgs["4-path"]),
+                  "bilateral": lambda: stereo_sgm.sgm_pipeline(left, right, bcfg),
+                  "bilateral size 3": lambda: stereo_sgm.sgm_pipeline(left, right,
+                                                                      bcfgs["bilateral size 3"]),
+                  "bilateral plain": lambda: plain_frame(left, right, bcfg)}
+        got = {name: [] for name in frames}
+        for turn in ("unfiltered", "bilateral", "bilateral plain", "bilateral size 3",
+                     "bilateral size 3", "bilateral plain", "bilateral", "unfiltered"):
+            got[turn].append(timing.time_fn(frames[turn], warmup=1, runs=3))
+        for name, runs in got.items():
+            print(f"  frame {name:16s} " + " / ".join(
+                f"{r['median_ms']:.2f} (min {r['min_ms']:.2f}, max {r['max_ms']:.2f})"
+                for r in runs) + f" ms, median of 3 runs, in turns [{card}]")
+        vol, img = census_volume(bcfg), stereo_sgm._intensity(left)
+        run = lambda: filtered_volume(bcfg, vol)  # noqa: E731
+        ms = timing.time_fn(run, warmup=1, runs=3)
+        kernels, wall_us = device_us(run)
+        busy = sum(us for _, us in kernels.values())
+        n_launches = sum(n for n, _ in kernels.values())
+        taps = (2 * bcfg.bilateral_size + 1) ** 2
+        print(f"  bilateral_volume {tuple(vol.shape)} f32, size {bcfg.bilateral_size} ({taps} "
+              f"taps): {ms['median_ms']:.2f} ms (min {ms['min_ms']:.2f}, max "
+              f"{ms['max_ms']:.2f}), median of 3 runs; {n_launches} launches ({n_launches / taps:.2f} a tap), device "
+              f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall (busy share "
+              f"{busy / wall_us:.3f}) [{card}]")
+        for key, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]:
+            print(f"    {us / 1e3:.2f} ms in {n} launches: {key[:90]}")
+        # the volume's bytes a tap (one read, one write) and its floor
+        print(f"  sizing: one read and write of the volume {2 * vol.numel() * 4 / 1e6:.1f} MB, "
+              f"{1e3 * 2 * vol.numel() * 4 / HBM_BPS:.4f} ms at {HBM_BPS / 1e12:.2f} TB/s; "
+              f"{taps * vol.numel() / 1e9:.2f} G exponentials")
+        # kernel 1 on the filtered float32 volume and on the bf16 census volume
+        fvol = run()
+        bvol = vol.to(torch.bfloat16)
+        for what, v in (("bf16 census", bvol), ("f32 filtered", fvol), ("bf16 census", bvol),
+                        ("f32 filtered", fvol)):
+            sgm = lambda: sgm_cuda.semi_global_matching(v, img)  # noqa: E731
+            ev = timing.time_fn(sgm, warmup=3, runs=20)["median_ms"]
+            kernels, _ = device_us(sgm, reps=10)
+            dev_ms = sum(us for k, (_, us) in kernels.items()
+                         if "sgm_rows_kernel" in k or "sgm_cols_kernel" in k) / 1e4
+            print(f"  sgm (4 paths) on the {what} volume: {ev:.4f} ms by events, device "
+                  f"{dev_ms:.4f} ms a call (torch.profiler, 10 calls) [{card}]")
+
+    print(f"phase 4 filters and the bilateral frame at {W}x{H}/{D}:")
+    smoke.phase("phase 4 filters", filters_timing_phase)
     torch.cuda.synchronize()
 
     if smoke.failures:

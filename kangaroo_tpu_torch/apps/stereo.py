@@ -14,9 +14,11 @@ per iteration), the WTA initialisation, median and LR check in theirs; on a
 CPU tensor every step is its plain version, :func:`dtam_iterate_plain`
 being the transcription of the JAX package's XLA loop. Not ported yet, and
 refused with ``NotImplementedError``: ``mesh`` (multi-device DTAM) and
-``coarse_init`` (needs ``ops/resample``). ``MultiViewStereo``,
-``depth_and_cloud`` and ``export_depthmap`` wait for ``core/se3``,
-``geometry/depth`` and ``io/``.
+``coarse_init`` (the half-size warm-start solve; ``ops/resample``, which it
+would call, is ported). Not ported: ``MultiViewStereo`` (it waits for the
+cost-volume accumulation of ``stereo/costvolume``, ``cost_volume_add``),
+``depth_and_cloud`` (``geometry/depth``'s disparity conversions) and
+``export_depthmap`` (``io/``).
 """
 from __future__ import annotations
 

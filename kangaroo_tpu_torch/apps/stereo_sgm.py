@@ -3,12 +3,13 @@
 census volumes -> 4-path (8-path with ``do_diagonal``) semi-global
 matching -> WTA + subpixel -> the right disparity from the re-anchored left
 aggregate (or a second aggregation) -> reject-invalid median on both images
--> LR check both ways, with the optional guided filter of each census
-volume before aggregation. ``sgm_pipeline(mesh=)`` runs the aggregation
-and the tail over a device mesh (``parallel``), ``sgm_pipeline_batched`` a
-stacked frame batch in one aggregation. Not ported yet, and refused with
-``NotImplementedError``: the bilateral volume filter (``Stereo2App`` waits
-for the plane fit and the heightmap).
+-> LR check both ways, with the optional guided filter and then the
+cross-bilateral filter of each census volume before aggregation (the
+reference's "Apply Bilateral Filter"; ``ops/bilateral.bilateral_volume``,
+plain PyTorch). ``sgm_pipeline(mesh=)`` runs the aggregation and the tail
+over a device mesh (``parallel``), ``sgm_pipeline_batched`` a stacked frame
+batch in one aggregation. ``Stereo2App`` (the plane fit and the heightmap
+after the frame) is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 
 import torch
 
+from ..ops import bilateral as bf
 from ..ops import integral_image as ii
 from ..parallel import sharding as _sh
 from ..parallel.mesh import Mesh
@@ -69,11 +71,6 @@ class SgmConfig:
         return cls(**d)
 
 
-def _check_supported(cfg: SgmConfig) -> None:
-    if cfg.bilateral_filter:
-        raise NotImplementedError("sgm_pipeline: bilateral_filter is not ported yet")
-
-
 def _check_mesh_cfg(cfg: SgmConfig) -> None:
     """Fail fast on SgmConfig features the sharded aggregation lacks."""
     if not (cfg.do_horiz and cfg.do_vert and cfg.do_reverse):
@@ -94,11 +91,27 @@ def _check_mesh(cfg: SgmConfig, mesh, shape) -> None:
 
 
 def _filter_volume(vol: torch.Tensor, img: torch.Tensor, cfg: SgmConfig) -> torch.Tensor:
-    """The guided filter of every volume slice against the image's
-    intensity, when ``cfg.guided_filter`` is set."""
-    if not cfg.guided_filter:
+    """The volume filters before aggregation, each slice against the
+    image's intensity: the guided filter (``cfg.guided_filter``), then the
+    3-weight cross bilateral (``cfg.bilateral_filter``)."""
+    if not (cfg.guided_filter or cfg.bilateral_filter):
         return vol
-    return ii.guided_filter_volume(vol, _intensity(img), cfg.filter_rad, cfg.filter_eps)
+    guide = _intensity(img)
+    if cfg.guided_filter:
+        vol = ii.guided_filter_volume(vol, guide, cfg.filter_rad, cfg.filter_eps)
+    if cfg.bilateral_filter:
+        vol = bf.bilateral_volume(vol, guide, cfg.bilateral_gs, cfg.bilateral_gr,
+                                  cfg.bilateral_size, gc=cfg.bilateral_gc)
+    return vol
+
+
+def _volume_dtype(cfg: SgmConfig, bits: int) -> torch.dtype:
+    """Power-of-two normalisers make every cost k/bits exact in bfloat16;
+    the volume filters' arithmetic is not, so a filtered volume stays
+    float32."""
+    if cfg.guided_filter or cfg.bilateral_filter or bits & (bits - 1):
+        return torch.float32
+    return torch.bfloat16
 
 
 def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmConfig(),
@@ -114,16 +127,12 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
     ``mesh.devices[0]``. Census and the cost volume run on the inputs'
     device. It needs the default full path set and ``lr_from_left``, and
     the mesh size must divide H and W."""
-    _check_supported(cfg)
     if mesh is not None:
         _check_mesh(cfg, mesh, left.shape)
     cl = census_mod.census(left, cfg.census_window)
     cr = census_mod.census(right, cfg.census_window)
     bits = census_mod.norm_bits(cfg.census_window)
-    # power-of-two normalisers make every cost k/bits exact in bfloat16; the
-    # guided filter's arithmetic is not, so a filtered volume stays float32
-    vol_dtype = (torch.float32 if cfg.guided_filter
-                 else torch.bfloat16 if bits & (bits - 1) == 0 else torch.float32)
+    vol_dtype = _volume_dtype(cfg, bits)
 
     vol_l = _filter_volume(
         census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype),
@@ -189,13 +198,12 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
     that the stacked aggregation lacks (``do_diagonal``,
     ``lr_from_left=False``, either volume filter) run ``sgm_pipeline`` frame
     by frame, as in the JAX package."""
-    _check_supported(cfg)
     B, H, W = lefts.shape
     if (cfg.do_diagonal or not cfg.lr_from_left or cfg.guided_filter
             or cfg.bilateral_filter):
         return torch.stack([sgm_pipeline(lefts[k], rights[k], cfg) for k in range(B)])
     bits = census_mod.norm_bits(cfg.census_window)
-    vol_dtype = torch.bfloat16 if bits & (bits - 1) == 0 else torch.float32
+    vol_dtype = _volume_dtype(cfg, bits)
     cl = torch.cat([census_mod.census(lefts[k], cfg.census_window) for k in range(B)])
     cr = torch.cat([census_mod.census(rights[k], cfg.census_window) for k in range(B)])
     vol = census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype)

@@ -1,13 +1,15 @@
-"""Box filtering and the guided filter (``kangaroo_tpu/ops/integral_image.py``).
+"""Integral images, box filtering and the guided filter
+(``kangaroo_tpu/ops/integral_image.py``).
 
 ``box_filter`` is the mean over the window [x-rad, x+rad] x [y-rad, y+rad]
 clamped to the image (the JAX package's corrected form of the reference's
 4-corner lookup). It takes the JAX package's two routes: for rad <= 16 a
 zero-padded window sum along each axis, summed in window order, divided by
 the clamped window area; above that an inclusive integral image and its
-four clamped corners. Plain PyTorch on every device; the JAX package runs
-these as XLA outside any Pallas kernel. Every function takes (..., H, W)
-and filters the last two axes.
+four clamped corners (``box_filter_integral_image`` takes that integral
+image as it is, front-padded to (H+1, W+1)). Plain PyTorch on every
+device; the JAX package runs these as XLA outside any Pallas kernel.
+Every function takes (..., H, W) and works on the last two axes.
 """
 from __future__ import annotations
 
@@ -41,12 +43,29 @@ def _window_sum(f: torch.Tensor, rad: int, dim: int) -> torch.Tensor:
     return s
 
 
-def _integral_box_sum(f: torch.Tensor, rad: int) -> torch.Tensor:
-    """Clamped-window sums from a front-padded inclusive integral image."""
-    H, W = f.shape[-2:]
-    ii = F.pad(torch.cumsum(torch.cumsum(f, dim=-2), dim=-1), (1, 0, 1, 0))
-    y = torch.arange(H, device=f.device)
-    x = torch.arange(W, device=f.device)
+def prefix_sum_rows(img: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along each row, float32."""
+    return torch.cumsum(img.to(torch.float32), dim=-1)
+
+
+def transpose(img: torch.Tensor) -> torch.Tensor:
+    """The image transposed: (W, H) from (H, W)."""
+    return img.transpose(-2, -1)
+
+
+def integral_image(img: torch.Tensor) -> torch.Tensor:
+    """Inclusive 2-D integral image, float32: a scan down the columns, then
+    along the rows."""
+    return torch.cumsum(torch.cumsum(img.to(torch.float32), dim=-2), dim=-1)
+
+
+def _box_sum(ii: torch.Tensor, rad: int) -> torch.Tensor:
+    """Clamped-window sums from an (H+1, W+1) front-padded inclusive
+    integral image: its four corners at rows clip(y - rad) and
+    min(y + rad + 1, H), columns likewise."""
+    H, W = ii.shape[-2] - 1, ii.shape[-1] - 1
+    y = torch.arange(H, device=ii.device)
+    x = torch.arange(W, device=ii.device)
     r_lo, r_hi = (y - rad).clamp(0, H - 1), (y + rad + 1).clamp(max=H)
     c_lo, c_hi = (x - rad).clamp(0, W - 1), (x + rad + 1).clamp(max=W)
 
@@ -63,8 +82,15 @@ def box_filter(img: torch.Tensor, rad: int) -> torch.Tensor:
     if rad <= _DIRECT_MAX_RAD:
         s = _window_sum(_window_sum(f, rad, -2), rad, -1)
     else:
-        s = _integral_box_sum(f, rad)
+        s = _box_sum(F.pad(integral_image(f), (1, 0, 1, 0)), rad)
     return s / _window_area(H, W, rad, f.device)
+
+
+def box_filter_integral_image(ii_padded: torch.Tensor, rad: int) -> torch.Tensor:
+    """Box mean over the clamped window from an (H+1, W+1) zero-padded
+    inclusive integral image (``F.pad(integral_image(img), (1, 0, 1, 0))``)."""
+    H, W = ii_padded.shape[-2] - 1, ii_padded.shape[-1] - 1
+    return _box_sum(ii_padded, rad) / _window_area(H, W, rad, ii_padded.device)
 
 
 def mean_variance(I: torch.Tensor, rad: int):

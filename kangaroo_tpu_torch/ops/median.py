@@ -2,7 +2,10 @@
 
 The window is gathered into an (H, W, k) tensor with edge-replicated
 borders and sorted along the window axis. ``median_filter_reject_invalid``
-is the plain version of the median kernel (``ops/median_cuda.py``).
+is the plain version of the median kernel (``ops/median_cuda.py``); the
+named 3x3 ... 9x9 forms below are the JAX package's plain wrappers and
+stay plain on every device, as there (the SGM frame reaches the kernel
+through ``stereo/dispatch.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,14 @@ def median_filter(img: torch.Tensor, rad: int = 1) -> torch.Tensor:
     return torch.sort(win, dim=-1).values[..., win.shape[-1] // 2]
 
 
+def median_filter_3x3(img: torch.Tensor) -> torch.Tensor:
+    return median_filter(img, 1)
+
+
+def median_filter_5x5(img: torch.Tensor) -> torch.Tensor:
+    return median_filter(img, 2)
+
+
 def median_filter_reject_invalid(img: torch.Tensor, max_bad: int, rad: int = 2) -> torch.Tensor:
     """Median ignoring invalid entries: they sort to the top (+inf) and the
     output is sorted element (k + bad) // 2 (capped at k-1), or invalid when
@@ -45,3 +56,15 @@ def median_filter_reject_invalid(img: torch.Tensor, max_bad: int, rad: int = 2) 
     med = sorted_win.gather(-1, idx[..., None])[..., 0]
     ok = (bad < max_bad) & (bad < k)
     return torch.where(ok, med, invalid_mod.invalid_value(img.dtype))
+
+
+def median_filter_reject_negative_5x5(img: torch.Tensor, max_bad: int) -> torch.Tensor:
+    return median_filter_reject_invalid(img, max_bad, rad=2)
+
+
+def median_filter_reject_negative_7x7(img: torch.Tensor, max_bad: int) -> torch.Tensor:
+    return median_filter_reject_invalid(img, max_bad, rad=3)
+
+
+def median_filter_reject_negative_9x9(img: torch.Tensor, max_bad: int) -> torch.Tensor:
+    return median_filter_reject_invalid(img, max_bad, rad=4)

@@ -1,8 +1,7 @@
-"""Resampling (``kangaroo_tpu/ops/resample.py``): generic resample, the 2x2
-box-mean downsample and its NaN-aware form, which feeds depth pyramids.
-
-``resample`` takes the nearest-neighbour and bilinear samplers; the cubic
-ones (``bicubic``, ``catmull_rom``) are not ported and raise.
+"""Resampling (``kangaroo_tpu/ops/resample.py``): generic resample with the
+nearest-neighbour, bilinear, cubic B-spline and Catmull-Rom samplers, the
+2x2 box-mean downsample and its NaN-aware form, which feeds depth
+pyramids.
 """
 from __future__ import annotations
 
@@ -12,21 +11,23 @@ from ..core import invalid, sampling
 
 NEAREST = 0
 BILINEAR = 1
+BICUBIC = 2
+CATMULL_ROM = 3
 
 _SAMPLERS = {NEAREST: sampling.nearest, BILINEAR: sampling.bilinear,
-             "nearest": sampling.nearest, "bilinear": sampling.bilinear}
+             BICUBIC: sampling.bicubic, CATMULL_ROM: sampling.catmull_rom,
+             "nearest": sampling.nearest, "bilinear": sampling.bilinear,
+             "bicubic": sampling.bicubic, "catmull_rom": sampling.catmull_rom}
 
 
 def resample(img: torch.Tensor, out_w: int, out_h: int, method="bilinear") -> torch.Tensor:
     """Resample img to (out_h, out_w)."""
-    if method not in _SAMPLERS:
-        raise NotImplementedError(f"resample: method {method!r} is not ported "
-                                  "(nearest and bilinear are)")
+    sampler = _SAMPLERS[method]
     in_h, in_w = img.shape[:2]
     y, x = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=img.device),
                           torch.arange(out_w, dtype=torch.float32, device=img.device),
                           indexing="ij")
-    return _SAMPLERS[method](img, x * (in_w / out_w), y * (in_h / out_h))
+    return sampler(img, x * (in_w / out_w), y * (in_h / out_h))
 
 
 def _pool2_sum(x: torch.Tensor) -> torch.Tensor:

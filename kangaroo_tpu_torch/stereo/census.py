@@ -22,7 +22,7 @@ _WINDOWS = {
 }
 
 
-def _shift_clamped(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
+def shift_clamped(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
     """img sampled at (y+r, x+c) with clamped borders."""
     H, W = img.shape
     ys = (torch.arange(H, device=img.device) + r).clamp_(0, H - 1)
@@ -38,12 +38,12 @@ def census(img: torch.Tensor, window: str = "16x16") -> torch.Tensor:
     words = [torch.zeros(img.shape, dtype=torch.int64, device=img.device)
              for _ in range(n_words)]
     for k, (r, c) in enumerate(offsets):
-        bit = (_shift_clamped(img, r, c) < img).to(torch.int64) << (k % 32)
+        bit = (shift_clamped(img, r, c) < img).to(torch.int64) << (k % 32)
         words[k // 32] |= bit
     return torch.stack(words, dim=-1)
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
+def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each int64 entry holding a value in [0, 2**32)."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
@@ -53,7 +53,7 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Popcount of XOR summed over the word axis (int64)."""
-    return _popcount32(a ^ b).sum(dim=-1)
+    return popcount32(a ^ b).sum(dim=-1)
 
 
 def norm_bits(window: str) -> int:

@@ -120,9 +120,10 @@ def test_lr_kernel_matches_plain(dev, sd):
                                atol=0, rtol=0, equal_nan=True)
 
 
-def test_pipeline_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("overrides", [{}, dict(bilateral_filter=True, bilateral_size=3)])
+def test_pipeline_on_card_matches_cpu(dev, overrides):
     left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
-    cfg = stereo_sgm.SgmConfig(max_disp=16)
+    cfg = stereo_sgm.SgmConfig(max_disp=16, **overrides)
     counts = [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)]
     got = stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), cfg).cpu()
     assert [m.launches for m in (sgm_cuda, wta_cuda, median_cuda, lr_cuda)] == \

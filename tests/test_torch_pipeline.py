@@ -1,9 +1,10 @@
 """The SGM frame: kangaroo_tpu_torch.apps.stereo_sgm.sgm_pipeline against
-kangaroo_tpu's on 4- and 8-path configurations and with the guided volume
-filter, plus the port's contracts: it never
-imports JAX, the CPU path launches no kernel, the unported options (and a
-mesh that is not the port's) raise, and the autograd op's backward is the
-plain version's gradient.
+kangaroo_tpu's on 4- and 8-path configurations and with the guided and the
+bilateral volume filters (the bilateral frame also on a mesh and as a
+batch, equal to the port's single frames), plus the port's contracts: it
+never imports JAX, the CPU path launches no kernel, a filtered volume
+reaches the aggregation as float32, a mesh that is not the port's raises,
+and the autograd op's backward is the plain version's gradient.
 
 The frames are held to >= 99.5 % of pixels agreeing (both NaN, or within
 1e-4 px): the SGM aggregates differ in the last bits (sum order), and the
@@ -75,14 +76,72 @@ def test_config_from_dict_carries_every_field():
 
 @pytest.mark.parametrize("cfg,mesh,piece", [
     (tss.SgmConfig(), object(), "mesh"),
-    (tss.SgmConfig(bilateral_filter=True), None, "bilateral_filter"),
 ])
 def test_unported_options_raise(cfg, mesh, piece):
-    """The bilateral filter is not ported; a mesh runs since the
-    multi-device slice, but only a ``kangaroo_tpu_torch.parallel`` one."""
+    """Every SgmConfig option is ported; a mesh runs since the multi-device
+    slice, but only a ``kangaroo_tpu_torch.parallel`` one."""
     left = torch.zeros(8, 16, dtype=torch.uint8)
-    with pytest.raises(TypeError if piece == "mesh" else NotImplementedError, match=piece):
+    with pytest.raises(TypeError, match=piece):
         tss.sgm_pipeline(left, left, cfg, mesh=mesh)
+
+
+# the bilateral frame at a small window (the JAX package's 1,369-tap
+# default compiles for minutes on the CPU)
+BW, BH, BD = 48, 16, 8
+BILATERAL = dict(max_disp=BD, bilateral_filter=True, bilateral_size=3)
+
+
+def _same_frame(a, b):
+    return bool(((torch.isnan(a) & torch.isnan(b)) | (a == b)).all())
+
+
+@pytest.mark.parametrize("lr_from_left", [True, False])
+def test_bilateral_frame_matches_jax(lr_from_left):
+    jcfg = jss.SgmConfig(lr_from_left=lr_from_left, **BILATERAL)
+    cfg = tss.SgmConfig.from_dict(dataclasses.asdict(jcfg))
+    left, right, gt = jsyn.stereo_pair(BW, BH, BD, seed=0)
+    want = np.asarray(jax.jit(lambda a, b: jss.sgm_pipeline(a, b, jcfg))(left, right))
+    got = tss.sgm_pipeline(torch.from_numpy(np.array(left)), torch.from_numpy(np.array(right)),
+                           cfg)
+    assert got.dtype == torch.float32 and got.shape == (BH, BW)
+    assert _agreement(got.numpy(), want, 1e-4) >= 0.995
+    g = np.asarray(gt)
+    ok = np.isfinite(got.numpy())
+    assert ok.mean() > 0.8 and np.median(np.abs(got.numpy()[ok] - g[ok])) < 0.5
+
+
+def test_filtered_volume_reaches_the_aggregation_as_float32(monkeypatch):
+    """Either filter keeps the cost volume float32 (their arithmetic is not
+    exact in bfloat16); the unfiltered 16x16 census volume is bfloat16."""
+    seen = []
+    aggregate = dispatch.semi_global_matching
+
+    def recording(vol, *args, **kwargs):
+        seen.append(vol.dtype)
+        return aggregate(vol, *args, **kwargs)
+
+    monkeypatch.setattr(dispatch, "semi_global_matching", recording)
+    left, right, _ = tsyn.stereo_pair(BW, BH, BD, seed=1, device="cpu")
+    for overrides in (dict(bilateral_filter=True, bilateral_size=1),
+                      dict(guided_filter=True, filter_rad=2), {}):
+        tss.sgm_pipeline(left, right, tss.SgmConfig(max_disp=BD, **overrides))
+    assert seen == [torch.float32, torch.float32, torch.bfloat16]
+
+
+def test_bilateral_frame_on_a_mesh_and_as_a_batch():
+    """The filtered frame on a 4-shard CPU mesh (the volume is filtered
+    before the sharded aggregation) and a batch of 2 (frame by frame) equal
+    the port's single frames."""
+    cfg = tss.SgmConfig(**BILATERAL)
+    pairs = [tsyn.stereo_pair(BW, BH, BD, seed=k, device="cpu") for k in range(2)]
+    frames = [tss.sgm_pipeline(l, r, cfg) for l, r, _ in pairs]
+    meshed = tss.sgm_pipeline(pairs[0][0], pairs[0][1], cfg,
+                              mesh=make_mesh(devices=["cpu"] * 4))
+    assert meshed.shape == (BH, BW) and _same_frame(meshed, frames[0])
+    batch = tss.sgm_pipeline_batched(torch.stack([p[0] for p in pairs]),
+                                     torch.stack([p[1] for p in pairs]), cfg)
+    assert batch.shape == (2, BH, BW)
+    assert all(_same_frame(batch[k], frames[k]) for k in range(2))
 
 
 def test_cpu_path_launches_no_kernel():
@@ -107,16 +166,24 @@ def test_cpu_path_launches_no_kernel():
 
 def test_port_imports_no_jax():
     """Every module of the port imports, and a tiny 4- and 8-path frame
-    (single-device and on a virtual mesh), a stacked batch, the three
-    variational solves, a cold and an incremental DTAM frame and two
+    (single-device and on a virtual mesh), a bilateral-filtered frame,
+    BASELINE config 1's filters and a few other ops, a stacked batch, the
+    three variational solves, a cold and an incremental DTAM frame and two
     KinectFusion frames run, with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["kangaroo_tpu"] = None
         import kangaroo_tpu_torch
-        for m in pkgutil.walk_packages(kangaroo_tpu_torch.__path__, "kangaroo_tpu_torch."):
-            importlib.import_module(m.name)
+        names = {m.name for m in pkgutil.walk_packages(kangaroo_tpu_torch.__path__,
+                                                       "kangaroo_tpu_torch.")}
+        for name in sorted(names):
+            importlib.import_module(name)
+        # the filters-and-ops slice's modules among them
+        assert {f"kangaroo_tpu_torch.{m}" for m in (
+            "core.invalid", "core.sampling", "containers.pyramid", "ops.bilateral", "ops.blur",
+            "ops.convert", "ops.elementwise", "ops.features", "ops.integral_image",
+            "ops.median", "ops.resample", "ops.viz", "ops.warp")} <= names
         from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
         from kangaroo_tpu_torch.variational import deconvolution, rof, tgv
         left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0, device="cpu")
@@ -128,6 +195,18 @@ def test_port_imports_no_jax():
             assert disp.shape == (16, 48)
             mesh = make_mesh(devices=["cpu"] * 4)
             assert stereo_sgm.sgm_pipeline(left, right, cfg, mesh=mesh).shape == (16, 48)
+        bcfg = stereo_sgm.SgmConfig(max_disp=8, bilateral_filter=True, bilateral_size=2)
+        assert stereo_sgm.sgm_pipeline(left, right, bcfg).shape == (16, 48)
+        from kangaroo_tpu_torch.containers import pyramid
+        from kangaroo_tpu_torch.ops import bilateral, blur, features, viz, warp
+        assert blur.gaussian_blur(left, 2.0, rad=10).dtype == torch.uint8
+        assert bilateral.bilateral(left.float() / 255.0, 2.0, 0.1, 5).shape == (16, 48)
+        assert [p.shape for p in pyramid.blur_reduce(left, 3)][-1] == (4, 12)
+        lut = warp.create_matlab_lookup_table(48, 16, 40.0, 40.0, 24.0, 8.0, -0.2, 0.05,
+                                              device="cpu")
+        assert warp.warp(left, lut).dtype == torch.uint8
+        assert features.segment_test(left, 20).shape == (16, 48)
+        assert viz.make_anaglyph(left, right).shape == (16, 48, 4)
         batch = stereo_sgm.sgm_pipeline_batched(torch.stack([left, left]),
                                                 torch.stack([right, right]),
                                                 stereo_sgm.SgmConfig(max_disp=8))
