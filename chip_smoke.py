@@ -145,6 +145,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -254,6 +255,31 @@ BILATERAL_MAX_INVALID, BILATERAL_MAX_MEDIAN_ERR = 0.2, 0.5
 BILATERAL_JAX = {"size3": {"invalid_frac": 0.021086052955665013,
                            "median_err_px": 0.006374359130859375}}
 BILATERAL_SLACK = 0.01
+# the stereo apps' remaining entry points at VGA/64. MultiViewStereo on
+# synthetic.multiview_track(640, 480, 64, seed=0) (focal 0.9 W, baseline 0.1):
+# the keyframe seeded from the pair it makes with the f = 1 view, the 3 views
+# added, then DTAM (50 iterations) and WTA; the coarse_init cold frame (16x16
+# census, 50 coarse and 50 fine iterations) on the stereo pair; Stereo2App
+# (focal 500, baseline 0.08: the background at 2.5 m; default SgmConfig, an 8 m
+# heightmap of 0.1 m cells) for a reset and a steady frame. The JAX package's
+# CPU-JAX figures (`PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_stereo_apps.py` and `tests/test_torch_stereo2.py`); the
+# limits allow 0.01 over each (invalid fraction, median error px, plane depth
+# m) and 1e-3 on each component of the fitted normal n_c
+MVS_FOCAL, MVS_BASELINE = 0.9, 0.1
+STEREO2_FOCAL, STEREO2_BASELINE, STEREO2_HM, STEREO2_CELL = 500.0, 0.08, (8.0, 8.0), 0.1
+MVS_JAX = {"dtam50": {"invalid_frac": 0.0, "median_err_px": 0.035797119140625},
+           "wta": {"invalid_frac": 0.0, "median_err_px": 0.03580284118652344}}
+COARSE_JAX = {"invalid_frac": 0.23609913793103443, "median_err_px": 0.1609201431274414}
+STEREO2_JAX = {
+    "reset": {"invalid_frac": 0.02055110837438423, "median_err_px": 0.0091400146484375,
+            "n_c": [-2.681128535186872e-05, 2.659362507984042e-06, -0.4000094532966614],
+            "plane_depth_m": 2.499940918292159},
+    "steady": {"invalid_frac": 0.02055110837438423, "median_err_px": 0.0091400146484375,
+            "n_c": [-2.687088999664411e-05, 2.659362507984042e-06, -0.4000093936920166],
+            "plane_depth_m": 2.4999412908036365},
+}
+APPS_SLACK, STEREO2_NC_ATOL = 0.01, 1e-3
 # fuse checks: (tag, (D, H, W) volume, (W, H) depth, focal length)
 FUSE_SHAPES = (("vga", (256, 256, 256), (640, 480), 550.0),
                ("kitti", (200, 136, 248), (1242, 375), 1068.0))
@@ -332,12 +358,15 @@ def main() -> int:
     from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume, pyramid
     from kangaroo_tpu_torch.core import se3
     from kangaroo_tpu_torch.fusion import raycast, separable, separable_cuda
-    from kangaroo_tpu_torch.ops import bilateral, blur, integral_image
+    from kangaroo_tpu_torch.ops import bilateral, blur, integral_image, resample
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
     from kangaroo_tpu_torch.parallel import mesh as mesh_mod
     from kangaroo_tpu_torch.parallel import sharding
-    from kangaroo_tpu_torch.stereo import census, costvolume, dispatch, lr_cuda
+    from kangaroo_tpu_torch.solvers import plane_fit
+    from kangaroo_tpu_torch.geometry import depth as depth_mod
+    from kangaroo_tpu_torch.geometry import heightmap
+    from kangaroo_tpu_torch.stereo import census, costvolume, dense_stereo, dispatch, lr_cuda
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
     from kangaroo_tpu_torch.stereo import dtam_cuda, sgm_cuda, wta_cuda
     from kangaroo_tpu_torch.utils import timing
@@ -1093,9 +1122,10 @@ def main() -> int:
         if agree < 0.995:
             smoke.failures.append(f"phase 3 {name}: agreement {agree:.4f} < 0.995")
 
-    def disp_quality(disp):
-        """bench.py disp_stats: skip the max_disp band and the borders."""
-        d, g = disp.cpu().numpy(), gt.cpu().numpy()
+    def disp_quality(disp, truth=None):
+        """bench.py disp_stats against ``truth`` (the pair's ground truth by
+        default): skip the max_disp band and the borders."""
+        d, g = disp.cpu().numpy(), (gt if truth is None else truth).cpu().numpy()
         inner = np.zeros(d.shape, bool)
         inner[8:-8, D + 8:-8] = True
         m = np.isfinite(d) & inner
@@ -1550,6 +1580,210 @@ def main() -> int:
     print(f"phase 3 sgm_pipeline (bilateral_filter=True, size 18) at {W}x{H}/{D}, "
           f"{BILATERAL_FRAMES} frames, and one at size 3:")
     smoke.phase("phase 3 bilateral", bilateral_phase)
+
+    # the stereo apps' remaining entry points at VGA/64: MultiViewStereo on the
+    # multi-view track, the coarse_init cold DTAM frame, Stereo2App, and the
+    # census and scanline dense stereo against the same calls on the CPU
+    mv_key, mv_gt, mv_track = synthetic.multiview_track(W, H, D, seed=0, device=dev)
+    mv_K = Intrinsics.centered(MVS_FOCAL * W, W, H)
+    mv_cfg = stereo.StereoConfig(max_disp=D, dtam_iterations=DTAM_ITERS)
+    coarse_cfg = dataclasses.replace(dcfg, coarse_init=True)
+    s2_K = Intrinsics.centered(STEREO2_FOCAL, W, H)
+    s2_cfg = stereo_sgm.SgmConfig(max_disp=D)
+    apps = {}
+
+    def new_mvs():
+        """The keyframe seeded from the pair it makes with the f = 1 view."""
+        mvs = stereo.MultiViewStereo(mv_K, MVS_BASELINE, mv_cfg)
+        mvs.reset(mv_key.float(), se3.identity(device=dev), right=mv_track[-1][0].float())
+        return mvs
+
+    def plain_dtam_solve(vol, img, cfg, d_init=None):
+        """``stereo.dtam_solve`` of plain versions: WTA (or ``d_init``), then
+        the alternation's transcription."""
+        g = costvolume.exponential_edge_weight(stereo_sgm._intensity(img), cfg.g_alpha,
+                                               cfg.g_beta)
+        d0 = costvolume.cost_vol_minimum_subpix(vol, -1) if d_init is None else d_init
+        q0 = torch.zeros(d0.shape + (2,), device=d0.device)
+        return stereo.dtam_iterate_plain(vol, g, d0, d0, q0, cfg.theta_start, 1.0, cfg.lam,
+                                         cfg.sigma_q, cfg.sigma_d, cfg.huber_alpha, cfg.beta,
+                                         cfg.dtam_iterations)[0]
+
+    def plain_coarse(left, right, cfg):
+        """The coarse_init frame of plain versions, called by name."""
+        left_p = stereo.preprocess_intensity(left, cfg)
+        right_p = stereo.preprocess_intensity(right, cfg)
+        lh, rh = resample.box_half(left_p), resample.box_half(right_p)
+        ccfg = dataclasses.replace(cfg, max_disp=max(cfg.max_disp // 2, 8), coarse_init=False,
+                                   dtam_iterations=cfg.coarse_iterations)
+        d_c = plain_dtam_solve(stereo.cost_volume(lh, rh, ccfg, -1), lh, ccfg)
+        d_init = 2.0 * resample.resample(d_c, W, H, "bilinear")
+        d = plain_dtam_solve(stereo.cost_volume(left_p, right_p, cfg, -1), left_p, cfg, d_init)
+        disp_r = costvolume.cost_vol_minimum_subpix(stereo.cost_volume(left_p, right_p, cfg, 1),
+                                                    1)
+        d = median_plain.median_filter_reject_invalid(d, cfg.median_max_bad, 2)
+        return costvolume.left_right_check(d, disp_r, -1, cfg.max_disp_diff, cfg.max_disp)
+
+    def check_app_quality(name, disp, truth, ref):
+        q = disp_quality(disp, truth)
+        lim = {k: ref[k] + APPS_SLACK for k in ("invalid_frac", "median_err_px")}
+        ok = all(q[k] <= lim[k] for k in lim)
+        print(f"  {'ok  ' if ok else 'FAIL'} {name} quality: {json.dumps(q)}; the JAX package "
+              f"on CPU-JAX: {json.dumps({k: ref[k] for k in lim})}; limits {json.dumps(lim)}")
+        if not ok:
+            smoke.failures.append(f"phase 3 {name}: quality {q}")
+
+    def check_launched(name, now, want_at_least, want_exact=None):
+        print(f"  {name}: launches {json.dumps({k: now[k] for k in want_at_least})}")
+        for k in want_at_least:
+            if now[k] == 0:
+                smoke.failures.append(f"phase 3 {name}: {k} was not launched")
+        check_per_frame(name, 0, {k: 0 for k in now}, now, want_exact or {})
+
+    def multiview_phase():
+        reset_counts()
+        mvs = new_mvs()
+        for img, T_wc in mv_track:
+            mvs.add(img.float(), T_wc)
+        disp_dtam = mvs.solve(use_dtam=True)
+        disp_wta = mvs.solve(use_dtam=False)
+        torch.cuda.synchronize()
+        now = read_counts()
+        # the DTAM solve: its WTA start, one alternation launch, the search
+        # once an iteration; the WTA solve one more WTA launch
+        check_launched("multiview", now, ("wta", "dtam", "wta_sq"),
+                       {"wta": 2, "dtam": 1, "wta_sq": DTAM_ITERS})
+        apps["multiview"] = now
+        n_max = mvs.n.max().item()
+        print(f"  accumulated {len(mv_track)} views onto the seeded keyframe: max n {n_max!r}, "
+              f"counted cells {(mvs.n > 0).float().mean().item():.4f}")
+        if n_max != len(mv_track) + 1:
+            smoke.failures.append(f"phase 3 multiview: max n {n_max}, not {len(mv_track) + 1}")
+        vol = mvs.volume()
+        for name, disp, plain in (
+                ("multiview DTAM", disp_dtam, plain_dtam_solve(vol, mvs.img_v, mv_cfg)),
+                ("multiview WTA", disp_wta, costvolume.cost_vol_minimum_subpix(vol, -1))):
+            if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
+                smoke.failures.append(f"phase 3 {name}: output {tuple(disp.shape)} {disp.dtype}")
+            check_agreement(name, disp, plain)
+        # the solve's kernels on the running-mean volume (1e6 in empty cells)
+        smoke.compare("wta", "multiview running-mean volume",
+                      wta_cuda.cost_vol_minimum_subpix(vol, -1),
+                      costvolume.cost_vol_minimum_subpix(vol, -1), ATOL["wta"])
+        smoke.compare("wta_sq", "multiview running-mean volume, theta 1",
+                      wta_cuda.cost_vol_minimum_square_penalty_subpix(vol, disp_wta, 20.0, 1.0),
+                      costvolume.cost_vol_minimum_square_penalty_subpix(vol, disp_wta, 20.0,
+                                                                        1.0), ATOL["wta_sq"])
+        check_app_quality("multiview DTAM 50", disp_dtam, mv_gt, MVS_JAX["dtam50"])
+        check_app_quality("multiview WTA", disp_wta, mv_gt, MVS_JAX["wta"])
+
+    def coarse_phase():
+        reset_counts()
+        disp = stereo.stereo_pipeline(left, right, coarse_cfg)
+        torch.cuda.synchronize()
+        now = read_counts()
+        # two solves (coarse and fine), the coarse one's WTA start and the
+        # right disparity's WTA; the fine solve starts from the coarse one
+        check_launched("DTAM coarse_init", now, dtam_kernels,
+                       {"dtam": 2, "wta_sq": coarse_cfg.coarse_iterations + DTAM_ITERS,
+                        "wta": 2, "median": 1,
+                        "lr_check": 1})
+        apps["coarse"] = now
+        if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
+            smoke.failures.append(f"phase 3 coarse: output {tuple(disp.shape)} {disp.dtype}")
+        check_agreement("DTAM coarse_init", disp, plain_coarse(left, right, coarse_cfg))
+        check_app_quality("DTAM coarse_init 50 + 50", disp, gt, COARSE_JAX)
+
+    def new_stereo2():
+        return stereo_sgm.Stereo2App(s2_K, STEREO2_BASELINE, s2_cfg, hm_size=STEREO2_HM,
+                                     hm_cell=STEREO2_CELL)
+
+    def plain_stereo2():
+        """The same two frames with the SGM frame of plain versions (the tail
+        is plain PyTorch on every device)."""
+        app = new_stereo2()
+        frame = stereo_sgm.sgm_pipeline
+        stereo_sgm.sgm_pipeline = lambda l, r, cfg, mesh=None: plain_frame(l, r, cfg)
+        try:
+            return app, [app(left, right, image=left)[0] for _ in range(2)]
+        finally:
+            stereo_sgm.sgm_pipeline = frame
+
+    def stereo2_phase():
+        app = new_stereo2()
+        plain_app, plain_disps = plain_stereo2()
+        for f, name in enumerate(("reset", "steady")):
+            reset_counts()
+            disp, d3d = app(left, right, image=left)
+            torch.cuda.synchronize()
+            now = read_counts()
+            check_launched(f"Stereo2App {name} frame", now, frame_kernels["4-path"], frame_want)
+            apps[f"stereo2 {name}"] = now
+            if tuple(d3d.shape) != (H, W, 4) or not app.hm_initialised:
+                smoke.failures.append(f"phase 3 Stereo2App {name}: points {tuple(d3d.shape)}")
+            check_agreement(f"Stereo2App {name} frame", disp, plain_disps[f])
+            check_app_quality(f"Stereo2App {name} frame", disp, gt, STEREO2_JAX[name])
+            n_c = app.n_c.double().cpu().numpy()
+            ref = np.asarray(STEREO2_JAX[name]["n_c"])
+            depth, ref_depth = -1.0 / n_c[2], STEREO2_JAX[name]["plane_depth_m"]
+            ok = (np.abs(n_c - ref).max() <= STEREO2_NC_ATOL
+                  and abs(depth - ref_depth) <= APPS_SLACK)
+            print(f"  {'ok  ' if ok else 'FAIL'} Stereo2App {name} plane: n_c {n_c.tolist()}, "
+                  f"depth {depth!r} m; the JAX package on CPU-JAX: n_c {ref.tolist()}, depth "
+                  f"{ref_depth!r} m; limits |n_c| {STEREO2_NC_ATOL:g}, depth {APPS_SLACK:g} m")
+            if not ok:
+                smoke.failures.append(f"phase 3 Stereo2App {name}: plane {n_c.tolist()}")
+        diff = (app.n_c - plain_app.n_c).abs().max().item()
+        cells = (app.hm.hm[..., 1] == plain_app.hm.hm[..., 1]).float().mean().item()
+        hit = int((app.hm.hm[..., 1] > 0).sum().item())
+        ok = diff <= 1e-4 and cells >= 0.995 and hit > 0
+        print(f"  {'ok  ' if ok else 'FAIL'} Stereo2App vs its plain path after 2 frames: n_c "
+              f"within {diff:.3g} (limit 1e-4), heightmap counts equal on {100 * cells:.3f} % of "
+              f"cells (need >= 99.5 %), {hit} cells fused")
+        if not ok:
+            smoke.failures.append(f"phase 3 Stereo2App vs plain: n_c {diff}, cells {cells}")
+        torch.cuda.synchronize()
+        sites = host_syncs(lambda: plane_fit.fit_plane(d3d, app.Qinv, z0=app.z, iterations=5,
+                                                       zmax=app.plane_within, c=app.plane_c))
+        print(f"  {'ok  ' if not sites else 'FAIL'} fit_plane (5 steps) host synchronisations: "
+              f"{sum(sites.values())} {json.dumps(dict(sites))}")
+        if sites:
+            smoke.failures.append(f"phase 3 Stereo2App: fit_plane host synchronisations {sites}")
+
+    def scanline_phase():
+        """census_stereo and dense_stereo at VGA/64, card against CPU."""
+        cpu = [t.cpu() for t in (left, right)]
+        words = [census.census(x) for x in (left, right)]
+        got = census.census_stereo(*words, D).cpu()
+        want = census.census_stereo(*(census.census(x) for x in cpu), D)
+        same = torch.equal(got, want)
+        hits = (got[8:-8, D + 8:-8].float() == gt.cpu()[8:-8, D + 8:-8]).float().mean().item()
+        print(f"  {'ok  ' if same else 'FAIL'} census_stereo (16x16) card vs CPU: "
+              f"{'equal' if same else 'DIFFERENT'}; {100 * hits:.2f} % of inner pixels at the "
+              "ground truth")
+        if not same:
+            smoke.failures.append("phase 3 census_stereo: card differs from CPU")
+        got = dense_stereo.dense_stereo(left, right, D).cpu()
+        want = dense_stereo.dense_stereo(*cpu, D)
+        equal = (got == want).float().mean().item()
+        hits = (got[8:-8, D + 8:-8].float() == gt.cpu()[8:-8, D + 8:-8]).float().mean().item()
+        ok = equal >= 0.999
+        print(f"  {'ok  ' if ok else 'FAIL'} dense_stereo (sand, r 1) card vs CPU: "
+              f"{100 * equal:.3f} % of pixels equal (need >= 99.9 %); {100 * hits:.2f} % of inner "
+              "pixels at the ground truth")
+        if not ok:
+            smoke.failures.append(f"phase 3 dense_stereo: {equal} equal")
+
+    print(f"phase 3 MultiViewStereo on multiview_track({W}, {H}, {D}): seeded keyframe, "
+          f"{len(mv_track)} views, DTAM {DTAM_ITERS} iterations and WTA:")
+    smoke.phase("phase 3 multiview", multiview_phase)
+    print(f"phase 3 DTAM stereo_pipeline (coarse_init, {coarse_cfg.coarse_iterations} + "
+          f"{DTAM_ITERS} iterations) at {W}x{H}/{D}:")
+    smoke.phase("phase 3 coarse", coarse_phase)
+    print(f"phase 3 Stereo2App at {W}x{H}/{D}: a reset frame and a steady frame:")
+    smoke.phase("phase 3 Stereo2App", stereo2_phase)
+    print(f"phase 3 census_stereo and dense_stereo at {W}x{H}/{D}, card vs CPU:")
+    smoke.phase("phase 3 scanline", scanline_phase)
 
     # --- phase 4: times -------------------------------------------------------
     times, bound = {}, {}
@@ -2551,6 +2785,81 @@ def main() -> int:
 
     print(f"phase 4 filters and the bilateral frame at {W}x{H}/{D}:")
     smoke.phase("phase 4 filters", filters_timing_phase)
+
+    def timed(name, run, runs=10, warmup=2):
+        """Events (median, min, max of ``runs``) and one profiled run's
+        launches and device time of ``run()``."""
+        ms = timing.time_fn(run, warmup=warmup, runs=runs)
+        kernels, wall_us = device_us(run)
+        busy = sum(us for _, us in kernels.values())
+        profile = (f"{sum(n for n, _ in kernels.values())} launches, device {busy / 1e3:.4f} ms "
+                   f"of {wall_us / 1e3:.4f} ms wall" if kernels
+                   else "the profile recorded no device activity")
+        print(f"  {name:34s} {ms['median_ms']:.4f} ms (min {ms['min_ms']:.4f}, max "
+              f"{ms['max_ms']:.4f}, {runs} runs); {profile} [{card}]")
+        return ms
+
+    def apps_timing_phase():
+        """The multi-view accumulation and solves, the coarse_init frame
+        against the cold frame in turns, Stereo2App by stage."""
+        mvs = new_mvs()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        img, T_wc = mv_track[0]
+        img = img.float()
+        T_cv = se3.compose(se3.inverse(T_wc), mvs.T_wv)
+        KT_cv = mvs.K.matrix(device=dev) @ T_cv
+        add = lambda: costvolume.cost_volume_add(mvs.n, mvs.s, mvs.img_v, img, KT_cv, mvs.K,  # noqa: E731
+                                                 mvs.baseline, rad=mvs.rad)
+        add()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"  cost_volume_add {tuple(mvs.n.shape)}: peak memory {peak / 1e9:.3f} GB above "
+              f"the {base / 1e9:.3f} GB held before the call")
+        timed("cost_volume_add (one view)", add)
+        timed("cost_volume_from_stereo (the seed)",
+              lambda: costvolume.cost_volume_from_stereo(mvs.img_v, mv_track[-1][0].float(), D,
+                                                         -1, mvs.rad), runs=5)
+        for view, T in mv_track:
+            mvs.add(view.float(), T)
+        timed("MultiViewStereo.solve DTAM 50", lambda: mvs.solve(use_dtam=True), runs=5)
+        timed("MultiViewStereo.solve WTA", lambda: mvs.solve(use_dtam=False))
+        frames = {"cold": lambda: stereo.stereo_pipeline(left, right, dcfg),
+                  "coarse_init": lambda: stereo.stereo_pipeline(left, right, coarse_cfg)}
+        for turn in ("cold", "coarse_init", "coarse_init", "cold"):
+            timed(f"DTAM frame {turn}", frames[turn], runs=5, warmup=1)
+        app = new_stereo2()
+        app(left, right, image=left)
+        disp = stereo_sgm.sgm_pipeline(left, right, s2_cfg)
+        d3d = depth_mod.depth_from_disparity_vbo(disp, s2_K, STEREO2_BASELINE, app.min_disp)
+        pts_w = torch.cat([se3.transform(se3.identity(device=dev), d3d[..., :3]),
+                           d3d[..., 3:4]], dim=-1)
+
+        def fit(schedule):
+            z = None
+            for c, its in schedule:
+                _, z = plane_fit.fit_plane(d3d, app.Qinv, z0=z, iterations=its,
+                                           zmax=app.plane_within, c=c)
+            return z
+
+        c = app.plane_c
+        timed("Stereo2App SGM frame", lambda: stereo_sgm.sgm_pipeline(left, right, s2_cfg),
+              runs=5)
+        timed("Stereo2App points (vbo)",
+              lambda: depth_mod.depth_from_disparity_vbo(disp, s2_K, STEREO2_BASELINE,
+                                                         app.min_disp))
+        timed("Stereo2App plane fit, 5 steps",
+              lambda: plane_fit.fit_plane(d3d, app.Qinv, z0=app.z, iterations=5,
+                                          zmax=app.plane_within, c=c))
+        timed("Stereo2App plane fit, 105-step reset",
+              lambda: fit(((16 * c, 35), (4 * c, 35), (c, 35))), runs=5)
+        timed("Stereo2App heightmap fuse",
+              lambda: heightmap.update_heightmap(app.hm.hm, pts_w, left, app.hm.T_hw))
+        timed("Stereo2App steady frame", lambda: app(left, right, image=left), runs=5)
+
+    print(f"phase 4 the stereo apps' entry points at {W}x{H}/{D}:")
+    smoke.phase("phase 4 apps", apps_timing_phase)
     torch.cuda.synchronize()
 
     if smoke.failures:

@@ -4,30 +4,36 @@ Preprocess -> census (or truncated abs-and-gradient) cost volume ->
 optional guided filter -> the DTAM alternation (weighted-Huber dual ascent
 on q, weighted primal descent on d, exhaustive auxiliary search with a
 square penalty, theta annealing) or plain WTA -> median, LR check and
-gradient filter. ``stereo_pipeline`` is the cold solve;
+gradient filter. ``stereo_pipeline`` is the cold solve (with
+``coarse_init``, warm-started from a half-size solve);
 ``VariationalStereo.process_frame`` the reference's incremental schedule,
 5 iterations per frame from state carried across frames.
+``MultiViewStereo`` accumulates posed views into a running-mean volume
+(``stereo/costvolume.cost_volume_add``) and extracts disparity from it by
+WTA or the alternation; ``depth_and_cloud`` and ``export_depthmap`` turn
+disparity into depth, points and the app's depth-map files.
 
 On a CUDA tensor the alternation runs in the DTAM kernel
 (``stereo/dtam_cuda.py``, which launches the auxiliary-search kernel once
 per iteration), the WTA initialisation, median and LR check in theirs; on a
 CPU tensor every step is its plain version, :func:`dtam_iterate_plain`
 being the transcription of the JAX package's XLA loop. Not ported yet, and
-refused with ``NotImplementedError``: ``mesh`` (multi-device DTAM) and
-``coarse_init`` (the half-size warm-start solve; ``ops/resample``, which it
-would call, is ported). Not ported: ``MultiViewStereo`` (it waits for the
-cost-volume accumulation of ``stereo/costvolume``, ``cost_volume_add``),
-``depth_and_cloud`` (``geometry/depth``'s disparity conversions) and
-``export_depthmap`` (``io/``).
+refused with ``NotImplementedError``: ``mesh`` (multi-device DTAM).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 from ..backend import f32_scalars
+from ..core import se3
+from ..geometry import depth as depth_mod
+from ..io import pxm
 from ..ops import integral_image as ii
+from ..ops import resample as resample_mod
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
@@ -72,7 +78,8 @@ class StereoConfig:
     median_max_bad: int = 12
     filt_grad_thresh: float = 0.0
     dtam_iterations: int = 80
-    # coarse-to-fine warm start (not ported: raises)
+    # coarse-to-fine warm start: a half-size solve of coarse_iterations
+    # steps, upsampled, initialises the dtam_iterations fine steps
     coarse_init: bool = False
     coarse_iterations: int = 50
 
@@ -238,25 +245,128 @@ class VariationalStereo:
         return self.disp
 
 
-def _check_supported(cfg: StereoConfig, mesh) -> None:
-    for unported, name in ((mesh is not None, "mesh (multi-device DTAM)"),
-                           (cfg.coarse_init, "coarse_init")):
-        if unported:
-            raise NotImplementedError(f"stereo_pipeline: {name} is not ported yet")
+def _coarse_disparity(left_p, right_p, cfg: StereoConfig) -> torch.Tensor:
+    """The coarse-to-fine warm start: the DTAM solve of the 2x2 box-mean
+    pair (max(max_disp / 2, 8) disparities, ``coarse_iterations`` steps),
+    bilinearly upsampled to full size and doubled."""
+    lh, rh = resample_mod.box_half(left_p), resample_mod.box_half(right_p)
+    ccfg = dataclasses.replace(cfg, max_disp=max(cfg.max_disp // 2, 8), coarse_init=False)
+    d_c = dtam_solve(cost_volume(lh, rh, ccfg, -1), lh, cfg.lam, cfg.theta_start, cfg.sigma_q,
+                     cfg.sigma_d, cfg.huber_alpha, cfg.beta, cfg.g_alpha, cfg.g_beta,
+                     iterations=cfg.coarse_iterations)
+    H, W = left_p.shape
+    return 2.0 * resample_mod.resample(d_c, W, H, "bilinear")
 
 
 def stereo_pipeline(left, right, cfg: StereoConfig = StereoConfig(), use_dtam: bool = True,
                     mesh=None) -> torch.Tensor:
     """Full frame for the left image of a rectified (H, W) pair:
     preprocess -> volume -> (guided filter) -> cold DTAM solve of
-    ``cfg.dtam_iterations`` steps, or WTA -> post. Returns float32
-    disparity with NaN invalids, on the inputs' device."""
-    _check_supported(cfg, mesh)
+    ``cfg.dtam_iterations`` steps (from the upsampled half-size solve with
+    ``cfg.coarse_init``), or WTA -> post. Returns float32 disparity with NaN
+    invalids, on the inputs' device."""
+    if mesh is not None:
+        raise NotImplementedError("stereo_pipeline: mesh (multi-device DTAM) is not ported yet")
     left_p, right_p, vol_l = _volumes(left, right, cfg)
     if use_dtam:
+        d_init = _coarse_disparity(left_p, right_p, cfg) if cfg.coarse_init else None
         disp_l = dtam_solve(vol_l, left_p, cfg.lam, cfg.theta_start, cfg.sigma_q, cfg.sigma_d,
                             cfg.huber_alpha, cfg.beta, cfg.g_alpha, cfg.g_beta,
-                            iterations=cfg.dtam_iterations)
+                            iterations=cfg.dtam_iterations, d_init=d_init)
     else:
         disp_l = fast.cost_vol_minimum_subpix(vol_l, -1)
     return postprocess(disp_l, _right_disparity(left_p, right_p, cfg), cfg)
+
+
+class MultiViewStereo:
+    """Multi-frame cost-volume accumulation: anchor a keyframe, add posed
+    views (T_wc (3, 4), camera to world) into its running-mean volume with
+    ``cost_volume_add``, then extract disparity by WTA or the DTAM
+    alternation. Runs on the keyframe's device."""
+
+    def __init__(self, K, baseline: float, cfg: StereoConfig = StereoConfig(), rad: int = 1):
+        self.K = K
+        self.baseline = float(baseline)
+        self.cfg = cfg
+        self.rad = rad
+        self.n = self.s = None
+        self.img_v = None
+        self.T_wv = None
+
+    def reset(self, img_v: torch.Tensor, T_wv: torch.Tensor, right=None):
+        """Anchor a new keyframe: an empty volume, or with ``right`` one seeded
+        from the rectified pair, at the patch radius ``add`` uses (the
+        running mean must average commensurate SAD magnitudes)."""
+        H, W = img_v.shape
+        self.img_v = img_v
+        self.T_wv = T_wv.to(device=img_v.device, dtype=torch.float32)
+        if right is None:
+            self.n, self.s = cv.cost_volume_zero(self.cfg.max_disp, H, W, device=img_v.device)
+        else:
+            self.n, self.s = cv.cost_volume_from_stereo(img_v, right, self.cfg.max_disp, sd=-1,
+                                                        rad=self.rad)
+
+    def add(self, img_c: torch.Tensor, T_wc: torch.Tensor):
+        """Accumulate one posed view: KT_cv = K (T_wc^-1 T_wv). Returns (n, s)."""
+        if self.img_v is None:
+            raise RuntimeError("MultiViewStereo.add: reset() a keyframe first")
+        dev = self.img_v.device
+        T_cv = se3.compose(se3.inverse(T_wc.to(device=dev, dtype=torch.float32)), self.T_wv)
+        KT_cv = self.K.matrix(device=dev) @ T_cv
+        self.n, self.s = cv.cost_volume_add(self.n, self.s, self.img_v, img_c, KT_cv, self.K,
+                                            self.baseline, rad=self.rad)
+        return self.n, self.s
+
+    def volume(self) -> torch.Tensor:
+        """The accumulated volume on the DTAM solver's cost scale: the running
+        means over 255, clipped to [0, 1e6] (an empty cell's 1e30 becomes
+        1e6)."""
+        (scale,) = f32_scalars(self.n.device, 255.0)
+        return torch.clamp(cv.cost_elem_to_float(self.n, self.s) / scale, 0.0, 1e6)
+
+    def solve(self, use_dtam: bool = True) -> torch.Tensor:
+        """Disparity of the accumulated :meth:`volume`: the cold DTAM solve on
+        the keyframe as it is, or WTA + subpixel."""
+        vol = self.volume()
+        if use_dtam:
+            cfg = self.cfg
+            return dtam_solve(vol, self.img_v, cfg.lam, cfg.theta_start, cfg.sigma_q,
+                              cfg.sigma_d, cfg.huber_alpha, cfg.beta, cfg.g_alpha, cfg.g_beta,
+                              iterations=cfg.dtam_iterations)
+        return fast.cost_vol_minimum_subpix(vol, -1)
+
+
+def state_from_numpy(mvs: MultiViewStereo, n, s, img_v, T_wv, device="cuda") -> MultiViewStereo:
+    """Give ``mvs`` the state (n, s, img_v, T_wv) from NumPy arrays of the
+    JAX package's ``MultiViewStereo``, on ``device``; returns ``mvs``."""
+    mvs.n, mvs.s, mvs.T_wv = (torch.from_numpy(np.array(a, np.float32)).to(device)
+                              for a in (n, s, T_wv))
+    mvs.img_v = torch.from_numpy(np.array(img_v)).to(device)
+    return mvs
+
+
+def depth_and_cloud(disp: torch.Tensor, K, baseline, min_disp=16.0):
+    """Depth image and (H, W, 4) point cloud of a disparity image."""
+    return (depth_mod.disp_to_depth(disp, K.fu, baseline, min_disp),
+            depth_mod.depth_from_disparity_vbo(disp, K, baseline, min_disp))
+
+
+def export_depthmap(out_dir, disp, left_img, fu, baseline, frame=0, timestamp=None,
+                    min_disp=0.0):
+    """The app's depth-map export: the depth of the disparity as
+    SDepth-<index>.pdm (binary "P7" float32) beside the grey
+    Left-<index>.pgm, the index the %05d frame counter or, given a
+    timestamp, %015.10f of it. Returns the two paths."""
+    index = f"{timestamp:015.10f}" if timestamp is not None else f"{int(frame):05d}"
+    # fu * baseline of two Python numbers is a double product, rounded to
+    # float32 once, as the JAX package computes it
+    fb = float(fu) * float(baseline)
+    depth = depth_mod.disp_to_depth(disp, fb, 1.0, min_disp).cpu().numpy()
+    dpath = os.path.join(out_dir, f"SDepth-{index}.pdm")
+    gpath = os.path.join(out_dir, f"Left-{index}.pgm")
+    pxm.save_pdm(dpath, depth)
+    grey = left_img.cpu().numpy() if torch.is_tensor(left_img) else np.asarray(left_img)
+    if grey.dtype != np.uint8:
+        grey = np.clip(grey, 0, 255).astype(np.uint8)
+    pxm.save_pxm(gpath, grey)
+    return dpath, gpath

@@ -8,19 +8,24 @@ cross-bilateral filter of each census volume before aggregation (the
 reference's "Apply Bilateral Filter"; ``ops/bilateral.bilateral_volume``,
 plain PyTorch). ``sgm_pipeline(mesh=)`` runs the aggregation and the tail
 over a device mesh (``parallel``), ``sgm_pipeline_batched`` a stacked frame
-batch in one aggregation. ``Stereo2App`` (the plane fit and the heightmap
-after the frame) is not ported yet.
+batch in one aggregation. ``Stereo2App`` runs the frame, then the app's
+tail: disparity to points, the robust plane fit and heightmap fusion.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..core import se3
+from ..geometry import depth as depth_mod
+from ..geometry.heightmap import HeightmapFusion
 from ..ops import bilateral as bf
 from ..ops import integral_image as ii
 from ..parallel import sharding as _sh
 from ..parallel.mesh import Mesh
+from ..solvers import plane_fit as pf
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
@@ -233,3 +238,96 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
         disp_l, _ = fast.left_right_check_pair(disp_l, disp_r, cfg.max_disp_diff,
                                                max_disp=cfg.max_disp)
     return disp_l.reshape(B, H, W)
+
+
+class Stereo2App:
+    """The stereo2 app: per frame ``sgm_pipeline`` (over ``mesh`` if given)
+    -> the disparity's (H, W, 4) points -> 5 Gauss-Newton steps of the
+    plane fit continuing the persistent estimate (the first frame runs the
+    105-step reset, its Tukey width annealed 16c, 4c, c over 35 steps each)
+    -> the world-frame points fused into a heightmap whose grid is laid on
+    the first fitted plane (T_nw = (T_wc PlaneBasis_wp(n_c))^-1, centred in
+    x). The heightmap is made on the first frame, on the frame's device."""
+
+    def __init__(self, K, baseline: float, cfg: SgmConfig = SgmConfig(), plane_fit: bool = True,
+                 heightmap: bool = True, hm_size=(10.0, 10.0), hm_cell: float = 0.1,
+                 min_disp: float = 1.0, plane_c: float = 0.5, plane_within: float = 20.0,
+                 mesh=None):
+        self.K = K
+        self.baseline = float(baseline)
+        self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh_cfg(cfg)  # fail at construction, not at the first frame
+        self.do_plane = plane_fit
+        self.do_heightmap = heightmap
+        self.hm_size, self.hm_cell = hm_size, hm_cell
+        self.min_disp = min_disp
+        self.plane_c = plane_c
+        self.plane_within = plane_within
+        self.z = None  # persistent plane parameters
+        self.n_c = None  # camera-frame plane normal, n . P = -1
+        self.Qinv = None
+        self.hm = None  # HeightmapFusion, made on the first frame
+        self.hm_initialised = False
+
+    def _fit_plane(self, d3d: torch.Tensor, reset: bool) -> None:
+        if self.Qinv is None:
+            H, W = d3d.shape[:2]
+            self.Qinv = pf.make_q_inv(self.K, W, H, device=d3d.device)
+        schedule = ((16 * self.plane_c, 35), (4 * self.plane_c, 35), (self.plane_c, 35)) \
+            if reset else ((self.plane_c, 5),)
+        for c, its in schedule:
+            self.n_c, self.z = pf.fit_plane(d3d, self.Qinv, z0=self.z, iterations=its,
+                                            zmax=self.plane_within, c=c)
+
+    def _make_heightmap(self, T_wc: torch.Tensor) -> HeightmapFusion:
+        """The grid of ``hm_size`` / ``hm_cell``, laid on the fitted plane when
+        there is one (one host read of its pose, on the first frame)."""
+        hm = HeightmapFusion(self.hm_size[0], self.hm_size[1], self.hm_cell, device=T_wc.device)
+        if self.n_c is None:
+            return hm
+        T_nw = se3.inverse(se3.compose(T_wc, pf.plane_basis_wp(self.n_c))).cpu().numpy()
+        T_nw[0, 3] += hm.w * hm.cell_size / 2
+        T_nw[1, 3] += hm.h * hm.cell_size
+        return HeightmapFusion(hm.w * hm.cell_size, hm.h * hm.cell_size, hm.cell_size,
+                               T_hw=T_nw, device=T_wc.device)
+
+    def __call__(self, left: torch.Tensor, right: torch.Tensor, T_wc=None, image=None):
+        """Process one rectified frame; returns ``(disp, d3d)``. The plane
+        lands in ``n_c``/``z`` and the heightmap in ``hm``. ``T_wc`` (3, 4)
+        is the camera pose feeding the heightmap (the identity by default);
+        ``image`` (H, W) colours its cells."""
+        disp = sgm_pipeline(left, right, self.cfg, mesh=self.mesh)
+        T_wc = (se3.identity(device=disp.device) if T_wc is None
+                else T_wc.to(device=disp.device, dtype=torch.float32))
+        d3d = depth_mod.depth_from_disparity_vbo(disp, self.K, self.baseline,
+                                                 min_disp=self.min_disp)
+        if self.do_plane:
+            self._fit_plane(d3d, reset=self.z is None)
+        if self.do_heightmap:
+            if not self.hm_initialised:
+                self.hm = self._make_heightmap(T_wc)
+                self.hm_initialised = True
+            pts_w = torch.cat([se3.transform(T_wc, d3d[..., :3]), d3d[..., 3:4]], dim=-1)
+            self.hm.fuse(pts_w, image)
+        return disp, d3d
+
+
+def state_from_numpy(app: Stereo2App, z, n_c, hm, T_hw, initialised: bool,
+                     device="cuda") -> Stereo2App:
+    """Give ``app`` the state of the JAX package's ``Stereo2App`` from NumPy
+    arrays: the plane (z, n_c; None before the first frame), the heightmap
+    grid and its scaled world -> grid transform (None without a heightmap)
+    and whether the grid is laid; on ``device``. Returns ``app``."""
+    def f32(a):
+        return None if a is None else torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    app.z, app.n_c = f32(z), f32(n_c)
+    if hm is not None:
+        fusion = HeightmapFusion(app.hm_size[0], app.hm_size[1], app.hm_cell, device=device)
+        fusion.hm, fusion.T_hw = f32(hm), f32(T_hw)
+        fusion.h, fusion.w = fusion.hm.shape[:2]
+        app.hm = fusion
+    app.hm_initialised = bool(initialised)
+    return app

@@ -1,8 +1,9 @@
 """Synthetic input (``kangaroo_tpu/apps/synthetic.py``): textured stereo
 pairs with ground-truth disparity, and raycast depth sequences of a
-three-sphere TSDF scene for KinectFusion. Everything is made on the card
-unless the caller asks for another device. ``multiview_track``,
-``kinect_noise`` and ``noisy_stereo_pair`` are not ported yet.
+three-sphere TSDF scene for KinectFusion, and a posed lateral track over
+the stereo pair's scene for ``MultiViewStereo``, and Kinect-like depth
+noise and photometrically corrupted pairs. Everything is made on the card
+unless the caller asks for another device (the noise on its input's).
 """
 from __future__ import annotations
 
@@ -48,15 +49,9 @@ def depth_sequence(n_frames: int, K, w: int, h: int, scene=None, step: float = 0
         yield T_wc, depth
 
 
-def stereo_pair(w: int = 640, h: int = 480, max_disp: int = 64, seed: int = 0,
-                device="cuda"):
-    """Textured fronto-parallel-slab stereo pair with ground-truth disparity:
-    a box at disparity 3D/4 floating over a background plane at D/4.
-
-    Built with NumPy from ``seed`` (the same arrays as ``kangaroo_tpu``);
-    returns (left uint8, right uint8, gt float32) tensors on ``device``: the
-    card unless the caller asks for another device (``device="cpu"``).
-    """
+def _slab_scene(w: int, h: int, max_disp: int, seed: int):
+    """The pair's texture, (h, w + max_disp) uint8, and its integer
+    disparity on the left grid: a box at 3D/4 over a background at D/4."""
     rng = np.random.default_rng(seed)
     # smooth texture: low-frequency noise + speckle so census has signal
     tex = rng.random((h, w + max_disp)).astype(np.float32)
@@ -69,10 +64,91 @@ def stereo_pair(w: int = 640, h: int = 480, max_disp: int = 64, seed: int = 0,
     disp = np.full((h, w), max_disp // 4, np.int32)
     bw, bh = w // 3, h // 3
     disp[bh : 2 * bh, bw : 2 * bw] = (3 * max_disp) // 4
+    return tex, disp
 
+
+def stereo_pair(w: int = 640, h: int = 480, max_disp: int = 64, seed: int = 0,
+                device="cuda"):
+    """Textured fronto-parallel-slab stereo pair with ground-truth disparity:
+    a box at disparity 3D/4 floating over a background plane at D/4.
+
+    Built with NumPy from ``seed`` (the same arrays as ``kangaroo_tpu``);
+    returns (left uint8, right uint8, gt float32) tensors on ``device``: the
+    card unless the caller asks for another device (``device="cpu"``).
+    """
+    tex, disp = _slab_scene(w, h, max_disp, seed)
     # disparity is defined on the left grid: left[x] = right[x - d(x)]
     right = np.ascontiguousarray(tex[:, max_disp : max_disp + w])
     xs = np.arange(w)[None, :] + max_disp - disp
     left = tex[np.arange(h)[:, None], xs]
     return tuple(torch.from_numpy(a).to(device)
                  for a in (left.astype(np.uint8), right, disp.astype(np.float32)))
+
+
+def multiview_track(w: int = 320, h: int = 240, max_disp: int = 32, fractions=(0.5, 0.75, 1.0),
+                    baseline: float = 0.1, seed: int = 0, device="cuda"):
+    """Posed lateral camera track over the ``stereo_pair`` scene: the
+    keyframe is the pair's left image at the identity pose; the view at
+    fraction f sits at x = f * baseline and sees disparity f * d relative
+    to the keyframe (f = 1 is the right image). Exact where (1 - f) * d is
+    integral and locally constant, away from the box edges.
+
+    Built with NumPy from ``seed`` (the same arrays as ``kangaroo_tpu``);
+    returns (keyframe uint8, gt float32, [(view uint8, T_wc (3, 4)), ...])
+    on ``device``: the card unless the caller asks for another device."""
+    tex, disp = _slab_scene(w, h, max_disp, seed)
+    rows = np.arange(h)[:, None]
+
+    def view(f):
+        shift = np.rint((1.0 - f) * disp).astype(np.int64)
+        xs = np.clip(np.arange(w)[None, :] + max_disp - shift, 0, w + max_disp - 1)
+        return torch.from_numpy(tex[rows, xs]).to(device)
+
+    track = [(view(f), se3.make(np.eye(3), [f * baseline, 0.0, 0.0], device=device))
+             for f in fractions]
+    return view(0.0), torch.from_numpy(disp.astype(np.float32)).to(device), track
+
+
+def kinect_noise(depth: torch.Tensor, seed: int = 0, sigma0: float = 0.0012,
+                 sigma1: float = 0.0019, dropout: float = 0.07, quantize: bool = True,
+                 f: float = 580.0, baseline: float = 0.075) -> torch.Tensor:
+    """Kinect-like corruption of a clean metric depth image, made with NumPy
+    from ``seed`` (the same arrays as ``kangaroo_tpu``): axial noise
+    sigma0 + sigma1 (z - 0.4)^2, disparity quantised to 1/8 pixel (z =
+    f b / (round(8 f b / z) / 8)), clumped dropout holes covering about
+    ``dropout`` of the valid pixels, and everything nearer than 0.4 m
+    invalid. float32 with NaN invalid, on ``depth``'s device."""
+    rng = np.random.default_rng(seed)
+    z = depth.detach().cpu().numpy().astype(np.float32).copy()
+    valid = np.isfinite(z) & (z > 0)
+    sig = sigma0 + sigma1 * (z - 0.4) ** 2
+    z = z + sig * rng.standard_normal(z.shape).astype(np.float32)
+    if quantize:
+        fb = f * baseline
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = fb / (np.round(8.0 * fb / z) / 8.0)
+    # a box-smoothed noise field thresholded at the dropout quantile: holes
+    # come as blobs, not salt and pepper
+    field = rng.random(z.shape).astype(np.float32)
+    k = np.ones(9, np.float32) / 9.0
+    for axis in (0, 1):
+        field = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), axis, field)
+    if dropout > 0:
+        z[field < np.quantile(field[valid], dropout)] = np.nan
+    z[~valid] = np.nan
+    z[z < 0.4] = np.nan
+    return torch.from_numpy(np.asarray(z, np.float32)).to(depth.device)
+
+
+def noisy_stereo_pair(w: int = 640, h: int = 480, max_disp: int = 64, seed: int = 0,
+                      sigma: float = 6.0, gain: float = 1.06, offset: float = 4.0,
+                      device="cuda"):
+    """``stereo_pair`` with Gaussian pixel noise (``sigma`` grey levels) on
+    each image and a gain/offset mismatch on the right one, made with NumPy
+    from ``seed``: (left uint8, right uint8, gt float32) on ``device``."""
+    left, right, gt = stereo_pair(w, h, max_disp, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    l = left.numpy().astype(np.float32) + sigma * rng.standard_normal((h, w))
+    r = gain * right.numpy().astype(np.float32) + offset + sigma * rng.standard_normal((h, w))
+    to_u8 = lambda a: torch.from_numpy(np.clip(a, 0, 255).astype(np.uint8)).to(device)  # noqa: E731
+    return to_u8(l), to_u8(r), gt.to(device)

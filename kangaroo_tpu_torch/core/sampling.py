@@ -40,9 +40,10 @@ def bilinear(img: torch.Tensor, x, y) -> torch.Tensor:
     ix1, iy1 = _clip_xy(img, x0.long() + 1, y0.long() + 1)
     f = img.to(torch.float32)
     tl, tr, bl, br = f[iy0, ix0], f[iy0, ix1], f[iy1, ix0], f[iy1, ix1]
-    top = tl + (tr - tl) * fx
-    bot = bl + (br - bl) * fx
-    return top + (bot - top) * fy
+    # each lerp one fused multiply-add, as XLA computes it on the CPU
+    top = torch.addcmul(tl, tr - tl, fx)
+    bot = torch.addcmul(bl, br - bl, fx)
+    return torch.addcmul(top, bot - top, fy)
 
 
 def nearest(img: torch.Tensor, x, y) -> torch.Tensor:

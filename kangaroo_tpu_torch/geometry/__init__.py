@@ -1,2 +1,2 @@
-"""Geometry: depth images to point and normal images."""
-from . import depth
+"""Geometry: depth images to point and normal images, and heightmap fusion."""
+from . import depth, heightmap

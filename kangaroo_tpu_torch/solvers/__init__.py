@@ -1,2 +1,2 @@
-"""Solvers: Gauss-Newton normal equations and projective ICP."""
-from . import icp, lss
+"""Solvers: Gauss-Newton normal equations, projective ICP and the robust plane fit."""
+from . import icp, lss, plane_fit

@@ -1,4 +1,5 @@
-"""Census transform and Hamming-cost volume (``kangaroo_tpu/stereo/census.py``).
+"""Census transform, Hamming-cost volume and WTA Hamming stereo
+(``kangaroo_tpu/stereo/census.py``).
 
 Descriptors keep the JAX package's (H, W, K) layout of 32-bit words (bit i
 of word k is comparison 32*k + i), stored in int64: PyTorch has no shift
@@ -81,3 +82,33 @@ def census_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
         ham = hamming_distance(left, r).to(torch.float32) * inv_bits
         slices.append(torch.where(ok, ham, 0.5).to(dtype))
     return torch.stack(slices, dim=0)
+
+
+def census9x7(img: torch.Tensor) -> torch.Tensor:
+    return census(img, "9x7")
+
+
+def census11x11(img: torch.Tensor) -> torch.Tensor:
+    return census(img, "11x11")
+
+
+def census16x16(img: torch.Tensor) -> torch.Tensor:
+    return census(img, "16x16")
+
+
+def census_stereo(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """WTA Hamming disparity of the left census image: the first d in
+    [0, min(max_disp, x)) with the least Hamming distance to right[y, x - d];
+    int32, -1 where no candidate exists (x = 0)."""
+    H, W, K = left.shape
+    x = torch.arange(W, device=left.device)
+    best_score = torch.full((H, W), 0xFFFFF, dtype=torch.int64, device=left.device)
+    best_disp = torch.full((H, W), -1, dtype=torch.int32, device=left.device)
+    for d in range(max_disp):
+        ok = ((d < x) & (x - d >= 0))[None, :]
+        # wrapped columns of the roll land where ok is False
+        score = hamming_distance(left, torch.roll(right, d, dims=1))
+        better = ok & (score < best_score)
+        best_score = torch.where(better, score, best_score)
+        best_disp = torch.where(better, d, best_disp)
+    return best_disp

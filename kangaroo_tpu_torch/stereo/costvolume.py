@@ -1,6 +1,7 @@
 """Cost-volume reductions (``kangaroo_tpu/stereo/costvolume.py``): WTA
 disparity, subpixel refinement, the DTAM auxiliary search, edge weights,
-right re-anchoring, the LR check and the truncated abs-and-gradient volume.
+right re-anchoring, the LR check, the truncated abs-and-gradient volume,
+and the running-mean (CostVolElem) volumes of ``MultiViewStereo``.
 
 Volumes are (D, H, W); disparity images are (H, W) float32 with NaN for
 invalid, or int32. ``cost_vol_minimum_subpix``,
@@ -11,9 +12,11 @@ and LR-check kernels (``stereo/dispatch.py`` picks between them).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..backend import f32_scalars
 from ..core import invalid as invalid_mod
+from . import census as census_mod
 
 _BIG = 1e10
 
@@ -198,3 +201,142 @@ def left_right_check_pair(disp_l: torch.Tensor, disp_r: torch.Tensor, max_diff: 
     kernel (``stereo/lr_cuda.left_right_check_pair``)."""
     disp_r = left_right_check(disp_r, disp_l, 1, max_diff, max_disp)
     return left_right_check(disp_l, disp_r, -1, max_diff, max_disp), disp_r
+
+
+# --- running-mean (CostVolElem) volumes: a count n and a sum s per cell ------
+
+
+def _box_zero_padded(img: torch.Tensor, rad: int) -> torch.Tensor:
+    """Sum over the (2rad+1)^2 window, zeros outside the image."""
+    k = 2 * rad + 1
+    s = torch.cumsum(F.pad(img, (0, 0, rad + 1, rad)), dim=0)
+    img = s[k:] - s[:-k]
+    s = torch.cumsum(F.pad(img, (rad + 1, rad)), dim=1)
+    return s[:, k:] - s[:, :-k]
+
+
+def cost_volume_from_stereo(img_l: torch.Tensor, img_r: torch.Tensor, max_disp: int,
+                            sd: int = -1, rad: int = 2):
+    """Zero-mean SAD patch volume of a rectified pair as a running-mean
+    accumulator: returns (n, s), (max_disp, H, W) float32, n = 1 where the
+    left patch and the patch at x + sd*d both lie inside the image, else 0
+    (s = 0 there). All disparities at once, as (D, H, W) tensor ops."""
+    H, W = img_l.shape
+    dev = img_l.device
+    f_l, f_r = img_l.to(torch.float32), img_r.to(torch.float32)
+    (n_pix,) = f32_scalars(dev, (2 * rad + 1) ** 2)
+    mean_l = _box_zero_padded(f_l, rad) / n_pix
+    mean_r = _box_zero_padded(f_r, rad) / n_pix
+
+    x = torch.arange(W, device=dev)
+    y = torch.arange(H, device=dev)[:, None]
+    in_l = (x[None, :] >= rad) & (x[None, :] < W - rad) & (y >= rad) & (y < H - rad)
+    xr = x[None, :] + sd * torch.arange(max_disp, device=dev)[:, None]  # (D, W)
+    ok = in_l[None] & ((xr >= rad) & (xr < W - rad))[:, None, :]
+    xi = xr.clamp(0, W - 1)
+
+    def columns(img, cols):
+        """img[:, cols] for (D, W) columns -> (D, H, W)."""
+        return img[:, cols.reshape(-1)].reshape(H, max_disp, W).transpose(0, 1)
+
+    mean_r_at = columns(mean_r, xi)
+    acc = torch.zeros((max_disp, H, W), dtype=torch.float32, device=dev)
+    for dy in range(-rad, rad + 1):
+        ys = (y[:, 0] + dy).clamp(0, H - 1)
+        row_l, row_r = f_l[ys], f_r[ys]
+        for dx in range(-rad, rad + 1):
+            a = row_l[:, (x + dx).clamp(0, W - 1)] - mean_l
+            b = columns(row_r, (xi + dx).clamp(0, W - 1)) - mean_r_at
+            acc += (a - b).abs()
+    return ok.to(torch.float32), torch.where(ok, acc, 0.0)
+
+
+def cost_elem_to_float(n: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The running mean s / n, 1e30 where n == 0."""
+    return torch.where(n > 0, s / torch.clamp(n, min=1.0), 1e30)
+
+
+def cost_volume_zero(max_disp: int, h: int, w: int, device="cuda"):
+    """An empty running-mean volume: (n, s), both zero."""
+    return tuple(torch.zeros((max_disp, h, w), dtype=torch.float32, device=device)
+                 for _ in range(2))
+
+
+def _bilinear_finite(flat: torch.Tensor, H: int, W: int, x: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """``core.sampling.bilinear`` of the (H, W) image ``flat`` (flattened)
+    at finite coordinates, with row-major float offsets (exact below 2**24
+    pixels), one int64 index alive at a time, and each lerp a fused
+    multiply-add (as XLA computes it on the CPU)."""
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    ix0 = x0.clamp(0, W - 1)
+    ix1 = x0.add_(1.0).clamp_(0, W - 1)
+    r0 = y0.clamp(0, H - 1).mul_(W)
+    r1 = y0.add_(1.0).clamp_(0, H - 1).mul_(W)
+
+    def at(r, c):
+        return flat[(r + c).long()]
+
+    tl = at(r0, ix0)
+    top = torch.addcmul(tl, at(r0, ix1).sub_(tl), fx)
+    bl = at(r1, ix0)
+    bot = torch.addcmul(bl, at(r1, ix1).sub_(bl), fx)
+    return torch.addcmul(top, bot.sub_(top), fy)
+
+
+def cost_volume_add(n: torch.Tensor, s: torch.Tensor, img_v: torch.Tensor, img_c: torch.Tensor,
+                    KT_cv: torch.Tensor, K, baseline, rad: int = 1):
+    """Accumulate a posed view into the running-mean volume (n, s) of the
+    keyframe ``img_v``: each (d, v, u) is unprojected at depth
+    fu * baseline / max(d, 1e-9) in the keyframe camera, projected through
+    KT_cv (3, 4) into the contributing image ``img_c``, and where it lands
+    in front of the camera and 5 pixels inside the image, n gains 1 and s
+    the zero-mean SAD over the (2rad+1)^2 patch (img_v at integer taps,
+    img_c bilinear) divided by the patch area. Returns the new (n, s).
+
+    All disparities at once as (D, H, W) tensor ops; the contributing
+    image's bilinear taps are sampled once and serve both its patch mean
+    and the SAD."""
+    D, H, W = n.shape
+    dev = n.device
+    fv_img, fc_img = img_v.to(torch.float32), img_c.to(torch.float32)
+    fu, fv, base, area, tiny = f32_scalars(dev, K.fu, K.fv, baseline, (2 * rad + 1) ** 2, 1e-9)
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                          torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    d = torch.arange(D, dtype=torch.float32, device=dev)
+    z = (fu * base / torch.maximum(d, tiny))[:, None, None]
+    P = (z * (u - K.u0) / fu, z * (v - K.v0) / fv, z)
+    M = KT_cv.to(torch.float32)
+
+    def row(i):
+        """(P @ M[:, :3].T + M[:, 3])[..., i], the products summed by fused
+        multiply-adds in the order of the JAX package's CPU dot."""
+        acc = torch.addcmul(P[0] * M[i, 0], P[1], M[i, 1])
+        return torch.addcmul(acc, P[2], M[i, 2]) + M[i, 3]
+
+    kz = row(2)
+    pu, pv = row(0) / kz, row(1) / kz
+    ok = (kz > 0) & (pu >= 5) & (pu < W - 5) & (pv >= 5) & (pv < H - 5)
+    del P, kz
+    # the samples of cells that are not ok are discarded: keep their
+    # coordinates finite for the gather
+    pu, pv = torch.where(ok, pu, 0.0), torch.where(ok, pv, 0.0)
+
+    taps = [(dy, dx) for dy in range(-rad, rad + 1) for dx in range(-rad, rad + 1)]
+    flat = fc_img.reshape(-1)
+    b = [_bilinear_finite(flat, H, W, pu + dx, pv + dy) for dy, dx in taps]
+    del pu, pv
+    a = [census_mod.shift_clamped(fv_img, dy, dx) for dy, dx in taps]
+    mean_v = torch.zeros_like(fv_img)
+    mean_c = torch.zeros((D, H, W), dtype=torch.float32, device=dev)
+    for a_k, b_k in zip(a, b):
+        mean_v = mean_v + a_k
+        mean_c += b_k
+    mean_v = mean_v / area
+    mean_c /= area
+    acc = torch.zeros_like(mean_c)
+    for a_k, b_k in zip(a, b):
+        acc += torch.sub(a_k - mean_v, b_k.sub_(mean_c)).abs_()
+    del b
+    return n + ok.to(torch.float32), s + torch.where(ok, acc.div_(area), 0.0)

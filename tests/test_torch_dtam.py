@@ -334,9 +334,8 @@ def test_config_from_dict_carries_every_field():
     assert dataclasses.asdict(tst.StereoConfig()) == dataclasses.asdict(jst.StereoConfig())
 
 
-@pytest.mark.parametrize("cfg,mesh,piece", [(tst.StereoConfig(), object(), "mesh"),
-                                            (tst.StereoConfig(coarse_init=True), None,
-                                             "coarse_init")])
+# coarse_init runs since the stereo apps' slice (tests/test_torch_stereo_apps.py)
+@pytest.mark.parametrize("cfg,mesh,piece", [(tst.StereoConfig(), object(), "mesh")])
 def test_unported_options_raise(cfg, mesh, piece):
     left = torch.zeros(8, 16, dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match=piece):

@@ -168,8 +168,10 @@ def test_port_imports_no_jax():
     """Every module of the port imports, and a tiny 4- and 8-path frame
     (single-device and on a virtual mesh), a bilateral-filtered frame,
     BASELINE config 1's filters and a few other ops, a stacked batch, the
-    three variational solves, a cold and an incremental DTAM frame and two
-    KinectFusion frames run, with JAX and the JAX package made unimportable."""
+    three variational solves, a cold and an incremental DTAM frame, a
+    coarse_init frame, the multi-view accumulation and solves, two
+    Stereo2App frames, census and dense stereo and two KinectFusion frames
+    run, with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -184,6 +186,10 @@ def test_port_imports_no_jax():
             "core.invalid", "core.sampling", "containers.pyramid", "ops.bilateral", "ops.blur",
             "ops.convert", "ops.elementwise", "ops.features", "ops.integral_image",
             "ops.median", "ops.resample", "ops.viz", "ops.warp")} <= names
+        # and the stereo apps' remaining modules
+        assert {f"kangaroo_tpu_torch.{m}" for m in (
+            "core.patch_score", "stereo.dense_stereo", "geometry.heightmap", "io.pxm",
+            "solvers.plane_fit")} <= names
         from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
         from kangaroo_tpu_torch.variational import deconvolution, rof, tgv
         left, right, gt = synthetic.stereo_pair(48, 16, 8, seed=0, device="cpu")
@@ -218,6 +224,26 @@ def test_port_imports_no_jax():
         dcfg = stereo.StereoConfig(max_disp=8, census_window="9x7", dtam_iterations=3)
         assert stereo.stereo_pipeline(left, right, dcfg).shape == (16, 48)
         assert stereo.VariationalStereo(dcfg, 2).process_frame(left, right).shape == (16, 48)
+        import dataclasses
+        ccfg = dataclasses.replace(dcfg, max_disp=16, coarse_init=True, coarse_iterations=2)
+        assert stereo.stereo_pipeline(left, right, ccfg).shape == (16, 48)
+        from kangaroo_tpu_torch.containers import Intrinsics
+        from kangaroo_tpu_torch.core import se3
+        key, _, track = synthetic.multiview_track(48, 16, 8, device="cpu")
+        mvs = stereo.MultiViewStereo(Intrinsics.centered(40.0, 48, 16), 0.1, dcfg)
+        mvs.reset(key.float(), se3.identity(device="cpu"), right=track[-1][0].float())
+        for img, T_wc in track:
+            mvs.add(img.float(), T_wc)
+        assert mvs.solve().shape == mvs.solve(use_dtam=False).shape == (16, 48)
+        app = stereo_sgm.Stereo2App(Intrinsics.centered(40.0, 48, 16), 0.2,
+                                    stereo_sgm.SgmConfig(max_disp=8, census_window="9x7"),
+                                    hm_size=(2.0, 2.0))
+        for _ in range(2):
+            assert app(left, right, image=left)[1].shape == (16, 48, 4)
+        from kangaroo_tpu_torch.stereo import census, dense_stereo
+        cl, cr = census.census9x7(left), census.census9x7(right)
+        assert census.census_stereo(cl, cr, 8).shape == (16, 48)
+        assert dense_stereo.dense_stereo(left, right, 8).shape == (16, 48)
         import torch
         from kangaroo_tpu_torch.apps import kinectfusion as kf
         from kangaroo_tpu_torch.containers import Intrinsics
