@@ -86,7 +86,18 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    frames (kernels 1-4 launched every frame, agreement with the plain frame,
    a disparity map and not noise), the SGM and WTA kernels on the filtered
    float32 volume against their plain versions, and one frame at size 3
-   within 0.01 of the JAX package's CPU-JAX quality;
+   within 0.01 of the JAX package's CPU-JAX quality; KinectFusion's
+   leftover paths at the same config on the same orbit, 8 frames each with
+   the counts read after every frame: the guided and exact engines and
+   colour fusion (a seeded rgb texture) launch no kernel, every frame of
+   the moving workspace (threshold 2 voxels, lead 2 m) launches the fuse
+   once, also right after a roll, and rolls the volume at least once; each
+   path's ATE and final rmse within the JAX package's CPU-JAX figures +
+   slack; the colour volume's touched share and median grey within 1e-3
+   of the JAX package's, ``run_sequence(rgbs=)`` against the frame loop
+   (poses 1e-4, colour 1e-3) and ``render(show_colour=True)`` hitting; the
+   moving workspace against the frame of plain versions after the same
+   rolls (poses 1e-4);
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
@@ -133,7 +144,12 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    at size 18 and 3 against the unfiltered frame and the plain bilateral
    frame in turns (median of 3 runs), the volume filter alone (median of 3,
    its launches, device time and busy share) and the 4-path SGM call on the
-   filtered float32 volume against the bf16 census volume.
+   filtered float32 volume against the bf16 census volume;
+   and KinectFusion's leftover paths' frames (guided, exact, colour,
+   moving) on a running model: events (two rounds of 5), kernel launches
+   and device busy share (torch.profiler), host synchronisations by site
+   and peak memory, the exact and guided voxel fuses alone with their peak
+   memory, and a one-voxel roll.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound (the larger of
@@ -237,6 +253,31 @@ KF_JAX = {"loop": {"ate_rmse_m": 0.0043184165842831135, "final_rmse": 0.00062900
                        "final_rmse": 0.0006289670709520578}}
 KF_ATE_SLACK, KF_RMSE_SLACK = 0.001, 0.001
 KF_FRAMES = 8
+# the KinectFusion leftovers on the same orbit and config: the guided and
+# exact engines, colour fusion on the separable engine (every frame with
+# synthetic.colour_texture(640, 480, seed=0); the default rgb camera, focal
+# 535.7 and an 8 cm baseline) and the moving workspace (threshold 2 voxels,
+# look-at point 2 m ahead: about a voxel of drift a frame on the orbit). The
+# JAX package's CPU-JAX figures for the frame loop (and the colour sequence
+# replay): ATE and final rmse, held to the slacks above; the colour volume's
+# share of touched voxels and their median grey, held to KF_COLOUR_ATOL; the
+# rolls (`PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_kinectfusion.py
+# engine=guided`, `engine=exact`, `use_colour=1`, `moving_threshold_voxels=2
+# moving_lead_m=2.0`)
+KF_PATHS = {"guided": {"engine": "guided"}, "exact": {"engine": "exact"},
+            "colour": {"use_colour": True},
+            "moving": {"moving_threshold_voxels": 2, "moving_lead_m": 2.0}}
+KF_JAX_PATHS = {
+    "guided": {"ate_rmse_m": 0.0029607980977743864, "final_rmse": 0.004345808643847704},
+    "exact": {"ate_rmse_m": 0.0006475798436440527, "final_rmse": 0.0014537276001647115},
+    "colour": {"ate_rmse_m": 0.0043184165842831135, "final_rmse": 0.0006290000164881349,
+               "touched_share": 0.06816285848617554, "median_grey": 0.4900343120098114},
+    "colour sequence": {"ate_rmse_m": 0.004318505525588989,
+                        "final_rmse": 0.0006289670709520578},
+    "moving": {"ate_rmse_m": 0.0043544890359044075, "final_rmse": 0.0006073150434531271,
+               "rolls": 4},
+}
+KF_COLOUR_ATOL = 1e-3
 # BASELINE config 1 (bench.py bench_filters): one 640x480 float32 frame of
 # numpy's default_rng(0).random, gaussian_blur(img, 2.0, rad=10) and
 # bilateral(img, 2.0, 0.1, 5); beside them blur, a 4-level blur_reduce and
@@ -357,7 +398,7 @@ def main() -> int:
     from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
     from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume, pyramid
     from kangaroo_tpu_torch.core import se3
-    from kangaroo_tpu_torch.fusion import raycast, separable, separable_cuda
+    from kangaroo_tpu_torch.fusion import raycast, rolling, sdf, separable, separable_cuda
     from kangaroo_tpu_torch.ops import bilateral, blur, integral_image, resample
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
@@ -1465,6 +1506,134 @@ def main() -> int:
     print(f"phase 3 KinectFusion (256^3 TSDF, {W}x{H}, its (1, 0, 2, 3)): frame 0 seeded, "
           f"{KF_FRAMES} frames:")
     smoke.phase("phase 3 KinectFusion", kf_phase)
+
+    # the KinectFusion leftovers on the same orbit and config: the guided and
+    # exact engines, colour fusion on the separable engine (a seeded rgb
+    # texture) and the moving workspace, each path driven with the counts set
+    # to 0 just before and read just after every frame
+    kf_paths = {}  # path -> (seeded pipeline after the loop, loop poses)
+
+    def kf_path_cfg(name):
+        return dataclasses.replace(kf_cfg, **KF_PATHS[name])
+
+    def kf_path_seeded(name):
+        """A pipeline of path ``name`` seeded with frame 0 at the true pose."""
+        cfg = kf_path_cfg(name)
+        pipe = kf.KinectFusion(kf_K, cfg, device=dev)
+        pipe.T_wl = kf_data["poses"][0].clone()
+        pipe.process_frame(kf_data["depths"][0], rgb=kf_data["rgb"] if cfg.use_colour else None)
+        return pipe
+
+    def kf_path_phase(name):
+        if "rgb" not in kf_data:
+            kf_data["rgb"] = synthetic.colour_texture(W, H, seed=0, device=dev)
+        cfg = kf_path_cfg(name)
+        rgb = kf_data["rgb"] if cfg.use_colour else None
+        pipe = kf_path_seeded(name)
+        want_fuses = 1 if cfg.engine == "separable" and not cfg.use_colour else 0
+        torch.cuda.synchronize()
+        reset_counts()
+        prev = read_counts()
+        poses, rolls = [], 0
+        for f, depth in enumerate(kf_data["depths"][1:], 1):
+            lo = pipe.vol.bbox.lo.clone()
+            poses.append(pipe.process_frame(depth, rgb=rgb).clone())
+            torch.cuda.synchronize()
+            now = read_counts()
+            launched = {k: now[k] - prev[k] for k in now if now[k] != prev[k]}
+            rolled = not torch.equal(lo, pipe.vol.bbox.lo)
+            rolls += rolled
+            print(f"  frame {f}: kernel launches {launched or 'none'}, rolled {rolled}, rmse "
+                  f"{pipe.rmse:.6g}, tracking {pipe.tracking_good}")
+            if (launched.get("separable_fuse", 0) != want_fuses
+                    or set(launched) - {"separable_fuse"} or not pipe.tracking_good):
+                smoke.failures.append(f"phase 3 KinectFusion {name} frame {f}: launches "
+                                      f"{launched}, tracking_good {pipe.tracking_good}")
+            prev = now
+        kf_paths[name] = (pipe, poses)
+        if not (bool(torch.isfinite(torch.stack(poses)).all())
+                and float(pipe.vol.weight.max()) > 0):
+            smoke.failures.append(f"phase 3 KinectFusion {name}: non-finite poses or an empty "
+                                  "volume")
+        ref = KF_JAX_PATHS[name]
+        check_kf_quality(name, kf_ate(poses), pipe.rmse, ref)
+        if cfg.moving_threshold_voxels > 0:
+            print(f"  {'ok  ' if rolls >= 1 else 'FAIL'} {rolls} of {KF_FRAMES} frames rolled the "
+                  f"volume (the JAX package on CPU-JAX: {ref['rolls']}); box lo "
+                  f"{pipe.vol.bbox.lo.tolist()}")
+            if rolls < 1:
+                smoke.failures.append(f"phase 3 KinectFusion {name}: no roll")
+            kf_moving_vs_plain(poses)
+        if cfg.use_colour:
+            kf_colour_checks(pipe, poses, rgb)
+
+    def kf_moving_vs_plain(loop_poses):
+        """The frame of plain versions after the same rolls (recenter_shift
+        on the plain path's own pose and volume) from the same seed."""
+        cfg = kf_path_cfg("moving")
+        vol = kf.KinectFusion(kf_K, kf_cfg, device=dev).vol
+        T = kf_data["poses"][0].clone()
+        T, _ = plain_kf_frame(vol, T, kf_data["depths"][0], True)
+        errs, rolls = [], 0
+        for depth, T_kernel in zip(kf_data["depths"][1:], loop_poses):
+            shift = rolling.recenter_shift(vol, T, lead=cfg.moving_lead_m,
+                                           threshold_voxels=cfg.moving_threshold_voxels)
+            if shift != (0, 0, 0):
+                vol = rolling.roll_volume(vol, shift)
+                rolls += 1
+            T, _ = plain_kf_frame(vol, T, depth, False)
+            errs.append((T - T_kernel).abs().max().item())
+        ok = max(errs) <= 1e-4
+        print(f"  {'ok  ' if ok else 'FAIL'} kernel path vs plain path after the same rolls "
+              f"({rolls}): max pose difference per frame {[f'{e:.2g}' for e in errs]} (limit "
+              f"1e-4)")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion moving: kernel vs plain path {max(errs)}")
+
+    def kf_colour_checks(pipe, loop_poses, rgb):
+        """The colour volume against the JAX package's figures, the sequence
+        replay against the frame loop, and the colour render."""
+        ref = KF_JAX_PATHS["colour"]
+        touched = pipe.vol.weight > 0
+        got = {"touched_share": touched.float().mean().item(),
+               "median_grey": pipe.color_vol.data[touched].median().item()}
+        ok = all(abs(got[k] - ref[k]) <= KF_COLOUR_ATOL for k in got)
+        print(f"  {'ok  ' if ok else 'FAIL'} colour volume {json.dumps(got)}; the JAX package on "
+              f"CPU-JAX {json.dumps({k: ref[k] for k in got})} (limit {KF_COLOUR_ATOL:g} each)")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion colour: volume {got}")
+        seq = kf_path_seeded("colour")
+        n = len(loop_poses)
+        reset_counts()
+        seq_poses, seq_rmses = seq.run_sequence(torch.stack(kf_data["depths"][1:]),
+                                                rgbs=torch.stack([rgb] * n))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_counts().items() if v}
+        err = (seq_poses - torch.stack(loop_poses)).abs().max().item()
+        cerr = (seq.color_vol.data - pipe.color_vol.data).abs().max().item()
+        ok = err <= 1e-4 and cerr <= KF_COLOUR_ATOL and not launched
+        print(f"  {'ok  ' if ok else 'FAIL'} run_sequence(rgbs=) vs the frame loop: max pose "
+              f"difference {err:.3g} (limit 1e-4), colour {cerr:.3g} (limit "
+              f"{KF_COLOUR_ATOL:g}), kernel launches {launched or 'none'}")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion colour: sequence vs loop {err} {cerr}")
+        check_kf_quality("colour sequence", kf_ate(seq_poses), float(seq_rmses[-1]),
+                         KF_JAX_PATHS["colour sequence"])
+        d, _, img = pipe.render(show_colour=True)
+        hit = torch.isfinite(d)
+        vals = img[hit]
+        ok = (int(hit.sum()) > 0.05 * hit.numel() and bool(torch.isfinite(vals).all())
+              and 0.0 <= float(vals.min()) and float(vals.max()) <= 1.0)
+        print(f"  {'ok  ' if ok else 'FAIL'} render(show_colour=True): {int(hit.sum())} pixels "
+              f"hit, grey {float(vals.min()):.4f}..{float(vals.max()):.4f}, median "
+              f"{float(vals.median()):.4f}")
+        if not ok:
+            smoke.failures.append("phase 3 KinectFusion colour: render(show_colour=True)")
+
+    for name in KF_PATHS:
+        print(f"phase 3 KinectFusion {name} ({json.dumps(KF_PATHS[name])}; 256^3 TSDF, {W}x{H}, "
+              f"its (1, 0, 2, 3)): frame 0 seeded, {KF_FRAMES} frames:")
+        smoke.phase(f"phase 3 KinectFusion {name}", kf_path_phase, name)
 
     # BASELINE config 1 and the filters beside it, on the card against the
     # same calls on the CPU (no kernel: plain PyTorch on the tensor's device)
@@ -2721,6 +2890,70 @@ def main() -> int:
 
     print(f"phase 4 KinectFusion times at 256^3, {W}x{H}:")
     smoke.phase("phase 4 KinectFusion", kf_timing_phase)
+
+    def kf_paths_timing_phase():
+        """Each leftover path's frame on a running model (frame 3 again after
+        frames 1-2): CUDA-event time (two rounds of 5 frames: median, min,
+        max), kernel launches and device busy time a frame (torch.profiler),
+        host synchronisations by site, and peak memory above the model; the
+        exact and guided voxel fuses alone (time and peak memory), and a
+        one-voxel roll of the TSDF."""
+        depth = kf_data["depths"][3]
+        for name in KF_PATHS:
+            cfg = kf_path_cfg(name)
+            rgb = kf_data["rgb"] if cfg.use_colour else None
+            pipe = kf_path_seeded(name)
+            for d in kf_data["depths"][1:3]:
+                pipe.process_frame(d, rgb=rgb)
+            frame = lambda: pipe.process_frame(depth, rgb=rgb)  # noqa: E731
+            r1 = timing.time_fn(frame, warmup=1, runs=5)
+            r2 = timing.time_fn(frame, warmup=0, runs=5)
+            kernels, wall_us = device_us(frame)
+            n = sum(c for c, _ in kernels.values())
+            busy = sum(us for _, us in kernels.values())
+            sites = host_syncs(frame)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            frame()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            lo, hi = min(r1["min_ms"], r2["min_ms"]), max(r1["max_ms"], r2["max_ms"])
+            print(f"  kf_{name:7s} frame {r1['median_ms']:.3f} / {r2['median_ms']:.3f} ms (min "
+                  f"{lo:.3f}, max {hi:.3f}); {n} kernel launches, device busy {busy / 1e3:.3f} ms "
+                  f"of {wall_us / 1e3:.3f} ms profiled wall (idle {1 - busy / wall_us:.3f}); "
+                  f"{sum(sites.values())} host synchronisations; peak memory "
+                  f"{peak / 2**20:.1f} MiB above the model [{card}]")
+            print(f"    host synchronisations by site: {json.dumps(dict(sites.most_common(6)))}")
+            top = sorted(((us, c, k) for k, (c, us) in kernels.items()), reverse=True)[:3]
+            for us, c, k in top:
+                print(f"    {us / 1e3:.4f} ms in {c} launches: {k[:90]}")
+            if name == "exact":
+                _, kin_v, kin_n = kf.preprocess_depth(depth, kf_K, cfg)
+                T_cw = se3.inverse(pipe.T_wl)
+                for sample in ("bilinear", "nearest"):
+                    fuse = lambda: sdf.sdf_fuse(  # noqa: E731
+                        pipe.vol, kin_v[0][..., 2], kin_n[0], T_cw, kf_K, pipe.trunc_dist,
+                        cfg.max_w, cfg.min_cos_theta, sample=sample)
+                    f1 = timing.time_fn(fuse, warmup=1, runs=5)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fuse()
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    print(f"  sdf_fuse sample={sample}: {f1['median_ms']:.3f} ms (min "
+                          f"{f1['min_ms']:.3f}, max {f1['max_ms']:.3f}); peak memory "
+                          f"{peak / 2**20:.1f} MiB above the model, of which the new volume "
+                          f"{2 * pipe.vol.val.numel() * 4 / 2**20:.1f} MiB [{card}]")
+            if name == "moving":
+                roll = lambda: rolling.roll_volume(pipe.vol, (1, 0, 0))  # noqa: E731
+                r = timing.time_fn(roll, warmup=1, runs=10)
+                print(f"  roll_volume by one voxel along x: {r['median_ms']:.3f} ms (min "
+                      f"{r['min_ms']:.3f}, max {r['max_ms']:.3f}) [{card}]")
+
+    print(f"phase 4 KinectFusion leftover paths' frames at 256^3, {W}x{H}:")
+    smoke.phase("phase 4 KinectFusion paths", kf_paths_timing_phase)
 
     def filters_timing_phase():
         """BASELINE config 1 and the filters beside it (median of 20 runs),

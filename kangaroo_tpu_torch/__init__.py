@@ -11,8 +11,46 @@ launches the kernel or raises.
 Ported so far: the SGM stereo frame (``apps.stereo_sgm.sgm_pipeline``, on
 one device or over a device mesh of ``parallel``) and its stacked batch
 (``sgm_pipeline_batched``), DTAM variational stereo (``apps.stereo``), the
-variational solvers (``variational``) and the KinectFusion frame on the
-plane-sweep engine (``apps.kinectfusion``).
+variational solvers (``variational``) and the KinectFusion frame on its
+three engines, with colour fusion and the moving workspace
+(``apps.kinectfusion``). As the JAX package, the package exports its
+containers and core modules.
 """
 
+from .containers.bbox import BoundingBox, fit_to_frustum
+from .containers.intrinsics import Intrinsics, level_from_max_pixels
+from .containers.volume import BoundedVolume, TsdfVolume
+from .containers import pyramid
+from .core import invalid, patch_score, reweighting, sampling, se3
+from .ops import convert, elementwise, resample
+
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Subpackages on attribute access: kangaroo_tpu_torch.stereo, .fusion,
+    .variational, .geometry, .solvers, .parallel, .apps, .ops, .io, .utils."""
+    import importlib
+
+    if name in {"stereo", "fusion", "variational", "geometry", "solvers", "parallel", "apps",
+                "ops", "io", "utils", "backend"}:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(name)
+
+
+__all__ = [
+    "BoundingBox",
+    "BoundedVolume",
+    "Intrinsics",
+    "TsdfVolume",
+    "convert",
+    "elementwise",
+    "fit_to_frustum",
+    "invalid",
+    "level_from_max_pixels",
+    "pyramid",
+    "resample",
+    "reweighting",
+    "sampling",
+    "se3",
+]

@@ -1,28 +1,34 @@
-"""KinectFusion: dense TSDF SLAM on the plane-sweep engine
-(``kangaroo_tpu/apps/kinectfusion.py``).
+"""KinectFusion: dense TSDF SLAM (``kangaroo_tpu/apps/kinectfusion.py``).
 
 Per frame: depth -> masked bilateral -> NaN-aware pyramid -> point and
 normal images; a model raycast per ICP level; multi-level projective
-point-plane ICP; the gated pose update; the TSDF fuse. The JAX package
-compiles the frame into one jit (``make_frame_step``) and a recorded
-sequence into one scan (``make_sequence_runner``); here the step is a plain
-function of tensors and the sequence a loop of it. On a CUDA tensor the
-fuse is the kernel of ``fusion/separable_cuda.py``, which the frame hands
-its own volume to update in place (``KinectFusion`` replaces its volume
-every frame anyway); everything else is plain PyTorch. Host reads per
-frame: the rmse (the divergence gate), each model raycast's plane window
-and orientation test and its 'auto' sweep axis, and the fuse's axis under
-``sweep_axis='auto'``.
+point-plane ICP; the gated pose update; the TSDF fuse, with the colour
+volume under ``use_colour``. Three engines, as the JAX package's:
 
-Ported: ``KinectFusionConfig`` (+ ``from_dict``), ``preprocess_depth``,
-``raycast_model``, ``icp_refine``, ``make_frame_step``,
-``make_sequence_runner`` and ``KinectFusion`` (``reset``,
-``process_frame``, ``run_sequence``, ``render``) on the separable engine,
-and :func:`state_from_numpy` to start from the JAX package's state. Not
-ported yet, and refused with ``NotImplementedError`` (ROADMAP Queue 1,
-KinectFusion leftovers): the 'exact' and 'guided' engines, colour fusion
-(``use_colour``), ``mesh=`` (model-parallel), the moving workspace
-(``moving_threshold_voxels > 0``), and meshing, volume I/O and keyframe
+* 'separable' (the default): the plane sweep of ``fusion/separable.py``.
+  The JAX package compiles the frame into one jit (``make_frame_step``)
+  and a recorded sequence into one scan (``make_sequence_runner``); here
+  the step is a plain function of tensors and the sequence a loop of it.
+  On a CUDA tensor the depth-only fuse is the kernel of
+  ``fusion/separable_cuda.py``, which the frame hands its own volume to
+  update in place; the colour fuse is plain PyTorch on every device.
+* 'guided': the coarse-to-fine raycast (``raycast_sdf_guided``, on levels
+  whose size 4 divides) and the nearest-sample voxel fuse
+  (``fusion/sdf.py``), in stages.
+* 'exact': the reference's full sphere trace and bilinear voxel fuse.
+
+The guided and exact engines associate ICP in a window of
+``icp_assoc_radius`` pixels (their model lies on the pixel lattice) and
+are plain PyTorch on every device. ``moving_threshold_voxels`` > 0 rolls
+the volume (and the colour volume) to follow the camera before each
+frame (``fusion/rolling.py``). Host reads per frame: the rmse (the
+divergence gate), each sweep raycast's plane window and orientation test
+and its 'auto' sweep axis, the fuse's axis under 'auto', one read every 8
+march steps of the guided and exact raycasts, and the pose for the moving
+workspace.
+
+Not ported, and refused with ``NotImplementedError`` (ROADMAP Queue 1):
+``mesh=`` (model-parallel frames), and meshing, volume I/O and keyframe
 texturing (``save_mesh``, ``save_volume``, ``load_volume``,
 ``save_keyframe``, ``render_textured``).
 """
@@ -35,19 +41,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..backend import f32_scalars
+from ..backend import constant, f32_scalars
 from ..containers import pyramid as pyr_mod
 from ..containers.bbox import BoundingBox
 from ..containers.intrinsics import Intrinsics
-from ..containers.volume import TsdfVolume
+from ..containers.volume import BoundedVolume, TsdfVolume
 from ..core import se3
+from ..fusion import raycast as rc
+from ..fusion import rolling
+from ..fusion import sdf as sdf_mod
 from ..fusion import separable
 from ..geometry import depth as depth_mod
 from ..ops import bilateral as bf
 from ..solvers import icp as icp_mod
 from ..solvers.lss import LSS
 
-_TODO = "is not ported yet (ROADMAP Queue 1, KinectFusion leftovers)"
+_TODO = "is not ported yet (ROADMAP Queue 1)"
+ENGINES = ("separable", "guided", "exact")
 
 
 @dataclasses.dataclass
@@ -95,14 +105,8 @@ class KinectFusionConfig:
 def _check_config(cfg: KinectFusionConfig, mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(f"KinectFusion mesh= (model-parallel frames) {_TODO}")
-    if cfg.engine != "separable":
-        raise NotImplementedError(f"KinectFusion engine={cfg.engine!r} {_TODO}; "
-                                  "engine='separable' runs")
-    if cfg.use_colour:
-        raise NotImplementedError(f"KinectFusion use_colour (colour fusion) {_TODO}")
-    if cfg.moving_threshold_voxels > 0:
-        raise NotImplementedError(f"KinectFusion moving_threshold_voxels > 0 (the moving "
-                                  f"workspace) {_TODO}")
+    if cfg.engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {cfg.engine!r}")
 
 
 def preprocess_depth(depth_raw: torch.Tensor, K: Intrinsics, cfg: KinectFusionConfig):
@@ -120,9 +124,12 @@ def raycast_model(vol: TsdfVolume, T_wl, K: Intrinsics, cfg: KinectFusionConfig,
                   levels: Optional[tuple] = None, trunc: Optional[float] = None,
                   cloud: bool = False):
     """Predicted depth/point/normal pyramids: a raycast of the model from the
-    current pose per level, each on its pose's 'auto' sweep axis (with
-    ``levels`` given, the levels of no ICP iteration are skipped). ``cloud``
-    returns the sweep-grid camera-space clouds."""
+    current pose per level (with ``levels`` given, the levels of no ICP
+    iteration are skipped). The separable engine sweeps each level on its
+    pose's 'auto' axis (``cloud`` returns the sweep-grid camera-space
+    clouds); the guided engine raycasts coarse to fine where 4 divides the
+    level's size, the exact engine (and the guided one elsewhere) marches
+    the whole image."""
     if trunc is None:
         trunc = cfg.trunc_dist_factor * float(np.linalg.norm(
             vol.voxel_size_units().cpu().numpy()))
@@ -135,26 +142,40 @@ def raycast_model(vol: TsdfVolume, T_wl, K: Intrinsics, cfg: KinectFusionConfig,
             continue
         Kl = K.level(l)
         w_l, h_l = cfg.w >> l, cfg.h >> l
-        if cloud:
+        if cfg.engine == "separable" and cloud:
             d, v, n = separable.raycast_sdf_separable(
                 vol, T_wl, Kl, w_l, h_l, cfg.near, cfg.far, trunc_dist=trunc, shade=False,
                 output="cloud")
-        else:
+            out_d.append(d)
+            out_v.append(v)
+            out_n.append(n)
+            continue
+        if cfg.engine == "separable":
             d, n, _ = separable.raycast_sdf_separable(
                 vol, T_wl, Kl, w_l, h_l, cfg.near, cfg.far, trunc_dist=trunc, shade=False)
-            v = depth_mod.depth_to_vbo(d, Kl)
+        elif cfg.engine == "guided" and w_l % 4 == 0 and h_l % 4 == 0:
+            d, n, _ = rc.raycast_sdf_guided(vol, T_wl, Kl, w_l, h_l, cfg.near, cfg.far,
+                                            trunc_dist=trunc, subpix=True)
+        else:
+            d, n, _ = rc.raycast_sdf(vol, T_wl, Kl, w_l, h_l, cfg.near, cfg.far,
+                                     trunc_dist=trunc, subpix=True)
         out_d.append(d)
-        out_v.append(v)
+        out_v.append(depth_mod.depth_to_vbo(d, Kl))
         out_n.append(n)
     return out_d, out_v, out_n
 
 
-def icp_refine(kin_v, ray_v, ray_n, K: Intrinsics, cfg: KinectFusionConfig,
+def icp_refine(kin_v, ray_v, ray_n, K: Intrinsics, cfg: KinectFusionConfig, K_mats=None,
                assoc_radius: int | None = None):
     """Multi-level projective point-plane ICP, coarse to fine. Returns
     (T_lp, rmse): the live-from-previous correction, applied as
-    T_wl <- T_wl T_lp^-1, and the last iteration's rmse (a device scalar)."""
+    T_wl <- T_wl T_lp^-1, and the last iteration's rmse (a device scalar).
+    ``K_mats`` are the per-level 3x3 intrinsics matrices (default: from
+    ``K``); ``assoc_radius`` bounds the association window, valid only for
+    a model on the live pixel lattice."""
     dev = kin_v[0].device
+    if K_mats is None:
+        K_mats = [K.level(l).matrix(dev) for l in range(cfg.max_levels)]
     T_lp = se3.identity(dev)
     rmse = torch.zeros((), dtype=torch.float32, device=dev)
     c, prior = f32_scalars(dev, cfg.icp_c, cfg.motion_prior)
@@ -162,8 +183,7 @@ def icp_refine(kin_v, ray_v, ray_n, K: Intrinsics, cfg: KinectFusionConfig,
     for l in range(cfg.max_levels - 1, -1, -1):
         if cfg.its[l] == 0:
             continue
-        Kl = K.level(l)
-        Km = Kl.matrix(dev)
+        Km = torch.as_tensor(K_mats[l], dtype=torch.float32, device=dev)
         K_live = (Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2])
         for _ in range(cfg.its[l]):
             s = icp_mod.icp_point_plane(kin_v[l], ray_v[l], ray_n[l], Km @ T_lp,
@@ -178,28 +198,47 @@ def icp_refine(kin_v, ray_v, ray_n, K: Intrinsics, cfg: KinectFusionConfig,
     return T_lp, rmse
 
 
+def _colour_camera(cfg: KinectFusionConfig, device="cuda"):
+    """(T_cd, K_rgb): the rgb camera from the depth camera,
+    SE3(I, (baseline, 0, 0))^-1, and its intrinsics; the colour fuse
+    projects through T_iw = T_cd T_wl^-1."""
+    b = float(np.float32(cfg.rgb_baseline_m))
+    T_dc = constant(((1.0, 0.0, 0.0, b), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0)),
+                    device=device)
+    return se3.inverse(T_dc), Intrinsics.centered(cfg.rgb_focal, cfg.w, cfg.h)
+
+
+def _roi(cfg: KinectFusionConfig):
+    """The fuse's near/far plane crop."""
+    return dict(near=cfg.near if cfg.fuse_roi else None, far=cfg.far if cfg.fuse_roi else None)
+
+
 def make_frame_step(K: Intrinsics, cfg: KinectFusionConfig, bbox, trunc_dist: float, mesh=None,
                     sweep_axis: int | str = "auto"):
     """The whole frame as one function: preprocess -> model raycasts -> ICP
-    -> gated pose update -> fuse.
+    -> gated pose update -> the plane-sweep fuse.
 
     Returns ``step(val, weight, T_wl, depth_raw, first, lo, hi) -> (val',
-    weight', T_wl', rmse)``. ``first`` (bool or bool tensor) skips the pose
-    gate: frame 0, or the re-seed after a reset, fuses at the current pose.
-    The tracking gate rides inside the fuse (no update -> exact
-    passthrough). ``val``/``weight`` are updated in place and returned.
-    ``sweep_axis`` pins the fuse's sweep axis (0 z, 1 y, 2 x; the one
-    full-resolution raycast's too under ``raycast_downsample``) or picks it
-    per pose ('auto'); the per-level model raycasts pick their own, as in
-    the JAX package."""
+    weight', T_wl', rmse)``, or with ``cfg.use_colour``
+    ``step(val, weight, cval, T_wl, depth_raw, rgb, first, lo, hi) ->
+    (val', weight', cval', T_wl', rmse)`` (the colour fuse). ``first``
+    (bool or bool tensor) skips the pose gate: frame 0, or the re-seed
+    after a reset, fuses at the current pose. The tracking gate rides
+    inside the fuse (no update -> exact passthrough). ``val``/``weight``
+    (and ``cval``) are updated in place and returned. ``sweep_axis`` pins
+    the fuse's sweep axis (0 z, 1 y, 2 x; the one full-resolution
+    raycast's too under ``raycast_downsample``) or picks it per pose
+    ('auto'); the per-level model raycasts pick their own, as in the JAX
+    package. The model raycasts are the config's engine's, as there."""
     del bbox  # the bbox flows through as (lo, hi) arguments
     _check_config(cfg, mesh)
+    pixel_lattice = cfg.raycast_downsample or cfg.engine != "separable"
 
-    def step(val, weight, T_wl, depth_raw, first, lo, hi):
+    def body(val, weight, T_wl, depth_raw, first, lo, hi, cval=None, rgb=None):
         dev = val.device
         _, kin_v, kin_n = preprocess_depth(depth_raw, K, cfg)
         vol = TsdfVolume(val, weight, BoundingBox(lo, hi))
-        if cfg.raycast_downsample:
+        if cfg.engine == "separable" and cfg.raycast_downsample:
             # one full-resolution sweep; the coarser ICP levels from a
             # NaN-aware box downsampling of its depth
             d0, _, _ = separable.raycast_sdf_separable(
@@ -214,21 +253,32 @@ def make_frame_step(K: Intrinsics, cfg: KinectFusionConfig, bbox, trunc_dist: fl
                 ray_n.append(None if vl is None else depth_mod.normals_from_vbo(vl))
         else:
             _, ray_v, ray_n = raycast_model(vol, T_wl, K, cfg, levels=cfg.its, trunc=trunc_dist,
-                                            cloud=True)
+                                            cloud=cfg.engine == "separable")
         T_lp, rmse = icp_refine(kin_v, ray_v, ray_n, K, cfg,
-                                assoc_radius=cfg.icp_assoc_radius if cfg.raycast_downsample
-                                else None)
+                                assoc_radius=cfg.icp_assoc_radius if pixel_lattice else None)
         if not isinstance(first, torch.Tensor):
             first = torch.full((), bool(first), dtype=torch.bool, device=dev)
         good = torch.isfinite(rmse) & (rmse < cfg.max_rmse)
         T_new = torch.where(good & ~first, se3.compose(T_wl, se3.inverse(T_lp)), T_wl)
+        T_lw = se3.inverse(T_new)
+        if cval is not None:
+            T_cd, K_rgb = _colour_camera(cfg, dev)
+            fusedv, fusedc = separable.sdf_fuse_color_separable(
+                vol, BoundedVolume(cval, vol.bbox), kin_v[0][..., 2], kin_n[0], T_lw, K, rgb,
+                se3.compose(T_cd, T_lw), K_rgb, trunc_dist, cfg.max_w, cfg.min_cos_theta,
+                enable=good | first, sweep_axis=sweep_axis, inplace=True, **_roi(cfg))
+            return fusedv.val, fusedv.weight, fusedc.data, T_new, rmse
         fused = separable.sdf_fuse_separable(
-            vol, kin_v[0][..., 2], kin_n[0], se3.inverse(T_new), K, trunc_dist, cfg.max_w,
-            cfg.min_cos_theta, enable=good | first, sweep_axis=sweep_axis,
-            near=cfg.near if cfg.fuse_roi else None, far=cfg.far if cfg.fuse_roi else None,
-            inplace=True)
+            vol, kin_v[0][..., 2], kin_n[0], T_lw, K, trunc_dist, cfg.max_w, cfg.min_cos_theta,
+            enable=good | first, sweep_axis=sweep_axis, inplace=True, **_roi(cfg))
         return fused.val, fused.weight, T_new, rmse
 
+    if cfg.use_colour:
+        def step(val, weight, cval, T_wl, depth_raw, rgb, first, lo, hi):
+            return body(val, weight, T_wl, depth_raw, first, lo, hi, cval=cval, rgb=rgb)
+    else:
+        def step(val, weight, T_wl, depth_raw, first, lo, hi):
+            return body(val, weight, T_wl, depth_raw, first, lo, hi)
     return step
 
 
@@ -236,9 +286,23 @@ def make_sequence_runner(K: Intrinsics, cfg: KinectFusionConfig, trunc_dist: flo
                          sweep_axis: int | str = 0):
     """A recorded sequence through :func:`make_frame_step`, frame by frame:
     ``run(val, weight, T_wl, depths (N, H, W), firsts (N,), lo, hi) ->
-    (val', weight', T_wl', poses (N, 3, 4), rmses (N,))``. ``sweep_axis`` is
-    the axis of every frame (the JAX package's scan needs a static one)."""
+    (val', weight', T_wl', poses (N, 3, 4), rmses (N,))``; with
+    ``cfg.use_colour`` ``run(val, weight, cval, T_wl, depths, rgbs
+    (N, H, W, 3), firsts, lo, hi) -> (val', weight', cval', T_wl', poses,
+    rmses)``. ``sweep_axis`` is the axis of every frame (the JAX package's
+    scan needs a static one)."""
     step = make_frame_step(K, cfg, None, trunc_dist, mesh=mesh, sweep_axis=sweep_axis)
+
+    if cfg.use_colour:
+        def run(val, weight, cval, T_wl, depths, rgbs, firsts, lo, hi):
+            poses, rmses = [], []
+            for depth, rgb, first in zip(depths, rgbs, firsts):
+                val, weight, cval, T_wl, rmse = step(val, weight, cval, T_wl, depth, rgb, first,
+                                                     lo, hi)
+                poses.append(T_wl)
+                rmses.append(rmse)
+            return val, weight, cval, T_wl, torch.stack(poses), torch.stack(rmses)
+        return run
 
     def run(val, weight, T_wl, depths, firsts, lo, hi):
         poses, rmses = [], []
@@ -251,11 +315,16 @@ def make_sequence_runner(K: Intrinsics, cfg: KinectFusionConfig, trunc_dist: flo
     return run
 
 
-def state_from_numpy(val, weight, lo, hi, T_wl, device="cuda"):
+def state_from_numpy(val, weight, lo, hi, T_wl, device="cuda", color=None):
     """The port's state from NumPy arrays of the JAX package's (a volume's
-    val and weight, its box corners, a pose): -> (TsdfVolume, T_wl)."""
+    val and weight, its box corners, a pose): -> (TsdfVolume, T_wl), or
+    with ``color`` (the colour volume's data, on the same box)
+    -> (TsdfVolume, BoundedVolume, T_wl)."""
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)  # noqa: E731
-    return TsdfVolume(f32(val), f32(weight), BoundingBox(f32(lo), f32(hi))), f32(T_wl)
+    vol = TsdfVolume(f32(val), f32(weight), BoundingBox(f32(lo), f32(hi)))
+    if color is None:
+        return vol, f32(T_wl)
+    return vol, BoundedVolume(f32(color), BoundingBox(f32(lo), f32(hi))), f32(T_wl)
 
 
 class KinectFusion:
@@ -272,7 +341,9 @@ class KinectFusion:
             bb = BoundingBox.create((-e, -e, cfg.near), (e, e, cfg.near + 2 * e), device=device)
         else:
             bb = BoundingBox.create((-e,) * 3, (e,) * 3, device=device)
-        self.vol = self._fresh_volume(bb)
+        self.vol, self.color_vol = self._fresh_volumes(bb)
+        if cfg.use_colour:
+            self.T_cd, self.K_rgb = _colour_camera(cfg, self.device)
         self.T_wl = se3.identity(self.device)
         self.frame = 0
         self.tracking_good = True
@@ -281,10 +352,15 @@ class KinectFusion:
         self._seq_run = None  # the sequence runner and its sweep axis
         self._seq_axis = None
 
-    def _fresh_volume(self, bb, shape=None) -> TsdfVolume:
-        """A NaN-reset TSDF of the config's cube, or of ``shape`` (D, H, W)."""
+    def _fresh_volumes(self, bb, cbb=None, shape=None):
+        """(NaN-reset TSDF, colour volume filled with 0.5 or None) of the
+        config's cube, or of ``shape`` (D, H, W)."""
         d, h, w = shape if shape is not None else (self.cfg.vol_res,) * 3
-        return TsdfVolume.create(w, h, d, bb, trunc_dist=math.nan)
+        vol = TsdfVolume.create(w, h, d, bb, trunc_dist=math.nan)
+        cvol = None
+        if self.cfg.use_colour:
+            cvol = BoundedVolume.create(w, h, d, cbb if cbb is not None else bb, fill=0.5)
+        return vol, cvol
 
     @property
     def trunc_dist(self) -> float:
@@ -292,54 +368,81 @@ class KinectFusion:
             self.vol.voxel_size_units().cpu().numpy()))
 
     def reset(self, T_wl=None):
-        """NaN-reset the TSDF and go back to the identity pose (or ``T_wl``)."""
-        self.vol = self._fresh_volume(self.vol.bbox, shape=tuple(self.vol.val.shape))
+        """NaN-reset the TSDF, refill the colour volume with 0.5 and go back to
+        the identity pose (or ``T_wl``)."""
+        self.vol, self.color_vol = self._fresh_volumes(
+            self.vol.bbox, cbb=self.color_vol.bbox if self.color_vol is not None else None,
+            shape=tuple(self.vol.val.shape))
         self.T_wl = (se3.identity(self.device) if T_wl is None
                      else torch.as_tensor(T_wl, dtype=torch.float32, device=self.device))
         self.frame = 0
         self.tracking_good = True
 
-    def _one_step_frame(self, depth_raw):
-        """The whole frame through the step; only the rmse is read on the host."""
+    def _one_step_frame(self, depth_raw, rgb=None):
+        """The whole frame through the step (with the colour volume under
+        ``use_colour``); only the rmse is read on the host."""
+        colour = self.cfg.use_colour
         if self._step is None:
             self._step = make_frame_step(self.K, self.cfg, self.vol.bbox, self.trunc_dist)
         bbox = self.vol.bbox
-        val, w, T_new, rmse = self._step(self.vol.val, self.vol.weight, self.T_wl, depth_raw,
-                                         self.frame == 0, bbox.lo, bbox.hi)
+
+        def call(first):
+            if colour:
+                return self._step(self.vol.val, self.vol.weight, self.color_vol.data, self.T_wl,
+                                  depth_raw, rgb, first, bbox.lo, bbox.hi)
+            out = self._step(self.vol.val, self.vol.weight, self.T_wl, depth_raw, first,
+                             bbox.lo, bbox.hi)
+            return out[:2] + (None,) + out[2:]
+
+        val, w, cval, T_new, rmse = call(self.frame == 0)
         self.rmse = float(rmse) if self.frame > 0 else 0.0
         if self.frame > 0 and not np.isfinite(self.rmse):
             # divergence: the gate kept the volume; reset and re-seed from
             # the current frame
             self.reset()
-            val, w, T_new, _ = self._step(self.vol.val, self.vol.weight, self.T_wl, depth_raw,
-                                          True, bbox.lo, bbox.hi)
+            val, w, cval, T_new, _ = call(True)
         else:
             self.tracking_good = self.frame == 0 or self.rmse < self.cfg.max_rmse
         self.vol = TsdfVolume(val, w, bbox)
+        if colour:
+            self.color_vol = BoundedVolume(cval, self.color_vol.bbox)
         self.T_wl = T_new
         self.frame += 1
         return self.T_wl
 
     def run_sequence(self, depths, rgbs=None):
         """Process a stacked (N, H, W) recorded sequence through the frame
-        step; returns (poses (N, 3, 4), rmses (N,)) and leaves the pipeline at
-        the last frame. The sweep axis is the seed pose's for the whole
-        sequence, and the divergence reset does not fire mid-sequence, as in
-        the JAX package's scan replay."""
-        if rgbs is not None:
-            raise NotImplementedError(f"run_sequence rgbs (colour fusion) {_TODO}")
+        step (with stacked (N, H, W, 3) ``rgbs`` under ``use_colour``);
+        returns (poses (N, 3, 4), rmses (N,)) and leaves the pipeline at the
+        last frame. The sweep axis is the seed pose's for the whole
+        sequence, and neither the divergence reset nor the moving workspace
+        fires mid-sequence, as in the JAX package's scan replay. The
+        separable engine only, as there."""
+        cfg = self.cfg
+        if cfg.engine != "separable":
+            raise ValueError("run_sequence requires the separable engine's frame step")
+        if cfg.use_colour and rgbs is None:
+            raise ValueError("use_colour requires stacked rgbs")
+        if rgbs is not None and not cfg.use_colour:
+            raise ValueError("rgbs passed but the config has use_colour=False; they would be "
+                             "ignored")
         depths = torch.as_tensor(depths, device=self.device)
         n = depths.shape[0]
         axis = separable._view_axis_index(se3.inverse(self.T_wl))
         if self._seq_run is None or self._seq_axis != axis:
-            self._seq_run = make_sequence_runner(self.K, self.cfg, self.trunc_dist,
-                                                 sweep_axis=axis)
+            self._seq_run = make_sequence_runner(self.K, cfg, self.trunc_dist, sweep_axis=axis)
             self._seq_axis = axis
         was_first = self.frame == 0
         firsts = [i == 0 and was_first for i in range(n)]
-        val, w, T_wl, poses, rmses = self._seq_run(self.vol.val, self.vol.weight, self.T_wl,
-                                                   depths, firsts, self.vol.bbox.lo,
-                                                   self.vol.bbox.hi)
+        lo, hi = self.vol.bbox.lo, self.vol.bbox.hi
+        if cfg.use_colour:
+            val, w, cval, T_wl, poses, rmses = self._seq_run(
+                self.vol.val, self.vol.weight, self.color_vol.data, self.T_wl, depths,
+                torch.as_tensor(rgbs, device=self.device), firsts, lo, hi)
+            self.color_vol = BoundedVolume(cval, self.color_vol.bbox)
+        else:
+            val, w, T_wl, poses, rmses = self._seq_run(self.vol.val, self.vol.weight, self.T_wl,
+                                                       depths, firsts, lo, hi)
         self.vol = TsdfVolume(val, w, self.vol.bbox)
         self.T_wl = T_wl
         self.frame += n
@@ -348,27 +451,46 @@ class KinectFusion:
             self.rmse, self.tracking_good = 0.0, True
         else:
             self.rmse = float(rmses[-1])
-            self.tracking_good = bool(np.isfinite(self.rmse) and self.rmse < self.cfg.max_rmse)
+            self.tracking_good = bool(np.isfinite(self.rmse) and self.rmse < cfg.max_rmse)
         return poses, rmses
+
+    def _maybe_roll(self):
+        """The moving workspace: roll the volume (and the colour volume, by
+        the same shift) by whole voxels when the camera's look-at point has
+        drifted past the threshold. Opt-in: one host read of the pose a
+        frame."""
+        cfg = self.cfg
+        if cfg.moving_threshold_voxels <= 0 or self.frame == 0:
+            return
+        shift = rolling.recenter_shift(self.vol, self.T_wl, lead=cfg.moving_lead_m,
+                                       threshold_voxels=cfg.moving_threshold_voxels)
+        if shift == (0, 0, 0):
+            return
+        self.vol = rolling.roll_volume(self.vol, shift)
+        if self.color_vol is not None:
+            self.color_vol = rolling.roll_bounded_volume(self.color_vol, shift)
 
     def process_frame(self, depth_raw, rgb=None, fuse: bool = True,
                       pose_refinement: bool = True):
-        """One iteration of the main loop; returns the new pose T_wl."""
+        """One iteration of the main loop; returns the new pose T_wl. ``rgb``
+        (H, W, 3) fuses colour when the config has ``use_colour``."""
         cfg = self.cfg
-        if rgb is not None:
-            raise NotImplementedError(f"process_frame rgb (colour fusion) {_TODO}")
+        self._maybe_roll()
         depth_raw = torch.as_tensor(depth_raw, device=self.device)
-        if fuse and pose_refinement:
-            return self._one_step_frame(depth_raw)
+        if rgb is not None:
+            rgb = torch.as_tensor(rgb, device=self.device)
+        if (cfg.engine == "separable" and fuse and pose_refinement
+                and (rgb is None) == (not cfg.use_colour)):
+            # the whole frame through the step: depth only, or colour with an
+            # rgb frame
+            return self._one_step_frame(depth_raw, rgb=rgb)
         _, kin_v, kin_n = preprocess_depth(depth_raw, self.K, cfg)
         if pose_refinement and self.frame > 0:
             _, ray_v, ray_n = raycast_model(self.vol, self.T_wl, self.K, cfg, levels=cfg.its,
-                                            cloud=True)
-            # as the JAX package: the window association under
-            # raycast_downsample, though the model here is the sweep cloud
+                                            cloud=cfg.engine == "separable")
+            pixel_lattice = cfg.raycast_downsample or cfg.engine != "separable"
             T_lp, rmse = icp_refine(kin_v, ray_v, ray_n, self.K, cfg,
-                                    assoc_radius=cfg.icp_assoc_radius if cfg.raycast_downsample
-                                    else None)
+                                    assoc_radius=cfg.icp_assoc_radius if pixel_lattice else None)
             self.rmse = float(rmse)
             if not np.isfinite(self.rmse):
                 # divergence: reset and fuse the current frame into the
@@ -379,23 +501,48 @@ class KinectFusion:
                 if self.tracking_good:
                     self.T_wl = se3.compose(self.T_wl, se3.inverse(T_lp))
         if fuse and self.tracking_good:
-            self.vol = separable.sdf_fuse_separable(
-                self.vol, kin_v[0][..., 2], kin_n[0], se3.inverse(self.T_wl), self.K,
-                self.trunc_dist, cfg.max_w, cfg.min_cos_theta,
-                near=cfg.near if cfg.fuse_roi else None, far=cfg.far if cfg.fuse_roi else None)
+            T_lw = se3.inverse(self.T_wl)
+            depth = kin_v[0][..., 2]
+            if cfg.use_colour and rgb is not None:
+                T_iw = se3.compose(self.T_cd, T_lw)
+                if cfg.engine == "separable":
+                    self.vol, self.color_vol = separable.sdf_fuse_color_separable(
+                        self.vol, self.color_vol, depth, kin_n[0], T_lw, self.K, rgb, T_iw,
+                        self.K_rgb, self.trunc_dist, cfg.max_w, cfg.min_cos_theta, **_roi(cfg))
+                else:
+                    self.vol, self.color_vol = sdf_mod.sdf_fuse_color(
+                        self.vol, self.color_vol, depth, kin_n[0], T_lw, self.K, rgb, T_iw,
+                        self.K_rgb, self.trunc_dist, cfg.max_w, cfg.min_cos_theta)
+            elif cfg.engine == "separable":
+                self.vol = separable.sdf_fuse_separable(
+                    self.vol, depth, kin_n[0], T_lw, self.K, self.trunc_dist, cfg.max_w,
+                    cfg.min_cos_theta, **_roi(cfg))
+            else:
+                self.vol = sdf_mod.sdf_fuse(
+                    self.vol, depth, kin_n[0], T_lw, self.K, self.trunc_dist, cfg.max_w,
+                    cfg.min_cos_theta, sample="nearest" if cfg.engine == "guided" else "bilinear")
         self.frame += 1
         return self.T_wl
 
     def render(self, T_wc=None, level: int = 0, show_colour: bool = False):
-        """View-only raycast: (depth, normals, Phong image)."""
-        if show_colour:
-            raise NotImplementedError(f"render show_colour (colour fusion) {_TODO}")
+        """View-only raycast: (depth, normals, image); the image is Phong
+        shading, or the colour volume's grey with ``show_colour`` (under
+        ``use_colour``), which takes the guided raycast (the exact one on
+        the exact engine or where 4 does not divide the size)."""
         cfg = self.cfg
         T = self.T_wl if T_wc is None else torch.as_tensor(T_wc, dtype=torch.float32,
                                                             device=self.device)
-        return separable.raycast_sdf_separable(self.vol, T, self.K.level(level), cfg.w >> level,
-                                               cfg.h >> level, cfg.near, cfg.far,
-                                               trunc_dist=self.trunc_dist)
+        Kl = self.K.level(level)
+        w_l, h_l = cfg.w >> level, cfg.h >> level
+        cvol = self.color_vol if show_colour and cfg.use_colour else None
+        if cfg.engine == "separable" and cvol is None:
+            return separable.raycast_sdf_separable(self.vol, T, Kl, w_l, h_l, cfg.near, cfg.far,
+                                                   trunc_dist=self.trunc_dist)
+        if cfg.engine != "exact" and w_l % 4 == 0 and h_l % 4 == 0:
+            return rc.raycast_sdf_guided(self.vol, T, Kl, w_l, h_l, cfg.near, cfg.far,
+                                         trunc_dist=self.trunc_dist, color_vol=cvol)
+        return rc.raycast_sdf(self.vol, T, Kl, w_l, h_l, cfg.near, cfg.far,
+                              trunc_dist=self.trunc_dist, color_vol=cvol)
 
     def _not_ported(self, what):
         raise NotImplementedError(f"KinectFusion.{what} (meshing, volume I/O and keyframe "

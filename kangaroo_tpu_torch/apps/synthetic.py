@@ -2,7 +2,8 @@
 pairs with ground-truth disparity, and raycast depth sequences of a
 three-sphere TSDF scene for KinectFusion, and a posed lateral track over
 the stereo pair's scene for ``MultiViewStereo``, and Kinect-like depth
-noise and photometrically corrupted pairs. Everything is made on the card
+noise and photometrically corrupted pairs; ``colour_texture`` (not in the
+JAX package) is an rgb frame for colour fusion. Everything is made on the card
 unless the caller asks for another device (the noise on its input's).
 """
 from __future__ import annotations
@@ -47,6 +48,22 @@ def depth_sequence(n_frames: int, K, w: int, h: int, scene=None, step: float = 0
         T_wc = orbit_pose(i * step, radius, device=vol.val.device)
         depth, _, _ = rc.raycast_sdf(vol, T_wc, K, w, h, near=0.5, far=8.0)
         yield T_wc, depth
+
+
+def colour_texture(w: int, h: int, seed: int = 0, device="cuda") -> torch.Tensor:
+    """A smooth rgb frame (h, w, 3) uint8 made with NumPy from ``seed``: per
+    channel 127.5 plus two plane waves of amplitude 60 with random
+    frequencies (2-6 cycles over the longer side), directions' signs and
+    phases, so that a wrong colour projection shows as a shifted colour."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) / max(w, h)
+    img = np.full((h, w, 3), 127.5)
+    for c in range(3):
+        fx, fy = rng.uniform(2.0, 6.0, (2, 2)) * rng.choice((-1.0, 1.0), (2, 2))
+        phase = rng.uniform(0.0, 2.0 * np.pi, 2)
+        for k in range(2):
+            img[..., c] += 60.0 * np.sin(2.0 * np.pi * (fx[k] * xx + fy[k] * yy) + phase[k])
+    return torch.from_numpy(np.clip(np.rint(img), 0, 255).astype(np.uint8)).to(device)
 
 
 def _slab_scene(w: int, h: int, max_disp: int, seed: int):

@@ -1,16 +1,18 @@
-"""TSDF volumes (``kangaroo_tpu/containers/volume.py``, ``TsdfVolume``).
+"""Bounded volumes (``kangaroo_tpu/containers/volume.py``): ``BoundedVolume``
+(a scalar grid, e.g. the colour volume) and ``TsdfVolume``.
 
-Voxel data is a ``(D, H, W)`` float32 tensor indexed ``[z, y, x]``; the
-signed distance and the weight are two planar tensors, with the world-space
-box beside them. Ported: ``create``, ``reset``, ``voxel_size_units``,
-``voxel_positions``, ``sample_trilinear_world`` and ``grad_backward_world``.
-``BoundedVolume`` (the colour volume), ``sub_volume`` and
-``with_sub_volume`` wait for the colour and rolling-workspace paths.
+Voxel data is a ``(D, H, W)`` tensor indexed ``[z, y, x]``; the TSDF keeps
+the signed distance and the weight as two planar float32 tensors. The
+world-space box rides beside the data. ``sub_volume`` cuts a voxel-aligned
+block out (a copy, where the reference returns an aliasing view) and
+``with_sub_volume`` writes a processed block back into a copy of the
+parent; both read the box on the host.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..backend import constant
@@ -50,52 +52,97 @@ def _trilinear_gather(data: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - gz) + c1 * gz
 
 
-@dataclasses.dataclass
-class TsdfVolume:
-    """Truncated signed-distance volume: planar (val, weight) + bounds."""
+def voxel_positions(shape, bbox: BoundingBox, z0: int = 0, z1: int | None = None) -> torch.Tensor:
+    """World position of every voxel centre of planes [z0, z1) of a volume of
+    ``shape`` (D, H, W) -> (z1 - z0, H, W, 3), on the box's device; each
+    position is the same float32 arithmetic whatever the plane range."""
+    D, H, W = shape[:3]
+    dev = bbox.device
+    z1 = D if z1 is None else z1
+    z, y, x = torch.meshgrid(torch.arange(z0, z1, dtype=torch.float32, device=dev),
+                             torch.arange(H, dtype=torch.float32, device=dev),
+                             torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    frac = torch.stack([x, y, z], dim=-1) / _counts(shape, dev)
+    return bbox.lo + frac * bbox.size()
 
-    val: torch.Tensor  # (D, H, W) float32 signed distance
-    weight: torch.Tensor  # (D, H, W) float32 accumulation weight
+
+def _sub_index_box(bbox: BoundingBox, w: int, h: int, d: int, roi: BoundingBox):
+    """Voxel index box (inclusive lo and hi per axis, xyz order) covering
+    ``roi`` and the bounds' intersection, voxel-aligned outward, and its
+    world box; host-side float64, as BoundedVolume::SubBoundingVolume."""
+    n = np.array([w - 1, h - 1, d - 1], np.float64)
+    blo = bbox.lo.cpu().numpy().astype(np.float64)
+    bhi = bbox.hi.cpu().numpy().astype(np.float64)
+    step = (bhi - blo) / n
+    lo_w = np.maximum(roi.lo.cpu().numpy().astype(np.float64), blo)
+    hi_w = np.minimum(roi.hi.cpu().numpy().astype(np.float64), bhi)
+    if np.any(hi_w < lo_w):
+        raise ValueError("roi does not intersect the volume bounds")
+    ilo = np.clip(np.floor((lo_w - blo) / step).astype(np.int64), 0, n.astype(np.int64))
+    ihi = np.clip(np.ceil((hi_w - blo) / step).astype(np.int64), 0, n.astype(np.int64))
+    ihi = np.maximum(ihi, ilo + 1)  # at least two planes so trilinear works
+    return ilo, ihi, BoundingBox.create(blo + ilo * step, blo + ihi * step, device=bbox.device)
+
+
+def _update_slice(data: torch.Tensor, sub: torch.Tensor, origin) -> torch.Tensor:
+    """A copy of ``data`` with ``sub`` written at ``origin`` (z, y, x), the
+    start clamped so that the block fits (lax.dynamic_update_slice)."""
+    out = data.clone()
+    start = [min(max(int(o), 0), n - m) for o, n, m in zip(origin, data.shape, sub.shape)]
+    out[tuple(slice(s, s + m) for s, m in zip(start, sub.shape))] = sub
+    return out
+
+
+@dataclasses.dataclass
+class BoundedVolume:
+    """A scalar voxel grid with world-space bounds."""
+
+    data: torch.Tensor  # (D, H, W), indexed [z, y, x]
     bbox: BoundingBox
 
     @classmethod
     def create(cls, w: int, h: int, d: int, bbox: BoundingBox | None = None,
-               trunc_dist=1.0, device=None) -> "TsdfVolume":
-        """Allocates in the SdfReset state: val = trunc_dist, weight = 0, on
-        ``device`` (default: the box's, the card for a default box)."""
+               dtype=torch.float32, fill=0.0, device=None) -> "BoundedVolume":
+        """A grid filled with ``fill`` on ``device`` (default: the box's, the
+        card for a default box)."""
         if bbox is None:
             bbox = BoundingBox.create(device=device or "cuda")
-        device = device or bbox.device
-        return cls(torch.full((d, h, w), float(trunc_dist), dtype=torch.float32, device=device),
-                   torch.zeros((d, h, w), dtype=torch.float32, device=device), bbox)
+        return cls(torch.full((d, h, w), fill, dtype=dtype, device=device or bbox.device), bbox)
 
-    def reset(self, trunc_dist) -> "TsdfVolume":
-        return TsdfVolume(torch.full_like(self.val, float(trunc_dist)),
-                          torch.zeros_like(self.weight), self.bbox)
+    @property
+    def w(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def h(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def d(self) -> int:
+        return self.data.shape[0]
+
+    def size_units(self) -> torch.Tensor:
+        return self.bbox.size()
 
     def voxel_size_units(self) -> torch.Tensor:
-        return self.bbox.size() / _counts(self.val.shape, self.val.device)
+        return self.bbox.size() / _counts(self.data.shape, self.data.device)
 
     def _world_to_voxel(self, pos_w: torch.Tensor) -> torch.Tensor:
         frac = (pos_w - self.bbox.lo) / self.bbox.size()
-        return frac * _counts(self.val.shape, self.val.device)
+        return frac * _counts(self.data.shape, self.data.device)
 
     def voxel_positions(self) -> torch.Tensor:
         """World position of every voxel centre -> (D, H, W, 3)."""
-        dev = self.val.device
-        z, y, x = torch.meshgrid(*(torch.arange(n, dtype=torch.float32, device=dev)
-                                   for n in self.val.shape), indexing="ij")
-        frac = torch.stack([x, y, z], dim=-1) / _counts(self.val.shape, dev)
-        return self.bbox.lo + frac * self.bbox.size()
+        return voxel_positions(self.data.shape, self.bbox)
 
     def sample_trilinear_world(self, pos_w: torch.Tensor) -> torch.Tensor:
         """GetUnitsTrilinearClamped."""
-        return _trilinear_gather(self.val, self._world_to_voxel(pos_w))
+        return _trilinear_gather(self.data, self._world_to_voxel(pos_w))
 
     def grad_backward_world(self, pos_w: torch.Tensor) -> torch.Tensor:
         """Trilinearly interpolated backward differences, base index clamped
         to [1, n - 2], over the voxel size (GetUnitsBackwardDiffDxDyDz)."""
-        data = self.val.to(torch.float32)
+        data = self.data.to(torch.float32)
         pf = self._world_to_voxel(pos_w)
         D, H, W = data.shape
         fx, fy, fz = pf[..., 0], pf[..., 1], pf[..., 2]
@@ -115,3 +162,90 @@ class TsdfVolume:
         c0 = c00 * (1 - gy) + c01 * gy
         c1 = c10 * (1 - gy) + c11 * gy
         return (c0 * (1 - gz) + c1 * gz) / self.voxel_size_units()
+
+    def image_xy(self, z: int) -> torch.Tensor:
+        """z-slice (Volume::ImageXY)."""
+        return self.data[z]
+
+    def image_xz(self, y: int) -> torch.Tensor:
+        """y-slice (Volume::ImageXZ)."""
+        return self.data[:, y, :]
+
+    def sub_volume(self, roi: BoundingBox):
+        """The voxel-aligned block covering ``roi`` within the bounds, and its
+        (z, y, x) index origin in the parent."""
+        (x0, y0, z0), (x1, y1, z1), sub_bbox = _sub_index_box(self.bbox, self.w, self.h, self.d,
+                                                              roi)
+        return (BoundedVolume(self.data[z0:z1 + 1, y0:y1 + 1, x0:x1 + 1].clone(), sub_bbox),
+                (int(z0), int(y0), int(x0)))
+
+    def with_sub_volume(self, sub: "BoundedVolume", origin) -> "BoundedVolume":
+        """A copy with ``sub``'s data written back at ``origin``."""
+        return BoundedVolume(_update_slice(self.data, sub.data, origin), self.bbox)
+
+
+@dataclasses.dataclass
+class TsdfVolume:
+    """Truncated signed-distance volume: planar (val, weight) + bounds."""
+
+    val: torch.Tensor  # (D, H, W) float32 signed distance
+    weight: torch.Tensor  # (D, H, W) float32 accumulation weight
+    bbox: BoundingBox
+
+    @classmethod
+    def create(cls, w: int, h: int, d: int, bbox: BoundingBox | None = None,
+               trunc_dist=1.0, device=None) -> "TsdfVolume":
+        """Allocates in the SdfReset state: val = trunc_dist, weight = 0, on
+        ``device`` (default: the box's, the card for a default box)."""
+        if bbox is None:
+            bbox = BoundingBox.create(device=device or "cuda")
+        device = device or bbox.device
+        return cls(torch.full((d, h, w), float(trunc_dist), dtype=torch.float32, device=device),
+                   torch.zeros((d, h, w), dtype=torch.float32, device=device), bbox)
+
+    @property
+    def w(self) -> int:
+        return self.val.shape[2]
+
+    @property
+    def h(self) -> int:
+        return self.val.shape[1]
+
+    @property
+    def d(self) -> int:
+        return self.val.shape[0]
+
+    def as_bounded(self) -> BoundedVolume:
+        return BoundedVolume(self.val, self.bbox)
+
+    def reset(self, trunc_dist) -> "TsdfVolume":
+        return TsdfVolume(torch.full_like(self.val, float(trunc_dist)),
+                          torch.zeros_like(self.weight), self.bbox)
+
+    def voxel_size_units(self) -> torch.Tensor:
+        return self.as_bounded().voxel_size_units()
+
+    def _world_to_voxel(self, pos_w: torch.Tensor) -> torch.Tensor:
+        return self.as_bounded()._world_to_voxel(pos_w)
+
+    def voxel_positions(self) -> torch.Tensor:
+        return self.as_bounded().voxel_positions()
+
+    def sample_trilinear_world(self, pos_w: torch.Tensor) -> torch.Tensor:
+        return self.as_bounded().sample_trilinear_world(pos_w)
+
+    def grad_backward_world(self, pos_w: torch.Tensor) -> torch.Tensor:
+        return self.as_bounded().grad_backward_world(pos_w)
+
+    def sub_volume(self, roi: BoundingBox):
+        """The voxel-aligned TSDF block covering ``roi`` within the bounds,
+        and its (z, y, x) origin; pair with :meth:`with_sub_volume`."""
+        (x0, y0, z0), (x1, y1, z1), sub_bbox = _sub_index_box(self.bbox, self.w, self.h, self.d,
+                                                              roi)
+        sl = (slice(z0, z1 + 1), slice(y0, y1 + 1), slice(x0, x1 + 1))
+        return (TsdfVolume(self.val[sl].clone(), self.weight[sl].clone(), sub_bbox),
+                (int(z0), int(y0), int(x0)))
+
+    def with_sub_volume(self, sub: "TsdfVolume", origin) -> "TsdfVolume":
+        return TsdfVolume(_update_slice(self.val, sub.val, origin),
+                          _update_slice(self.weight, sub.weight, origin), self.bbox)

@@ -1,2 +1,4 @@
-"""TSDF fusion and raycasting: the exact sphere trace and the plane-sweep
-(separable) engine with its fuse kernel."""
+"""TSDF fusion and raycasting: the exact and guided engines (voxel fuse and
+sphere trace), the plane-sweep (separable) engine with its fuse kernel, and
+the rolling workspace."""
+from . import raycast, rolling, sdf, separable

@@ -28,8 +28,13 @@ layout: the plain code uses permuted views, the kernel maps indices, and
 nothing is transposed into a copy. ``'auto'`` picks the axis most parallel
 to the view on the host (the first maximum, as ``jnp.argmax``).
 
-Not ported yet: ``sdf_fuse_color_separable`` (colour fusion),
-``normals='gradient'`` and the reverse-mode gradient of the fuse (the JAX
+The colour fuse (``sdf_fuse_color_separable``) gives the colour camera its
+own factorization over the same planes and gates the TSDF update with the
+colour test too, so a colour frame's TSDF differs from a depth-only
+frame's; it is plain PyTorch on every device (the JAX package takes its
+Pallas fuse only without colour). ``normals='gradient'`` differentiates the
+swept slabs through the sweep Jacobian on the two-orientation scan over
+every plane. Not ported: the reverse-mode gradient of the fuse (the JAX
 package's ``_windowed_fori`` custom_vjp): the fuse refuses inputs that
 require grad. The JAX package's ``gather_bits`` routes and the static
 ``sweep_axis`` pinning for scans are TPU layout work with no counterpart.
@@ -41,7 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ..backend import constant, f32_scalars
-from ..containers.volume import TsdfVolume
+from ..containers.volume import BoundedVolume, TsdfVolume
 from ..core import sampling, se3
 from ..geometry import depth as depth_mod
 from .raycast import phong_shade
@@ -143,10 +148,12 @@ def _plane_intervals(Ainv, g, n_i, n_j, Wi, Hi, D: int):
 
 
 def make_sweep_geom(vol, T_cw, K, Wi: int, Hi: int, grid_w: int, grid_h: int,
-                    order=(0, 1, 2)) -> SweepGeom:
+                    from_planes: bool = True, order=(0, 1, 2)) -> SweepGeom:
     """The factorization plus a grid window covering the union of the plane
     footprints clipped to the image preimage. Float32 throughout, on
-    ``T_cw``'s device, with no host read."""
+    ``T_cw``'s device, with no host read. ``from_planes`` is accepted and
+    ignored, as in the JAX package."""
+    del from_planes
     A, e = _homography_parts(vol, T_cw, K, order)
     Ainv = torch.linalg.inv_ex(A).inverse
     g = Ainv @ e
@@ -254,25 +261,25 @@ def _blend(old_val, old_w, new_sd, w_new, max_w):
     return torch.where(w_new > 0, val, old_val), torch.minimum(w_tot, max_w)
 
 
-def fuse_planes_plain(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: int):
-    """The plain version of the fuse kernel: the JAX package's XLA scan
-    (``batch_update``/``batch_body``) over the plane window, batch by batch,
-    with its banded lerp matmuls. Updates ``val``/``weight`` ([z, y, x]
-    float32) in place, as the kernel does, through permuted views; reads the
-    window on the host. On the card the matmuls must run in full float32."""
-    if val.is_cuda and (torch.backends.cuda.matmul.allow_tf32
-                        or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("fuse_planes_plain: TF32 matmuls are enabled; the plain fuse "
-                           "needs full float32")
-    perm = _PERM[axis]
-    val_p, wgt_p = val.permute(perm), weight.permute(perm)
+def _check_full_f32(t: torch.Tensor, op: str) -> None:
+    """The plain fuses' banded matmuls must run in full float32 on the card."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(f"{op}: TF32 matmuls are enabled; the plain fuse needs full float32")
+
+
+def _plane_batches(val_p, gmd, gct, params, window, Wi: int, Hi: int):
+    """The JAX package's fuse scan (``batch_update``) over the plane window,
+    batch by batch, with its banded lerp matmuls: yields (plane slice,
+    update mask, sd, w) of each batch of the sweep-layout volume ``val_p``
+    (the window read on the host)."""
     D, Hv, Wv = val_p.shape
     gh, gw = gmd.shape
     P = batch_size(D)
-    dev = val.device
+    dev = val_p.device
     A = params[0:9].reshape(3, 3)
     g = params[9:12]
-    s_lo, ds, t_lo, dt, trunc, max_w, mincos, enable = params[12:20]
+    s_lo, ds, t_lo, dt, trunc, _, mincos, enable = params[12:20]
     Gm = torch.stack([gmd, gct], dim=-1).reshape(gh, gw * 2)
     iv = torch.arange(Wv, dtype=torch.float32, device=dev)
     jv = torch.arange(Hv, dtype=torch.float32, device=dev)
@@ -308,11 +315,26 @@ def fuse_planes_plain(val, weight, gmd, gct, params, window, axis: int, Wi: int,
         w = ct / qz
         update = (plane_ok[:, None, None] & in_img & win_ok & (sd > -trunc)
                   & torch.isfinite(md) & torch.isfinite(w) & (ct > mincos) & (enable > 0.5))
-        new_sd = torch.where(update, torch.minimum(torch.maximum(sd, -trunc), trunc), 0.0)
-        w_new = torch.where(update, w, 0.0)
-        v, wt = _blend(val_p[sl], wgt_p[sl], new_sd, w_new, max_w)
-        val_p[sl] = v
-        wgt_p[sl] = wt
+        yield sl, update, sd, w
+
+
+def _new_sdf(update, sd, w, trunc):
+    return (torch.where(update, torch.minimum(torch.maximum(sd, -trunc), trunc), 0.0),
+            torch.where(update, w, 0.0))
+
+
+def fuse_planes_plain(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: int):
+    """The plain version of the fuse kernel: the JAX package's XLA scan over
+    the plane window. Updates ``val``/``weight`` ([z, y, x] float32) in
+    place, as the kernel does, through permuted views; reads the window on
+    the host. On the card the matmuls must run in full float32."""
+    _check_full_f32(val, "fuse_planes_plain")
+    perm = _PERM[axis]
+    val_p, wgt_p = val.permute(perm), weight.permute(perm)
+    trunc, max_w = params[16], params[17]
+    for sl, update, sd, w in _plane_batches(val_p, gmd, gct, params, window, Wi, Hi):
+        new_sd, w_new = _new_sdf(update, sd, w, trunc)
+        val_p[sl], wgt_p[sl] = _blend(val_p[sl], wgt_p[sl], new_sd, w_new, max_w)
     return val, weight
 
 
@@ -324,6 +346,24 @@ def fuse_planes(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: i
     from . import separable_cuda
 
     return separable_cuda.fuse_planes(val, weight, gmd, gct, params, window, axis, Wi, Hi)
+
+
+def _image_costheta(normals, K, Wi: int, Hi: int):
+    """Image-space cos theta: dot(n, P_c) / -|P_c| needs only the ray
+    direction."""
+    ray = K.unproject_grid(Wi, Hi, device=normals.device)
+    ray_len = torch.sqrt(ray[..., 0] * ray[..., 0] + ray[..., 1] * ray[..., 1]
+                         + ray[..., 2] * ray[..., 2])
+    n = normals[..., :3]
+    return (n[..., 0] * ray[..., 0] + n[..., 1] * ray[..., 1] + n[..., 2] * ray[..., 2]) \
+        / -ray_len
+
+
+def _nearest_warp(packed, u, v, ok, Wi: int, Hi: int):
+    """The (t, s) grid's nearest samples of the packed (H, W, 2) image."""
+    ui = torch.clamp(torch.floor(torch.where(ok, u, 0.0) + 0.5), 0, Wi - 1)
+    vi = torch.clamp(torch.floor(torch.where(ok, v, 0.0) + 0.5), 0, Hi - 1)
+    return packed.reshape(-1, 2)[(vi * Wi + ui).long()]
 
 
 def fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0, mincostheta=0.1,
@@ -344,25 +384,16 @@ def fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0, mincosth
     s, t = _grid_st(geom, grid_w, grid_h)
     u, v = _grid_uv(geom, s, t)
 
-    # image-space cos theta: dot(n, P_c) / -|P_c| needs only the ray direction
-    ray = K.unproject_grid(Wi, Hi, device=dev)
-    ray_len = torch.sqrt(ray[..., 0] * ray[..., 0] + ray[..., 1] * ray[..., 1]
-                         + ray[..., 2] * ray[..., 2])
-    n = normals[..., :3]
-    ct_img = (n[..., 0] * ray[..., 0] + n[..., 1] * ray[..., 1] + n[..., 2] * ray[..., 2]) \
-        / -ray_len
+    ct_img = _image_costheta(normals, K, Wi, Hi)
     valid_img = torch.isfinite(depth) & torch.isfinite(ct_img)
     packed = torch.stack([torch.where(valid_img, depth, _INVALID_DEPTH),
                           torch.where(valid_img, ct_img, 0.0)], dim=-1)
     # the one gather: warp the packed image onto the (t, s) grid
     uv_ok = sampling.in_bounds(depth, u, v, 0) & torch.isfinite(u) & torch.isfinite(v)
-    u0, v0 = torch.where(uv_ok, u, 0.0), torch.where(uv_ok, v, 0.0)
     if warp == "bilinear":
-        G = sampling.bilinear(packed, u0, v0)
+        G = sampling.bilinear(packed, torch.where(uv_ok, u, 0.0), torch.where(uv_ok, v, 0.0))
     elif warp == "nearest":
-        ui = torch.clamp(torch.floor(u0 + 0.5), 0, Wi - 1)
-        vi = torch.clamp(torch.floor(v0 + 0.5), 0, Hi - 1)
-        G = packed.reshape(-1, 2)[(vi * Wi + ui).long()]
+        G = _nearest_warp(packed, u, v, uv_ok, Wi, Hi)
     else:
         raise ValueError(f"warp must be 'nearest' or 'bilinear', got {warp!r}")
     gmd = torch.where(uv_ok, G[..., 0], _INVALID_DEPTH).contiguous()
@@ -385,6 +416,30 @@ def fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0, mincosth
     return gmd, gct, params, window
 
 
+def fuse_plane_window(vol, depth, normals, T_cw, K, trunc_dist, mincostheta=0.1,
+                      sweep_axis: int = 0, near=None, far=None, grid_w: int | None = None,
+                      grid_h: int | None = None) -> torch.Tensor:
+    """The (D,) mask of the planes the frustum-clipped fuse sweeps for this
+    frame (``clip_planes``; before the rounding out to batches)."""
+    dev = vol.val.device
+    Hi, Wi = depth.shape
+    D, Hv, Wv = sweep_shape(vol.val.shape, sweep_axis)
+    geom = make_sweep_geom(vol, T_cw, K, Wi, Hi, grid_w or Wi, grid_h or Hi,
+                           order=_ORDER[sweep_axis])
+    ct_img = _image_costheta(normals, K, Wi, Hi)
+    valid_img = torch.isfinite(depth) & torch.isfinite(ct_img)
+    trunc, mincos = f32_scalars(dev, trunc_dist, mincostheta)
+    near_t, far_t = (None if x is None else f32_scalars(dev, x)[0] for x in (near, far))
+    return _visible_planes(geom, depth, valid_img, D, Wv, Hv, Wi, Hi, trunc, mincos, near_t,
+                           far_t)
+
+
+def _refuse_grad(op: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(f"{op}: the fuse has no gradient; {name} requires grad")
+
+
 def sdf_fuse_separable(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0,
                        mincostheta=0.1, grid_w: int | None = None, grid_h: int | None = None,
                        warp: str = "nearest", sweep_axis: int | str = "auto", enable=None,
@@ -402,11 +457,8 @@ def sdf_fuse_separable(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0,
     ``inplace`` asks for ``vol``'s own tensors to be updated and returned
     (the KinectFusion frame does, since it replaces its volume anyway).
     """
-    for name, t in (("vol.val", vol.val), ("vol.weight", vol.weight), ("depth", depth),
-                    ("normals", normals)):
-        if t.requires_grad:
-            raise RuntimeError(f"sdf_fuse_separable: the fuse has no gradient; {name} "
-                               "requires grad")
+    _refuse_grad("sdf_fuse_separable", **{"vol.val": vol.val, "vol.weight": vol.weight,
+                                          "depth": depth, "normals": normals})
     axis = _view_axis_index(T_cw) if sweep_axis == "auto" else int(sweep_axis)
     gmd, gct, params, window = fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w,
                                            mincostheta, axis, grid_w, grid_h, warp, enable,
@@ -415,6 +467,82 @@ def sdf_fuse_separable(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0,
     Hi, Wi = depth.shape
     fuse_planes(val, weight, gmd, gct, params, window, axis, Wi, Hi)
     return TsdfVolume(val, weight, vol.bbox)
+
+
+def sdf_fuse_color_separable(vol, color_vol, depth, normals, T_cw, K, img, T_iw, K_img,
+                             trunc_dist, max_w=1000.0, mincostheta=0.1,
+                             grid_w: int | None = None, grid_h: int | None = None,
+                             warp: str = "nearest", sweep_axis: int | str = "auto", enable=None,
+                             clip_planes: bool = True, near=None, far=None, *,
+                             inplace: bool = False):
+    """The colour-fusing SdfFuse on the plane sweep: returns (TsdfVolume,
+    BoundedVolume). The colour camera (``T_iw``, ``K_img``; img (Hc, Wc, 3))
+    gets its own factorization over the same planes and a nearest-warped
+    grey grid, so its sample is two more banded matmuls a batch. A voxel
+    updates (TSDF and grey, blended over the old weight) only where the
+    colour camera sees it with every lerp tap inside its image. The other
+    arguments, and ``inplace``, are :func:`sdf_fuse_separable`'s; plain
+    PyTorch on every device."""
+    _refuse_grad("sdf_fuse_color_separable", **{
+        "vol.val": vol.val, "vol.weight": vol.weight, "color_vol.data": color_vol.data,
+        "depth": depth, "normals": normals})
+    _check_full_f32(vol.val, "sdf_fuse_color_separable")
+    axis = _view_axis_index(T_cw) if sweep_axis == "auto" else int(sweep_axis)
+    gmd, gct, params, window = fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w,
+                                           mincostheta, axis, grid_w, grid_h, warp, enable,
+                                           clip_planes, near, far)
+    Hi, Wi = depth.shape
+    gh, gw = gmd.shape
+    order, perm = _ORDER[axis], _PERM[axis]
+    dev = vol.val.device
+
+    # the colour camera's grey grid: its own sweep geometry, nearest warp
+    Hc, Wc = img.shape[:2]
+    grey_img = img.to(torch.float32).mean(-1) / 255.0
+    geom2 = make_sweep_geom(vol, T_iw, K_img, Wc, Hc, gw, gh, order=order)
+    s2, t2 = _grid_st(geom2, gw, gh)
+    u2, v2 = _grid_uv(geom2, s2, t2)
+    ok2 = sampling.in_bounds(grey_img, u2, v2, 0) & torch.isfinite(u2) & torch.isfinite(v2)
+    G2 = _nearest_warp(torch.stack([grey_img, torch.ones_like(grey_img)], dim=-1), u2, v2, ok2,
+                       Wc, Hc)
+    G2m = torch.where(ok2[..., None], G2, 0.0).reshape(gh, gw * 2)
+    A2, g2 = geom2.A, geom2.g
+
+    val, weight, colour = ((vol.val, vol.weight, color_vol.data) if inplace else
+                           (vol.val.clone(), vol.weight.clone(), color_vol.data.clone()))
+    val_p, wgt_p, col_p = val.permute(perm), weight.permute(perm), colour.permute(perm)
+    D, Hv, Wv = val_p.shape
+    iv = torch.arange(Wv, dtype=torch.float32, device=dev)
+    jv = torch.arange(Hv, dtype=torch.float32, device=dev)
+    denom2_all, offs2_all, offt2_all = _plane_scales(
+        g2, torch.arange(D, dtype=torch.float32, device=dev))
+    trunc, max_w_t = params[16], params[17]
+    for sl, update, sd, w in _plane_batches(val_p, gmd, gct, params, window, Wi, Hi):
+        dn2, os2, ot2 = denom2_all[sl], offs2_all[sl], offt2_all[sl]
+        P = dn2.shape[0]
+        p2_ok = torch.abs(dn2) > 1e-6
+        d2safe = torch.where(p2_ok, dn2, 1.0)
+        s2_of_i = (iv[None, :] + os2[:, None]) / d2safe[:, None]
+        t2_of_j = (jv[None, :] + ot2[:, None]) / d2safe[:, None]
+        Ck2 = _lerp_matrix_batch((s2_of_i - geom2.s_lo) / geom2.ds, gw)
+        Rk2 = _lerp_matrix_batch((t2_of_j - geom2.t_lo) / geom2.dt, gh)
+        tmpc = (Rk2.reshape(P * Hv, gh) @ G2m).reshape(P, Hv, gw, 2)
+        Ck2T = Ck2.transpose(1, 2)
+        grey = torch.bmm(tmpc[..., 0], Ck2T)
+        grey_ok = torch.bmm(tmpc[..., 1], Ck2T)
+        Sc, Tc = s2_of_i[:, None, :], t2_of_j[:, :, None]
+        denc = A2[2, 0] * Sc + A2[2, 1] * Tc + A2[2, 2]
+        denc = torch.where(torch.abs(denc) < 1e-12, float("nan"), denc)
+        uc = (A2[0, 0] * Sc + A2[0, 1] * Tc + A2[0, 2]) / denc
+        vc = (A2[1, 0] * Sc + A2[1, 1] * Tc + A2[1, 2]) / denc
+        in_c = sampling.in_bounds(grey_img, uc, vc, 2)
+        update = update & p2_ok[:, None, None] & in_c & (grey_ok > 0.999)
+        new_sd, w_new = _new_sdf(update, sd, w, trunc)
+        old_w, old_c = wgt_p[sl], col_p[sl]
+        col_p[sl] = torch.where(update, (w_new * grey + old_c * old_w)
+                                / torch.clamp(w_new + old_w, min=1e-20), old_c)
+        val_p[sl], wgt_p[sl] = _blend(val_p[sl], old_w, new_sd, w_new, max_w_t)
+    return TsdfVolume(val, weight, vol.bbox), BoundedVolume(colour, color_vol.bbox)
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +570,8 @@ class _DualScan(NamedTuple):
     asc_found: torch.Tensor
     dsc_depth: torch.Tensor
     dsc_found: torch.Tensor
+    asc_n: torch.Tensor  # world normals at the crossings (normals='gradient')
+    dsc_n: torch.Tensor
 
 
 def _shifted(first, rest):
@@ -456,21 +586,27 @@ def raycast_sdf_separable(vol, T_wc, K, w: int, h: int, near=0.1, far=10.0, trun
                           sweep_axis: int | str = "auto", output: str = "pixels",
                           clip_planes: bool = True):
     """RaycastSdf as a gather-free plane sweep. ``output='pixels'`` returns
-    (depth (h, w), normals (h, w, 4), Phong image), normals from the depth
-    map; ``output='cloud'`` the camera-space model on the sweep grid:
-    (depth (gh, gw), vbo (gh, gw, 4), normals (gh, gw, 4))."""
-    if normals != "depth":
-        raise NotImplementedError(f"raycast_sdf_separable: normals={normals!r} is not ported "
-                                  "yet, only 'depth' (ROADMAP Queue 1, KinectFusion leftovers)")
+    (depth (h, w), normals (h, w, 4), Phong image); ``output='cloud'`` the
+    camera-space model on the sweep grid: (depth (gh, gw), vbo (gh, gw, 4),
+    normals (gh, gw, 4)). ``normals='depth'`` derives the normals from the
+    depth map; ``'gradient'`` (pixels only) from the volume's gradient at
+    the crossing: central differences of the swept slabs along the grid and
+    the plane-to-plane difference, taken through the sweep's Jacobian to
+    world axes and turned to face the camera, on the two-orientation scan
+    over every plane."""
+    if normals not in ("depth", "gradient"):
+        raise ValueError(f"normals must be 'depth' or 'gradient', got {normals!r}")
     if output not in ("pixels", "cloud"):
         raise ValueError(f"output must be 'pixels' or 'cloud', got {output!r}")
+    if output == "cloud" and normals == "gradient":
+        raise ValueError("output='cloud' takes the depth-derived normals")
     axis = (_view_axis_index(se3.inverse(T_wc)) if sweep_axis == "auto" else int(sweep_axis))
     return _raycast_axis(vol, T_wc, K, w, h, near, far, trunc_dist, grid_w, grid_h, shade,
-                         axis, output, clip_planes)
+                         axis, output, clip_planes, normals == "gradient")
 
 
 def _raycast_axis(vol, T_wc, K, w, h, near, far, trunc_dist, grid_w, grid_h, shade, axis,
-                  output, clip_planes):
+                  output, clip_planes, grad_normals=False):
     dev = vol.val.device
     order, perm = _ORDER[axis], _PERM[axis]
     grid_w, grid_h = grid_w or w, grid_h or h
@@ -543,8 +679,30 @@ def _raycast_axis(vol, T_wc, K, w, h, near, far, trunc_dist, grid_w, grid_h, sha
                       c.found | crossing.any(0))
         return c.depth, c.found
 
+    if grad_normals:
+        steps_w = vol.voxel_size_units()
+        voxel = [steps_w[o] for o in order]
+        half_inv_ds, half_inv_dt = 0.5 * (1.0 / geom.ds), 0.5 * (1.0 / geom.dt)
+        di_dk = s[None, None, :] * g[2] - g[0]
+        dj_dk = t[None, :, None] * g[2] - g[1]
+
+    def gradient(k0, val, prev_val):
+        """World gradient of the volume at every grid sample of the batch:
+        grid-axis central differences (wrapping, as jnp.roll) and the
+        plane difference through the sweep Jacobian."""
+        denom = denom_all[k0:k0 + P]
+        dsafe = torch.where(torch.abs(denom) > 1e-6, denom, 1.0)[:, None, None]
+        vol_i = (torch.roll(val, -1, 2) - torch.roll(val, 1, 2)) * half_inv_ds / dsafe
+        vol_j = (torch.roll(val, -1, 1) - torch.roll(val, 1, 1)) * half_inv_dt / dsafe
+        vol_k = (val - prev_val) - vol_i * di_dk - vol_j * dj_dk
+        comps = {order[0]: vol_i / voxel[0], order[1]: vol_j / voxel[1],
+                 order[2]: vol_k / voxel[2]}
+        return torch.stack([comps[0], comps[1], comps[2]], dim=-1)
+
     def dual():
-        c = _DualScan(zero, fal, zero, zero, fal, zero, fal)
+        zero3 = torch.zeros((grid_h, grid_w, 3) if grad_normals else (1, 1, 3),
+                            dtype=torch.float32, device=dev)
+        c = _DualScan(zero, fal, zero, zero, fal, zero, fal, zero3, zero3)
         for k0 in range(0, D, P):
             val, in_range, qz = resample(k0, False)
             crossing, qz_hit, prev_val, prev_ok, prev_qz = crossings(c, val, in_range, qz)
@@ -559,46 +717,58 @@ def _raycast_axis(vol, T_wc, K, w, h, near, far, trunc_dist, grid_w, grid_h, sha
                      - rcross.to(torch.int32))
             last = rcross & (later == 0)
             any_r = rcross.any(0)
+            asc_n, dsc_n = c.asc_n, c.dsc_n
+            if grad_normals:
+                n_w = gradient(k0, val, prev_val)
+                asc_n = asc_n + torch.where(first[..., None], n_w, 0.0).sum(0)
+                dsc_n = torch.where(any_r[..., None],
+                                    torch.where(last[..., None], n_w, 0.0).sum(0), dsc_n)
             c = _DualScan(val[-1], in_range[-1], qz[-1],
                           c.asc_depth + torch.where(first, qz_hit, 0.0).sum(0),
                           c.asc_found | crossing.any(0),
                           torch.where(any_r, torch.where(last, rqz_hit, 0.0).sum(0),
                                       c.dsc_depth),
-                          c.dsc_found | any_r)
+                          c.dsc_found | any_r, asc_n, dsc_n)
         return (torch.where(ascending, c.asc_depth, c.dsc_depth),
-                torch.where(ascending, c.asc_found, c.dsc_found))
+                torch.where(ascending, c.asc_found, c.dsc_found),
+                torch.where(ascending[..., None], c.asc_n, c.dsc_n))
 
-    # the plane window (bit-equal to the full sweep): footprint, [near, far]
-    # and the observed-negative shell +-1 plane
-    (s_lo_k, s_hi_k, s_empty), (t_lo_k, t_hi_k, t_empty) = _plane_intervals(
-        Ainv, g, Wv, Hv, w, h, D)
-    qz_c = torch.stack([denom_all * (A[2, 0] * sc + A[2, 1] * tc + A[2, 2])
-                        for sc in (s_lo_k, s_hi_k) for tc in (t_lo_k, t_hi_k)])
-    qz_ok = torch.isfinite(qz_c).all(0)
-    visible = ~(s_empty | t_empty) & ~(qz_ok & ((qz_c.amax(0) < near) | (qz_c.amin(0) > far)))
-    has_neg = (packed <= 0).flatten(1).any(1)
-    hn, vis = has_neg.to(torch.float32), visible.to(torch.float32)
-    kneg_lo = torch.argmax(hn) - 1
-    kneg_hi = D - torch.argmax(hn.flip(0))
-    k_lo = torch.clamp(torch.maximum(torch.argmax(vis), kneg_lo), 0, D - 1)
-    k_hi = torch.clamp(torch.minimum(D - 1 - torch.argmax(vis.flip(0)), kneg_hi), 0, D - 1)
-    any_vis = visible.any() & has_neg.any() & (k_lo <= k_hi)
-    # one host read: orientation and window
-    all_asc, all_dsc, any_vis, k_lo, k_hi = torch.stack(
-        [x.to(torch.int64) for x in (ascending.all(), (~ascending).all(), any_vis, k_lo, k_hi)]
-    ).tolist()
-    if all_asc or all_dsc:
-        if not clip_planes:
-            b_lo, b_hi = 0, D // P
-        elif not any_vis:
-            b_lo = b_hi = 0
-        elif all_asc:
-            b_lo, b_hi = k_lo // P, k_hi // P + 1
-        else:  # the window of the k-reversed volume
-            b_lo, b_hi = (D - 1 - k_hi) // P, (D - 1 - k_lo) // P + 1
-        qz_hit, found = single(range(b_lo * P, b_hi * P, P), reverse=not all_asc)
+    if grad_normals:
+        # the scan with normals runs over every plane, as the JAX package's
+        qz_hit, found, n_grad = dual()
     else:
-        qz_hit, found = dual()
+        # the plane window (bit-equal to the full sweep): footprint, [near,
+        # far] and the observed-negative shell +-1 plane
+        (s_lo_k, s_hi_k, s_empty), (t_lo_k, t_hi_k, t_empty) = _plane_intervals(
+            Ainv, g, Wv, Hv, w, h, D)
+        qz_c = torch.stack([denom_all * (A[2, 0] * sc + A[2, 1] * tc + A[2, 2])
+                            for sc in (s_lo_k, s_hi_k) for tc in (t_lo_k, t_hi_k)])
+        qz_ok = torch.isfinite(qz_c).all(0)
+        visible = ~(s_empty | t_empty) & ~(qz_ok & ((qz_c.amax(0) < near)
+                                                    | (qz_c.amin(0) > far)))
+        has_neg = (packed <= 0).flatten(1).any(1)
+        hn, vis = has_neg.to(torch.float32), visible.to(torch.float32)
+        kneg_lo = torch.argmax(hn) - 1
+        kneg_hi = D - torch.argmax(hn.flip(0))
+        k_lo = torch.clamp(torch.maximum(torch.argmax(vis), kneg_lo), 0, D - 1)
+        k_hi = torch.clamp(torch.minimum(D - 1 - torch.argmax(vis.flip(0)), kneg_hi), 0, D - 1)
+        any_vis = visible.any() & has_neg.any() & (k_lo <= k_hi)
+        # one host read: orientation and window
+        all_asc, all_dsc, any_vis, k_lo, k_hi = torch.stack(
+            [x.to(torch.int64)
+             for x in (ascending.all(), (~ascending).all(), any_vis, k_lo, k_hi)]).tolist()
+        if all_asc or all_dsc:
+            if not clip_planes:
+                b_lo, b_hi = 0, D // P
+            elif not any_vis:
+                b_lo = b_hi = 0
+            elif all_asc:
+                b_lo, b_hi = k_lo // P, k_hi // P + 1
+            else:  # the window of the k-reversed volume
+                b_lo, b_hi = (D - 1 - k_hi) // P, (D - 1 - k_lo) // P + 1
+            qz_hit, found = single(range(b_lo * P, b_hi * P, P), reverse=not all_asc)
+        else:
+            qz_hit, found, _ = dual()
 
     if output == "cloud":
         # each grid node lies on an exact camera ray: P_c = qz * unproject(u, v)
@@ -622,11 +792,27 @@ def _raycast_axis(vol, T_wc, K, w, h, near, far, trunc_dist, grid_w, grid_h, sha
     gi = torch.clamp(torch.floor(gs + 0.5), 0, grid_w - 1).nan_to_num(0.0).long()
     gj = torch.clamp(torch.floor(gt + 0.5), 0, grid_h - 1).nan_to_num(0.0).long()
     inb = (gs > -0.5) & (gs < grid_w - 0.5) & (gt > -0.5) & (gt < grid_h - 0.5)
-    got_d = torch.where(found, qz_hit, float("nan")).reshape(-1)[gj * grid_w + gi]
-    hit = inb & torch.isfinite(got_d)
-    depth = torch.where(hit, got_d, float("nan"))
-    n4 = depth_mod.normals_from_vbo(depth_mod.depth_to_vbo(depth, K))
-    n_c = torch.where(torch.isfinite(n4[..., :3]), n4[..., :3], 0.0)
+    flat_idx = gj * grid_w + gi
+    if grad_normals:
+        len_n = torch.sqrt((n_grad * n_grad).sum(-1, keepdim=True))
+        up = constant((0.0, 0.0, 1.0), device=dev)
+        n_w = torch.where(len_n > 0, n_grad / torch.clamp(len_n, min=1e-20), up)
+        # the gradient points from inside (negative) to outside: turn it to
+        # face the camera
+        view_w = se3.rotate(T_wc, up)
+        n_w = torch.where((n_w * view_w).sum(-1, keepdim=True) > 0, -n_w, n_w)
+        out_pack = torch.cat([qz_hit[..., None], n_w, found.to(torch.float32)[..., None]],
+                             dim=-1).reshape(-1, 5)
+        got = out_pack[flat_idx]
+        hit = inb & (got[..., 4] > 0.5)
+        depth = torch.where(hit, got[..., 0], float("nan"))
+        n_c = se3.rotate_inv(T_wc, got[..., 1:4])
+    else:
+        got_d = torch.where(found, qz_hit, float("nan")).reshape(-1)[flat_idx]
+        hit = inb & torch.isfinite(got_d)
+        depth = torch.where(hit, got_d, float("nan"))
+        n4 = depth_mod.normals_from_vbo(depth_mod.depth_to_vbo(depth, K))
+        n_c = torch.where(torch.isfinite(n4[..., :3]), n4[..., :3], 0.0)
     ones = torch.ones((h, w, 1), dtype=torch.float32, device=dev)
     norm_out = torch.where(hit[..., None], torch.cat([n_c, ones], dim=-1), 0.0)
     if shade:

@@ -4,8 +4,7 @@ The per-pixel Jacobian rows reduce with two float32 matmuls (JTJ, JTy); the
 SPD solve is a Cholesky factorisation, in float32 as the JAX package's,
 without a host read (``cholesky_ex``): a matrix that is not positive
 definite yields NaN, as ``jnp.linalg.cholesky`` does, for the callers'
-finiteness guards. ``LSS.zero`` and ``+`` (merging systems) have no caller
-on the ported paths yet.
+finiteness guards. Systems merge with ``+``; ``LSS.zero`` is the empty one.
 """
 from __future__ import annotations
 
@@ -22,6 +21,14 @@ class LSS:
     JTy: torch.Tensor  # (N,)
     sqErr: torch.Tensor  # ()
     obs: torch.Tensor  # ()
+
+    @classmethod
+    def zero(cls, n: int, device="cuda") -> "LSS":
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+        return cls(z(n, n), z(n), z(), z())
+
+    def __add__(self, o: "LSS") -> "LSS":
+        return LSS(self.JTJ + o.JTJ, self.JTy + o.JTy, self.sqErr + o.sqErr, self.obs + o.obs)
 
     def rmse(self) -> torch.Tensor:
         """sqrt(sqErr / obs): NaN when nothing was observed, so a total

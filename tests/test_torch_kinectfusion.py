@@ -171,17 +171,7 @@ def test_config_from_dict_carries_every_field():
         dataclasses.asdict(jkf.KinectFusionConfig())
 
 
-@pytest.mark.parametrize("overrides,piece", [
-    (dict(engine="exact"), "engine"), (dict(engine="guided"), "engine"),
-    (dict(use_colour=True), "use_colour"), (dict(moving_threshold_voxels=2), "moving"),
-])
-def test_unported_options_raise(overrides, piece):
-    _, cfg = _config(**overrides)
-    with pytest.raises(NotImplementedError, match=piece):
-        tkf.KinectFusion(Intrinsics.centered(55.0, W, H), cfg, device="cpu")
-
-
-@pytest.mark.parametrize("call", ["mesh", "save_mesh", "save_volume", "load_volume", "rgb",
+@pytest.mark.parametrize("call", ["mesh", "save_mesh", "save_volume", "load_volume",
                                   "render_textured"])
 def test_unported_entry_points_raise(call):
     _, cfg = _config()
@@ -190,10 +180,8 @@ def test_unported_entry_points_raise(call):
         if call == "mesh":
             tkf.KinectFusion(K, cfg, mesh=object(), device="cpu")
         pipe = tkf.KinectFusion(K, cfg, device="cpu")
-        depth = torch.zeros(H, W)
         {"save_mesh": lambda: pipe.save_mesh("x.ply"), "save_volume": lambda: pipe.save_volume("x"),
          "load_volume": lambda: pipe.load_volume("x"),
-         "rgb": lambda: pipe.process_frame(depth, rgb=torch.zeros(H, W, 3)),
          "render_textured": pipe.render_textured}[call]()
 
 
@@ -221,25 +209,36 @@ def test_cpu_frame_launches_no_kernel(orbit):
     assert separable_cuda.launches == before
 
 
-def jax_reference_quality(w=640, h=480, vol_res=256, frames=9):
+def jax_reference_quality(w=640, h=480, vol_res=256, frames=9, engine="separable",
+                          use_colour=False, moving_threshold_voxels=0, moving_lead_m=0.5):
     """The JAX package's KinectFusion quality at the chip smoke's input:
     bench.py's config (its=(1, 0, 2, 3), near 0.5, far 6.0) on
     synthetic.depth_sequence(frames, K, w, h, sphere_scene(res=128),
-    step=0.01), K = centered(550): frame 0 seeded at the true pose, then the
-    rest as a frame loop and as a sequence replay from a fresh seed. ATE is
-    bench.py's (the RMS of the translation errors), final rmse the last
-    frame's ICP rmse."""
+    step=0.01), K = centered(550), on ``engine``, with colour fusion of the
+    port's ``synthetic.colour_texture(w, h)`` (seed 0) in every frame under
+    ``use_colour``, and the moving workspace under
+    ``moving_threshold_voxels`` > 0: frame 0 seeded at the true pose, then
+    the rest as a frame loop and, on the separable engine without the moving
+    workspace, as a sequence replay from a fresh seed. ATE is bench.py's
+    (the RMS of the translation errors), final rmse the last frame's ICP
+    rmse; with colour also the share of voxels touched (weight > 0) and the
+    median grey of the colour volume over them; with the moving workspace
+    the number of frames that rolled the volume."""
     K = kt.Intrinsics.centered(550.0, w, h)
     cfg = jkf.KinectFusionConfig(w=w, h=h, vol_res=vol_res, vol_extent=1.2, max_levels=4,
-                                 its=(1, 0, 2, 3), near=0.5, far=6.0)
+                                 its=(1, 0, 2, 3), near=0.5, far=6.0, engine=engine,
+                                 use_colour=use_colour,
+                                 moving_threshold_voxels=moving_threshold_voxels,
+                                 moving_lead_m=moving_lead_m)
     seq = list(jsyn.depth_sequence(frames, K, w, h, scene=jsyn.sphere_scene(res=128), step=0.01))
     depths = [jnp.where(jnp.isfinite(d), d, 0.0) for _, d in seq]
     ref_t = np.stack([np.asarray(T)[:, 3] for T, _ in seq[1:]])
+    rgb = jnp.asarray(tsyn.colour_texture(w, h, device="cpu").numpy()) if use_colour else None
 
     def seeded():
         pipe = jkf.KinectFusion(K, cfg)
         pipe.T_wl = jnp.asarray(seq[0][0])
-        pipe.process_frame(depths[0])
+        pipe.process_frame(depths[0], rgb=rgb)
         return pipe
 
     def quality(poses, rmse):
@@ -248,14 +247,33 @@ def jax_reference_quality(w=640, h=480, vol_res=256, frames=9):
                 "final_rmse": float(rmse)}
 
     loop = seeded()
-    poses = [np.asarray(loop.process_frame(d)) for d in depths[1:]]
+    poses, rolls = [], 0
+    for d in depths[1:]:
+        lo = np.asarray(loop.vol.bbox.lo)
+        poses.append(np.asarray(loop.process_frame(d, rgb=rgb)))
+        rolls += int(not np.array_equal(lo, np.asarray(loop.vol.bbox.lo)))
     out = {"loop": quality(np.stack(poses), loop.rmse)}
-    poses, rmses = seeded().run_sequence(jnp.stack(depths[1:]))
-    out["sequence"] = quality(poses, np.asarray(rmses)[-1])
+    if use_colour:
+        touched = np.asarray(loop.vol.weight) > 0
+        out["loop"].update(touched_share=float(touched.mean()),
+                           median_grey=float(np.median(np.asarray(loop.color_vol.data)[touched])))
+    if moving_threshold_voxels > 0:
+        out["loop"]["rolls"] = rolls
+    elif engine == "separable":
+        rgbs = jnp.stack([rgb] * (frames - 1)) if use_colour else None
+        poses, rmses = seeded().run_sequence(jnp.stack(depths[1:]), rgbs=rgbs)
+        out["sequence"] = quality(poses, np.asarray(rmses)[-1])
     return out
 
 
 if __name__ == "__main__":
     import json
 
-    print(json.dumps(jax_reference_quality(*map(int, sys.argv[1:]))))
+    # positional ints (w h vol_res frames), then key=value options, e.g.
+    # engine=guided use_colour=1 moving_threshold_voxels=2 moving_lead_m=2.0
+    args = [a for a in sys.argv[1:] if "=" not in a]
+    opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
+    kinds = {"engine": str, "use_colour": lambda v: bool(int(v)),
+             "moving_threshold_voxels": int, "moving_lead_m": float}
+    print(json.dumps(jax_reference_quality(*map(int, args),
+                                           **{k: kinds[k](v) for k, v in opts.items()})))

@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+import kangaroo_tpu as kt
+from kangaroo_tpu.containers.volume import BoundedVolume as JBoundedVolume
 from kangaroo_tpu.core import se3 as jse3
 from kangaroo_tpu.fusion import raycast as jrc
 from kangaroo_tpu.fusion import sdf as jsdf
 from kangaroo_tpu.fusion import separable as jsep
 from kangaroo_tpu.fusion import separable_pallas as jsp
-from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume
+from kangaroo_tpu_torch.apps import synthetic as tsyn
+from kangaroo_tpu_torch.containers import BoundedVolume, BoundingBox, Intrinsics, TsdfVolume
 from kangaroo_tpu_torch.core import se3 as tse3
 from kangaroo_tpu_torch.fusion import raycast as trc
 from kangaroo_tpu_torch.fusion import separable as tsep
@@ -47,10 +50,12 @@ def port_K(K) -> Intrinsics:
     return Intrinsics.create(float(K.fu), float(K.fv), float(K.u0), float(K.v0))
 
 
+def port_bbox(bbox) -> BoundingBox:
+    return BoundingBox.create(np.asarray(bbox.lo), np.asarray(bbox.hi), device="cpu")
+
+
 def port_vol(vol) -> TsdfVolume:
-    return TsdfVolume(t(vol.val), t(vol.weight),
-                      BoundingBox.create(np.asarray(vol.bbox.lo), np.asarray(vol.bbox.hi),
-                                         device="cpu"))
+    return TsdfVolume(t(vol.val), t(vol.weight), port_bbox(vol.bbox))
 
 
 def compare_fused(got_val, got_w, want_val, want_w, max_flip_share=MAX_FLIP_SHARE):
@@ -349,10 +354,130 @@ def test_exact_raycast_matches_jax(angles):
     np.testing.assert_allclose(got[1].numpy()[hit], np.asarray(want[1])[hit], atol=1e-3, rtol=0)
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("angles", [POSES[0], POSES[2], POSE_Y, POSE_X])
+def test_raycast_gradient_normals_match_jax(angles):
+    """normals='gradient' (the two-orientation scan over every plane, the
+    volume's gradient at the crossing); normals and shading within 1e-3."""
+    K, vol1, T_wc, W, H = _fused_scene(angles)
+    want = jsep.raycast_sdf_separable(vol1, T_wc, K, W, H, near=0.5, far=8.0, trunc_dist=TRUNC,
+                                      normals="gradient")
+    got = tsep.raycast_sdf_separable(port_vol(vol1), t(T_wc), port_K(K), W, H, 0.5, 8.0,
+                                     trunc_dist=TRUNC, normals="gradient")
+    _compare_images(got[0], want[0], 1e-4)
+    hit = np.isfinite(np.asarray(want[0])) & np.isfinite(got[0].numpy())
+    assert hit.sum() > 300
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy()[hit], np.asarray(w)[hit], atol=1e-3, rtol=0)
+    # unit normals facing the camera
+    n = got[1].numpy()[hit]
+    np.testing.assert_allclose(np.linalg.norm(n[:, :3], axis=-1), 1.0, atol=1e-5)
+    assert (n[:, 2] < 0).mean() > 0.95
+
+
+def test_raycast_options_refused():
     K, vol1, T_wc, W, H = _fused_scene(POSES[0])
-    with pytest.raises(NotImplementedError, match="gradient"):
-        tsep.raycast_sdf_separable(port_vol(vol1), t(T_wc), port_K(K), W, H, normals="gradient")
+    pv = port_vol(vol1)
+    with pytest.raises(ValueError, match="normals"):
+        tsep.raycast_sdf_separable(pv, t(T_wc), port_K(K), W, H, normals="vbo")
+    with pytest.raises(ValueError, match="cloud"):
+        tsep.raycast_sdf_separable(pv, t(T_wc), port_K(K), W, H, normals="gradient",
+                                   output="cloud")
+
+
+def colour_inputs(vol, T_cw, W, H, baseline=0.05):
+    """A colour volume of 0.5, the seeded rgb texture and a colour camera
+    ``baseline`` to the side of the depth camera."""
+    cvol = JBoundedVolume.create(*vol.val.shape[::-1], vol.bbox, fill=0.5)
+    rgb = tsyn.colour_texture(W, H, device="cpu").numpy()
+    T_iw = jse3.compose(jnp.asarray(jse3.inverse(jse3.make(np.eye(3), [baseline, 0.0, 0.0]))),
+                        T_cw)
+    return cvol, rgb, T_iw
+
+
+def _compare_colour(got_v, got_c, want_v, want_c):
+    compare_fused(got_v.val, got_v.weight, want_v.val, want_v.weight)
+    gw, ww = got_v.weight.numpy(), np.asarray(want_v.weight)
+    both = (gw > 0) & (ww > 0)
+    gc, wc = got_c.data.numpy(), np.asarray(want_c.data)
+    np.testing.assert_allclose(gc[both], wc[both], atol=VAL_TOL, rtol=0)
+    np.testing.assert_array_equal(gc[~(gw > 0) & ~(ww > 0)], wc[~(gw > 0) & ~(ww > 0)])
+    assert np.ptp(gc[both]) > 0.3  # the texture, not a flat grey
+
+
+@pytest.mark.parametrize("angles", [POSES[1], POSE_Y, POSE_X])
+def test_colour_fuse_matches_xla_scan(angles):
+    """The colour fuse on each sweep axis, twice (the second blends over the
+    first's weights), against the JAX package's."""
+    K, vol, T_wc, gt, norm, W, H = _scene(angles)
+    T_cw = jse3.inverse(T_wc)
+    cvol, rgb, T_iw = colour_inputs(vol, T_cw, W, H)
+    want_v, want_c = vol, cvol
+    got_v, got_c = port_vol(vol), BoundedVolume(t(cvol.data), port_vol(vol).bbox)
+    for _ in range(2):
+        want_v, want_c = jsep.sdf_fuse_color_separable(want_v, want_c, gt, norm, T_cw, K,
+                                                       jnp.asarray(rgb), T_iw, K, TRUNC, MAX_W,
+                                                       MINCOS)
+        got_v, got_c = tsep.sdf_fuse_color_separable(got_v, got_c, t(gt), t(norm), t(T_cw),
+                                                     port_K(K), torch.from_numpy(rgb), t(T_iw),
+                                                     port_K(K), TRUNC, MAX_W, MINCOS)
+    assert int((np.asarray(want_v.weight) > 0).sum()) > 1000
+    _compare_colour(got_v, got_c, want_v, want_c)
+
+
+def test_colour_fuse_options_match_xla_scan():
+    """A narrower colour camera (its image does not cover the depth
+    camera's: the colour gate rejects TSDF updates a depth-only fuse makes),
+    the near/far crop, a pinned axis and the enable gate."""
+    K, vol, T_wc, gt, norm, W, H = _scene(POSES[2])
+    T_cw = jse3.inverse(T_wc)
+    cvol, rgb, T_iw = colour_inputs(vol, T_cw, W, H, baseline=0.3)
+    K_img = kt.Intrinsics.centered(80.0, W, H)
+    kw = dict(near=2.2, far=2.9, sweep_axis=0)
+    want_v, want_c = jsep.sdf_fuse_color_separable(vol, cvol, gt, norm, T_cw, K, jnp.asarray(rgb),
+                                                   T_iw, K_img, TRUNC, MAX_W, MINCOS, **kw)
+    args = (t(gt), t(norm), t(T_cw), port_K(K), torch.from_numpy(rgb), t(T_iw), port_K(K_img),
+            TRUNC, MAX_W, MINCOS)
+    pv, pc = port_vol(vol), BoundedVolume(t(cvol.data), port_vol(vol).bbox)
+    got_v, got_c = tsep.sdf_fuse_color_separable(pv, pc, *args, **kw)
+    _compare_colour(got_v, got_c, want_v, want_c)
+    depth_only = tsep.sdf_fuse_separable(pv, t(gt), t(norm), t(T_cw), port_K(K), TRUNC, MAX_W,
+                                         MINCOS, **kw)
+    assert int((depth_only.weight > 0).sum()) > int((got_v.weight > 0).sum()) + 100
+    off_v, off_c = tsep.sdf_fuse_color_separable(got_v, got_c, *args, enable=False, **kw)
+    assert torch.equal(off_v.weight, got_v.weight) and torch.equal(off_c.data, got_c.data)
+    # in place: the given tensors are updated and returned
+    same_v, same_c = tsep.sdf_fuse_color_separable(pv, pc, *args, inplace=True, **kw)
+    assert same_v.val is pv.val and same_c.data is pc.data
+    assert torch.equal(pv.weight, got_v.weight)
+
+
+@pytest.mark.parametrize("near_far", [(None, None), (2.2, 2.9)])
+@pytest.mark.parametrize("angles,axis", [(POSES[1], 0), (POSE_Y, 1), (POSE_X, 2)])
+def test_fuse_plane_window_matches_jax(angles, axis, near_far):
+    K, vol, T_wc, gt, norm, W, H = _scene(angles)
+    T_cw = jse3.inverse(T_wc)
+    want = jsep.fuse_plane_window(vol, gt, norm, T_cw, K, TRUNC, MINCOS, sweep_axis=axis,
+                                  near=near_far[0], far=near_far[1])
+    got = tsep.fuse_plane_window(port_vol(vol), t(gt), t(norm), t(T_cw), port_K(K), TRUNC,
+                                 MINCOS, sweep_axis=axis, near=near_far[0], far=near_far[1])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the crop leaves planes out; without it the sphere spans the volume
+    assert 0 < int(got.sum()) <= (got.numel() if near_far[0] is None else got.numel() - 10)
+    # the fuse's window is these planes rounded out to batches
+    _, _, _, window = tsep.fuse_inputs(port_vol(vol), t(gt), t(norm), t(T_cw), port_K(K), TRUNC,
+                                       MAX_W, MINCOS, axis, near=near_far[0], far=near_far[1])
+    k = np.nonzero(got.numpy())[0]
+    P = tsep.batch_size(got.numel())
+    assert window.tolist() == [k.min() // P * P, (k.max() // P + 1) * P]
+
+
+def test_make_sweep_geom_ignores_from_planes():
+    K, vol, T_wc, gt, norm, W, H = _scene(POSES[1])
+    args = (port_vol(vol), t(jse3.inverse(T_wc)), port_K(K), W, H, W, H)
+    a = tsep.make_sweep_geom(*args, from_planes=False)
+    b = tsep.make_sweep_geom(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_cpu_fuse_launches_no_kernel():
