@@ -6,7 +6,8 @@
 Needs one CUDA card of compute capability 9.0 (H100) and ``nvcc``; it
 builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 
-1. the card's name and power limit (nvidia-smi) and the kernels' build time;
+1. the card's name and power limit (nvidia-smi) and the kernels' build time,
+   then the two meshing cores' (g++, ``kangaroo_tpu_torch/native``);
 2. each CUDA kernel against its plain PyTorch version on the card: the SGM
    frame's kernels (4- and 8-path) and the DTAM auxiliary search (theta
    100, 1, 1e-3) at 640x480/64 and 1242x375/128 on random inputs (NumPy
@@ -97,7 +98,28 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    of the JAX package's, ``run_sequence(rgbs=)`` against the frame loop
    (poses 1e-4, colour 1e-3) and ``render(show_colour=True)`` hitting; the
    moving workspace against the frame of plain versions after the same
-   rolls (poses 1e-4);
+   rolls (poses 1e-4); the output side and the remaining solvers, each with
+   the launch counts read around it (none of them launches a kernel):
+   ``save_volume`` of the 8-frame separable run and ``load_volume`` into a
+   second app (val, weight and box bit-equal), ``save_mesh`` "tet" and "mc"
+   of the same run (triangle counts; the vertices' median distance to the
+   three analytic spheres under 0.15 voxel, their p99 distance to the scene
+   the frames were rendered from under 0.5 voxel; the .ply read back),
+   native against NumPy extraction on ``sphere_scene(128)`` (the 256-case
+   core the same triangles; the tetrahedra the same count, sorted
+   coordinates within 1e-5), ``save_keyframe`` on two frames of the colour
+   run and ``render_textured`` at level 2 against the same call on a CPU
+   copy of the state, ``HeightmapFusion.save_mesh`` after Stereo2App's steady
+   frame (the .ply's vertices are ``world_vbo``'s), and each solver on the
+   card against the same call on a CPU copy of its inputs: the four
+   photometric builders and both calibration builders at VGA on textured
+   orbit frames (LSS fields within 1e-4 of the largest entry), 10 GN steps of
+   the depth ESM builder from a perturbed pose (the error to the true pose
+   within the CPU run's + 1e-5), ``manhattan_line_cost`` (1e-4) and
+   ``estimate_manhattan_rotation`` after 3 steps (1e-5),
+   ``create_scanline_rectified_lookup`` on a tilted rig (1e-4 px) and a
+   ``PoseGraph`` of 100 keyframes with loop edges and a prior (the final
+   residual within 1e-4 relative);
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
@@ -149,7 +171,11 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    moving) on a running model: events (two rounds of 5), kernel launches
    and device busy share (torch.profiler), host synchronisations by site
    and peak memory, the exact and guided voxel fuses alone with their peak
-   memory, and a one-voxel roll.
+   memory, and a one-voxel roll; the output side at 256^3: the mesh's copy
+   to the host and each extraction apart, both ``save_mesh`` calls,
+   ``save_volume`` and ``load_volume`` (host clock, host synchronisations),
+   and ``render_textured`` and each solver call (events, launches, device
+   time and host synchronisations).
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound (the larger of
@@ -321,6 +347,31 @@ STEREO2_JAX = {
             "plane_depth_m": 2.4999412908036365},
 }
 APPS_SLACK, STEREO2_NC_ATOL = 0.01, 1e-3
+# the output side and the remaining solvers (no kernel: plain PyTorch on the
+# card, the meshing on the host). synthetic.sphere_scene's three spheres
+# (centre, radius): the fused orbit's mesh vertices are held to
+# tests/test_apps.py's bounds in voxels, the median |sdf| < 0.15 to the
+# analytic spheres and the p99 < 0.5 to the scene the depth frames were
+# rendered from (sphere_scene(128)'s trilinear field: its interpolation where
+# the spheres meet puts the analytic p99 at 0.50-0.54 voxels even when the
+# frames fuse at their true poses, on the CPU); the native meshers against their NumPy extractors on
+# sphere_scene(128); the keyframe-textured render at pyramid level 2 against a
+# CPU copy of the state; each solver against the same call on a CPU copy of its
+# inputs: the LSS fields within 1e-4 of the field's largest entry, GN_STEPS
+# steps of the depth ESM builder from GN_PERTURB off the true pose between orbit
+# frames 0 and GN_LIVE_FRAME within the CPU run's error + GN_SLACK, the
+# Manhattan system within 1e-4 and its rotation after MANHATTAN_STEPS steps
+# within 1e-5, the rectification tables within 1e-4 px, and
+# a pose graph of 100 keyframes within 1e-4 relative of the final residual
+SCENE_SPHERES = (((0.25, 0.0, 0.0), 0.6), ((-0.45, 0.35, 0.3), 0.4), ((-0.2, -0.5, -0.3), 0.3))
+MESH_MEDIAN_VOXELS, MESH_P99_VOXELS, MESH_NUMPY_RES = 0.15, 0.5, 128
+TEXTURE_LEVEL = 2
+SOLVER_LSS_RTOL = 1e-4
+GN_STEPS, GN_SLACK, GN_LIVE_FRAME, GN_BASELINE = 10, 1e-5, 2, 0.1
+GN_PERTURB = (0.01, -0.008, 0.006, 0.004, -0.005, 0.003)
+TEX_FREQ = (30.0, 25.0, 35.0)
+MANHATTAN_ATOL, MANHATTAN_STEPS, RECTIFY_ATOL = 1e-5, 3, 1e-4
+POSE_GRAPH_KEYFRAMES, POSE_GRAPH_RTOL = 100, 1e-4
 # fuse checks: (tag, (D, H, W) volume, (W, H) depth, focal length)
 FUSE_SHAPES = (("vga", (256, 256, 256), (640, 480), 550.0),
                ("kitti", (200, 136, 248), (1242, 375), 1068.0))
@@ -345,12 +396,15 @@ class Smoke:
         self.max_err = {k: 0.0 for k in KERNELS}
 
     def phase(self, name, fn, *args):
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:  # a phase's failure is recorded, later phases still run
             self.failures.append(f"{name}: exception")
             traceback.print_exc()
             return None
+        finally:  # where the run's 1200 s go
+            print(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
 
     def compare(self, kernel, what, got, want, atol, mask=None):
         """Max abs error of got vs want where both are finite; NaN (and
@@ -380,6 +434,490 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+# --- the output side and the remaining solvers (phase 3 checks, phase 4 times) ---------
+# None of these paths launches a kernel: they are plain PyTorch on the card,
+# and the meshing runs on the host. ``ctx`` carries what main() made: the
+# device, the Smoke, the KinectFusion runs, the Stereo2App, the launch
+# counters and the timing helpers.
+
+
+def _no_launches(ctx, name, fn):
+    """Run ``fn()`` with the launch counts set to 0 just before and read just
+    after: these paths launch no kernel, and the smoke says so."""
+    ctx.reset_counts()
+    out = fn()
+    ctx.sync()
+    launched = {k: v for k, v in ctx.read_counts().items() if v}
+    print(f"  {'ok  ' if not launched else 'FAIL'} {name}: kernel launches "
+          f"{launched or 'none'}")
+    if launched:
+        ctx.smoke.failures.append(f"phase 3 {name}: launched {launched}")
+    return out
+
+
+def _check(ctx, ok, name, msg):
+    print(f"  {'ok  ' if ok else 'FAIL'} {name}: {msg}")
+    if not ok:
+        ctx.smoke.failures.append(f"phase 3 {name}: {msg}")
+
+
+def volume_io_checks(ctx):
+    """save_volume of the 8-frame separable run, then load_volume into a
+    second app: val, weight and the box bit-equal."""
+    import tempfile
+
+    torch, pipe = ctx.torch, ctx.kf_pipe
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/save.vol"
+
+        def round_trip():
+            pipe.save_volume(path)
+            other = ctx.kf.KinectFusion(ctx.kf_K, ctx.kf_cfg, device=ctx.dev)
+            other.load_volume(path)
+            return other
+
+        other = _no_launches(ctx, "save_volume + load_volume", round_trip)
+        size = Path(path).stat().st_size
+    pairs = ((other.vol.val, pipe.vol.val), (other.vol.weight, pipe.vol.weight),
+             (other.vol.bbox.lo, pipe.vol.bbox.lo), (other.vol.bbox.hi, pipe.vol.bbox.hi))
+    same = all(a.device == b.device and torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs)
+    _check(ctx, same, "volume files", f"{size} bytes written; loaded val, weight and box "
+           f"{'bit-equal' if same else 'DIFFER'} on {other.vol.val.device}")
+
+
+def mesh_checks(ctx):
+    """save_mesh ("tet" and "mc") of the 8-frame separable run: triangle
+    counts, the vertices against the analytic scene, the .ply read back;
+    native against NumPy on sphere_scene(128) for both meshers."""
+    import tempfile
+
+    from kangaroo_tpu_torch.fusion import marching_cubes as mc
+    from kangaroo_tpu_torch.fusion import marching_cubes256 as mc256
+
+    np, pipe = ctx.np, ctx.kf_pipe
+    voxel = float(pipe.vol.voxel_size_units().mean())
+    scene = ctx.synthetic.sphere_scene(ctx.scene_res, device=ctx.dev)
+    for method in ("tet", "mc"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/mesh.ply"
+            tris = _no_launches(ctx, f"save_mesh {method}",
+                                lambda: pipe.save_mesh(path, method=method))
+            verts, faces = mc.load_ply(path)
+        v = tris.reshape(-1, 3).astype(np.float64)
+        analytic = np.abs(np.min([np.linalg.norm(v - np.asarray(c), axis=1) - r
+                                  for c, r in SCENE_SPHERES], axis=0)) / voxel
+        pts = ctx.torch.from_numpy(v.astype(np.float32)).to(ctx.dev)
+        sampled = np.abs(scene.sample_trilinear_world(pts).cpu().numpy()) / voxel
+        q = {f"{name} {k}": float(np.percentile(e, p)) for name, e in (("analytic", analytic),
+                                                                     ("scene", sampled))
+             for k, p in (("median", 50), ("p99", 99))}
+        ctx.mesh_triangles[method] = len(tris)
+        ctx.mesh_quality[method] = q
+        ply_ok = np.array_equal(verts.reshape(-1, 3, 3), tris) and len(faces) == len(tris)
+        ok = (len(tris) > 10000 and q["analytic median"] < MESH_MEDIAN_VOXELS
+              and q["scene p99"] < MESH_P99_VOXELS and ply_ok)
+        _check(ctx, ok, f"save_mesh {method}", f"{len(tris)} triangles; |sdf| of the vertices in "
+               f"voxels ({voxel:.6f} m) {json.dumps({k: round(x, 4) for k, x in q.items()})}: "
+               f"analytic median limit {MESH_MEDIAN_VOXELS}, scene p99 limit {MESH_P99_VOXELS}; "
+               f".ply read back {'equal' if ply_ok else 'DIFFERENT'}")
+    arrays = mc.volume_arrays(ctx.synthetic.sphere_scene(ctx.numpy_res, device=ctx.dev))
+    for name, mod in (("tet", mc), ("mc", mc256)):
+        native, numpy_ = (mod.extract_arrays(*arrays, use_native=n) for n in (True, False))
+        if name == "mc":  # the same triangles in another order
+            ok = np.array_equal(_canonical(np, native), _canonical(np, numpy_))
+            how = "equal as sorted triangle sets"
+        else:  # the NumPy extractor forms the corners' positions in float64
+            err = (float(np.abs(np.sort(native.reshape(-1, 3), 0)
+                                - np.sort(numpy_.reshape(-1, 3), 0)).max())
+                   if len(native) == len(numpy_) else float("inf"))
+            ok = err <= 1e-5
+            how = f"sorted coordinates within {err:.3g} (limit 1e-5)"
+        _check(ctx, ok and len(native) == len(numpy_) > 0,
+               f"native vs NumPy {name} on sphere_scene({ctx.numpy_res})",
+               f"{len(native)} vs {len(numpy_)} triangles, {how}")
+
+
+def _canonical(np, tris):
+    flat = tris.reshape(len(tris), 9)
+    return flat[np.lexsort(flat.T[::-1])]
+
+
+def _cpu_copy(ctx, pipe):
+    """The same app on the CPU holding a copy of ``pipe``'s state."""
+    from kangaroo_tpu_torch.containers import BoundedVolume, BoundingBox, TsdfVolume
+
+    box = lambda b: BoundingBox(b.lo.cpu(), b.hi.cpu())  # noqa: E731
+    cpu = ctx.kf.KinectFusion(pipe.K, pipe.cfg, device="cpu")
+    cpu.vol = TsdfVolume(pipe.vol.val.cpu(), pipe.vol.weight.cpu(), box(pipe.vol.bbox))
+    if pipe.color_vol is not None:
+        cpu.color_vol = BoundedVolume(pipe.color_vol.data.cpu(), box(pipe.color_vol.bbox))
+    cpu.T_wl = pipe.T_wl.cpu()
+    cpu.keyframes = [(img.cpu(), K, T.cpu()) for img, K, T in pipe.keyframes]
+    return cpu
+
+
+def _compare_renders(ctx, name, got, want):
+    """tests/test_torch_kinectfusion_engines.py's render tolerances: NaN
+    masks within 0.5 % of the pixels, depth within 1e-4 and the other
+    outputs within 1e-3 elsewhere."""
+    np = ctx.np
+    gd, wd = got[0].cpu().numpy(), want[0].cpu().numpy()
+    gn, wn = np.isnan(gd), np.isnan(wd)
+    both = ~gn & ~wn
+    mask_share = float((gn != wn).mean())
+    derr = float(np.abs(gd - wd)[both].max()) if both.any() else float("inf")
+    errs = [float(np.abs(g.cpu().numpy()[both] - w.cpu().numpy()[both]).max())
+            for g, w in zip(got[1:], want[1:])]
+    ok = mask_share <= 0.005 and both.sum() > 100 and derr <= 1e-4 and max(errs) <= 1e-3
+    _check(ctx, ok, name, f"{int(both.sum())} pixels hit; NaN masks differ on "
+           f"{100 * mask_share:.3f} % (limit 0.5 %), depth {derr:.3g} (limit 1e-4), normals "
+           f"and rgba {max(errs):.3g} (limit 1e-3)")
+
+
+def texture_checks(ctx):
+    """save_keyframe on two frames of the colour run, then render_textured
+    at level TEXTURE_LEVEL against the same call on a CPU copy."""
+    torch, pipe = ctx.torch, ctx.kf_colour_pipe
+    img = ctx.kf_data["rgb"]
+    T_last = pipe.T_wl
+    pipe.keyframes.clear()
+    for T in (ctx.kf_colour_poses[1], ctx.kf_colour_poses[-2]):
+        pipe.T_wl = T
+        pipe.save_keyframe(img)
+    pipe.T_wl = T_last
+    got = _no_launches(ctx, "render_textured",
+                       lambda: pipe.render_textured(level=TEXTURE_LEVEL))
+    want = _cpu_copy(ctx, pipe).render_textured(level=TEXTURE_LEVEL)
+    alpha = bool((got[2][..., 3] == 1).all())
+    lit = got[2][..., :3][torch.isfinite(got[0])]
+    _check(ctx, alpha and float(lit.std()) > 0.01, "render_textured image",
+           f"{tuple(got[2].shape)}, alpha 1 {alpha}, textured grey std {float(lit.std()):.4f}")
+    _compare_renders(ctx, f"render_textured level {TEXTURE_LEVEL} card vs CPU", got, want)
+
+
+def heightmap_mesh_checks(ctx):
+    """HeightmapFusion.save_mesh after Stereo2App's steady frame: the .ply's
+    vertices are world_vbo's."""
+    import tempfile
+
+    from kangaroo_tpu_torch.fusion import marching_cubes as mc
+
+    np, hm = ctx.np, ctx.stereo2_app.hm
+    with tempfile.TemporaryDirectory() as tmp:
+        n = _no_launches(ctx, "HeightmapFusion.save_mesh", lambda: hm.save_mesh(f"{tmp}/hm.ply"))
+        verts, faces = mc.load_ply(f"{tmp}/hm.ply")
+    vbo = hm.world_vbo()[0][..., :3].reshape(-1, 3).cpu().numpy()
+    same = (np.isfinite(vbo).all()
+            and np.array_equal(np.unique(verts, axis=0), np.unique(vbo, axis=0)))
+    _check(ctx, same and n == len(faces) > 0, "heightmap mesh",
+           f"{n} triangles on a {hm.w}x{hm.h} grid; the .ply's vertices "
+           f"{'are' if same else 'are NOT'} world_vbo's")
+
+
+def _texture(ctx, T_wc, depth, K, channels=1):
+    """A procedural texture on the world surface seen in a depth frame, per
+    channel c 127.5 + 60 sin(a x + 2c) sin(b y + 1) + 40 sin(c z) with
+    (a, b, c) = TEX_FREQ (a wavelength of 18-25 cm: enough gradient for the
+    photometric GN to converge), 0 where the depth is missing: (H, W) or
+    (H, W, 3)."""
+    torch = ctx.torch
+    P = ctx.se3.transform(T_wc, K.unproject_grid(depth.shape[1], depth.shape[0], depth))
+    x, y, z = P[..., 0], P[..., 1], P[..., 2]
+    chans = [127.5 + 60.0 * torch.sin(TEX_FREQ[0] * x + 2.0 * c) * torch.sin(TEX_FREQ[1] * y + 1.0)
+             + 40.0 * torch.sin(TEX_FREQ[2] * z) for c in range(channels)]
+    img = torch.stack(chans, -1) if channels > 1 else chans[0]
+    ok = torch.isfinite(depth) & (depth > 0)
+    return torch.where(ok[..., None] if channels > 1 else ok, img, 0.0)
+
+
+def solver_inputs(ctx):
+    """VGA inputs of the solver checks, on the card: the orbit's frames 0
+    (reference) and GN_LIVE_FRAME (live) textured, their depth and points,
+    the true reference -> live pose, a perturbed start, a colour rig."""
+    torch, se3, K = ctx.torch, ctx.se3, ctx.kf_K
+    poses, depths = ctx.kf_data["poses"], ctx.kf_data["depths"]
+    d_ref = torch.where(depths[0] > 0, depths[0], float("nan"))
+    d_live = torch.where(depths[GN_LIVE_FRAME] > 0, depths[GN_LIVE_FRAME], float("nan"))
+    T_lr = se3.compose(se3.inverse(poses[GN_LIVE_FRAME]), poses[0])
+    s = types.SimpleNamespace(
+        K=K, Km=K.matrix(device=ctx.dev).clone(), depth=d_ref, T_lr=T_lr,
+        ref=_texture(ctx, poses[0], d_ref, K), live=_texture(ctx, poses[GN_LIVE_FRAME], d_live, K),
+        ref3=_texture(ctx, poses[0], d_ref, K, 3),
+        live3=_texture(ctx, poses[GN_LIVE_FRAME], d_live, K, 3),
+        points=ctx.depth_mod.depth_to_vbo(d_ref, K),
+        disp=torch.where(torch.isfinite(d_ref), K.fu * GN_BASELINE / d_ref, 0.0),
+        start=se3.compose(T_lr, se3.exp(torch.tensor(GN_PERTURB, device=ctx.dev))),
+        T_cd=se3.exp(torch.tensor([0.03, 0.002, -0.001, 0.004, -0.003, 0.002], device=ctx.dev)))
+    return s
+
+
+def _four(torch, T):
+    """(3, 4) -> (4, 4), the last row made on the device (no host copy)."""
+    return torch.cat([T, torch.eye(4, device=T.device)[3:]], 0)
+
+
+def solver_calls(ctx, s):
+    """name -> fn(inputs) -> LSS, for the four photometric builders and both
+    calibration builders."""
+    torch = ctx.torch
+    from kangaroo_tpu_torch.solvers import calibration, photometric
+
+    def esm(x, disparity=False):
+        T4 = _four(torch, x.T_lr)
+        args = (x.Km, x.Km, x.Km, torch.eye(4, device=x.Km.device), T4, x.Km @ x.T_lr, 40.0)
+        if disparity:
+            return photometric.pose_refinement_from_disparity_esm(x.live, x.ref, x.disp,
+                                                                  GN_BASELINE, *args)
+        return photometric.pose_refinement_from_depth_esm(x.live, x.ref, x.depth, *args)
+
+    return {
+        "pose_refinement_from_points": lambda x: photometric.pose_refinement_from_points(
+            x.live, x.ref, x.points, x.Km @ x.T_lr, 40.0),
+        "pose_refinement_from_disparity": lambda x: photometric.pose_refinement_from_disparity(
+            x.live, x.ref, x.disp, x.Km @ x.T_lr, 40.0, GN_BASELINE, x.K, 8.0),
+        "pose_refinement_from_depth_esm": esm,
+        "pose_refinement_from_disparity_esm": lambda x: esm(x, disparity=True),
+        "calibration_rgbd_from_depth_esm": lambda x: calibration.calibration_rgbd_from_depth_esm(
+            x.live, x.ref, x.points, x.Km, x.T_cd, x.T_lr, 40.0),
+        "kinect_calibration": lambda x: calibration.kinect_calibration(
+            x.points, x.live3, x.points, x.ref3, x.Km @ x.T_cd, x.T_lr, 40.0),
+    }
+
+
+def _cpu_inputs(s):
+    """A copy of the inputs on the CPU (the Intrinsics as they are)."""
+    return types.SimpleNamespace(**{k: v.cpu() if hasattr(v, "cpu") else v
+                                    for k, v in vars(s).items()})
+
+
+def _gauss_newton(ctx, x, steps):
+    """``steps`` damped GN steps of pose_refinement_from_depth_esm from
+    x.start: the pose reference grey -> live grey."""
+    torch, se3 = ctx.torch, ctx.se3
+    from kangaroo_tpu_torch.solvers import photometric
+
+    T = x.start
+    eye4 = torch.eye(4, device=T.device)
+    for _ in range(steps):
+        sys_ = photometric.pose_refinement_from_depth_esm(
+            x.live, x.ref, x.depth, x.Km, x.Km, x.Km, eye4, _four(torch, T), x.Km @ T, 40.0)
+        T = se3.compose(T, se3.exp(-sys_.solve(damping=1e-3)))
+    return T
+
+
+def manhattan_inputs(ctx, device):
+    """A VGA image of stripes along both image axes over seeded noise, and a
+    tilted start rotation."""
+    np, torch = ctx.np, ctx.torch
+    img = np.random.default_rng(16).uniform(0, 20, (ctx.H, ctx.W)).astype(np.float32)
+    img[:, ::16] = 255.0
+    img[::16, :] = 255.0
+    R0 = ctx.se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.02, -0.015, 0.03]))[:, :3]
+    return torch.from_numpy(img).to(device), R0.to(device)
+
+
+def rectify_rig(ctx):
+    torch, se3 = ctx.torch, ctx.se3
+    R = se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.02, 0.03, 0.01]))[:, :3]
+    T_rl = torch.cat([R, (R @ torch.tensor([-0.1, 0.004, 0.002]))[:, None]], 1)
+    K = ctx.kf_K
+    K_r = ctx.Intrinsics.create(K.fu + 1.0, K.fv + 0.5, K.u0 + 1.5, K.v0 - 1.5)
+    return T_rl, ctx.kf_K, K_r, (-0.05, 0.01, 0.03, -0.002)
+
+
+def pose_graph_inputs(ctx, seed=0):
+    """A loop of n keyframes (a 2 pi turn), noisy starts, odometry edges, a
+    loop edge every 10 keyframes and one closing the loop, all measured with
+    noise (so the optimum keeps a residual), and a prior on keyframe n / 2:
+    (starts, edges, priors) as float32 NumPy."""
+    np, torch, se3, n = ctx.np, ctx.torch, ctx.se3, ctx.keyframes
+    rng = np.random.default_rng(seed)
+    exp = lambda xi: se3.exp(torch.tensor(np.asarray(xi, np.float32)))  # noqa: E731
+    true = [se3.identity(device="cpu")]
+    for _ in range(n - 1):
+        true.append(se3.compose(true[-1], exp([0.1, 0.0, 0.01, 0.0, 0.01, 2 * np.pi / n])))
+    starts = [true[0]] + [se3.compose(T, exp(rng.normal(0, 0.01, 6))) for T in true[1:]]
+    pairs = [(k, k + 1) for k in range(n - 1)] + [(k, k + 10) for k in range(0, n - 10, 10)]
+    pairs.append((0, n - 1))
+    edges = [(i, j, se3.compose(se3.compose(se3.inverse(true[j]), true[i]),
+                                exp(rng.normal(0, 0.002, 6))).numpy()) for i, j in pairs]
+    return [T.numpy() for T in starts], edges, [(n // 2, true[n // 2].numpy())]
+
+
+def _graph(ctx, starts, edges, priors):
+    from kangaroo_tpu_torch.geometry import pose_graph
+
+    g = pose_graph.PoseGraph()
+    for T in starts:
+        g.add_keyframe(T)
+    for i, j, T in edges:
+        g.add_relative_edge(i, j, T)
+    for i, T in priors:
+        g.add_prior(i, T)
+    return g
+
+
+def solver_checks(ctx):
+    """Each solver on the card against the same call on a CPU copy of its
+    inputs: the six LSS builders at VGA, GN_STEPS steps of the depth ESM
+    builder from a perturbed pose, the Manhattan rotation, the rectification
+    tables of a tilted rig, and a pose graph of ctx.keyframes."""
+    np, torch = ctx.np, ctx.torch
+    from kangaroo_tpu_torch.geometry import rectify
+    from kangaroo_tpu_torch.solvers import manhattan
+
+    s = solver_inputs(ctx)
+    cpu = _cpu_inputs(s)
+    for name, call in solver_calls(ctx, s).items():
+        got = _no_launches(ctx, name, lambda: call(s))
+        want = call(cpu)
+        errs = {f: float((getattr(got, f).cpu() - getattr(want, f)).abs().max())
+                / max(float(getattr(want, f).abs().max()), 1e-30)
+                for f in ("JTJ", "JTy", "sqErr", "obs")}
+        ok = max(errs.values()) <= SOLVER_LSS_RTOL and float(want.obs) > 1000
+        _check(ctx, ok, f"{name} card vs CPU", f"obs {float(got.obs):.0f} / "
+               f"{float(want.obs):.0f}; errors of the largest entry "
+               f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (limit "
+               f"{SOLVER_LSS_RTOL:g})")
+    err = lambda T, x: float((T.cpu() - x.T_lr.cpu()).abs().max())  # noqa: E731
+    T_card = _no_launches(ctx, f"depth ESM Gauss-Newton ({GN_STEPS} steps)",
+                          lambda: _gauss_newton(ctx, s, GN_STEPS))
+    T_cpu = _gauss_newton(ctx, cpu, GN_STEPS)
+    e0, e_card, e_cpu = err(s.start, s), err(T_card, s), err(T_cpu, cpu)
+    _check(ctx, e_card <= e_cpu + GN_SLACK and e_card < e0,
+           f"depth ESM Gauss-Newton ({GN_STEPS} steps)",
+           f"max pose error {e0:.4g} -> {e_card:.4g} on the card, {e_cpu:.4g} on the CPU "
+           f"(limit the CPU's + {GN_SLACK:g})")
+    img, R0 = manhattan_inputs(ctx, ctx.dev)
+    got = _no_launches(ctx, "manhattan_line_cost",
+                       lambda: manhattan.manhattan_line_cost(img, R0, ctx.kf_K))
+    want = manhattan.manhattan_line_cost(img.cpu(), R0.cpu(), ctx.kf_K)
+    errs = {f: float((getattr(got, f).cpu() - getattr(want, f)).abs().max())
+            / max(float(getattr(want, f).abs().max()), 1e-30) for f in ("JTJ", "JTy", "sqErr", "obs")}
+    _check(ctx, max(errs.values()) <= SOLVER_LSS_RTOL and float(want.obs) > 1000,
+           "manhattan_line_cost card vs CPU", f"obs {float(got.obs):.0f} / {float(want.obs):.0f}; "
+           f"errors of the largest entry {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}"
+           f" (limit {SOLVER_LSS_RTOL:g})")
+    # MANHATTAN_STEPS, not 10: the reference's update moves away from the
+    # rotation (each step doubles the error, ROADMAP Queue 3), so its
+    # rounding differences double a step too
+    R_card = _no_launches(ctx, f"estimate_manhattan_rotation ({MANHATTAN_STEPS} steps)",
+                          lambda: manhattan.estimate_manhattan_rotation(
+                              img, ctx.kf_K, R0, iterations=MANHATTAN_STEPS))
+    R_cpu = manhattan.estimate_manhattan_rotation(img.cpu(), ctx.kf_K, R0.cpu(),
+                                                  iterations=MANHATTAN_STEPS)
+    d = float((R_card.cpu() - R_cpu).abs().max())
+    moved = float((R_cpu - R0.cpu()).abs().max())
+    _check(ctx, d <= MANHATTAN_ATOL and moved > 1e-3,
+           f"estimate_manhattan_rotation ({MANHATTAN_STEPS} steps) card vs CPU",
+           f"max difference {d:.3g} (limit {MANHATTAN_ATOL:g}); moved {moved:.4f} from R0")
+    T_rl, K_l, K_r, dist = rectify_rig(ctx)
+    got = _no_launches(ctx, "create_scanline_rectified_lookup",
+                       lambda: rectify.create_scanline_rectified_lookup(
+                           ctx.W, ctx.H, T_rl, K_l, K_r, *dist, device=ctx.dev))
+    want = rectify.create_scanline_rectified_lookup(ctx.W, ctx.H, T_rl, K_l, K_r, *dist,
+                                                    device="cpu")
+    d = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    _check(ctx, d <= RECTIFY_ATOL, "create_scanline_rectified_lookup card vs CPU",
+           f"tables and rig within {d:.3g} px (limit {RECTIFY_ATOL:g})")
+    starts, edges, priors = pose_graph_inputs(ctx)
+    g_card, g_cpu = _graph(ctx, starts, edges, priors), _graph(ctx, starts, edges, priors)
+    name = (f"PoseGraph.optimize ({ctx.keyframes} keyframes, {len(edges)} edges, 1 prior, "
+            "10 iterations)")
+    r_card = _no_launches(ctx, name, lambda: g_card.optimize(iterations=10, device=ctx.dev))
+    r_cpu = g_cpu.optimize(iterations=10, device="cpu")
+    rel = abs(r_card - r_cpu) / r_cpu
+    dp = max(float(np.abs(a - b).max()) for a, b in zip(g_card.poses, g_cpu.poses))
+    _check(ctx, rel <= POSE_GRAPH_RTOL and r_cpu > 0, f"{name} card vs CPU",
+           f"final residual {r_card!r} vs {r_cpu!r}: {rel:.3g} relative (limit "
+           f"{POSE_GRAPH_RTOL:g}); poses within {dp:.3g}")
+
+
+def output_checks(ctx):
+    """Phase 3 of the output side and the remaining solvers."""
+    for name, fn in (("volume I/O", volume_io_checks), ("meshes", mesh_checks),
+                     ("keyframe texturing", texture_checks),
+                     ("heightmap mesh", heightmap_mesh_checks), ("solvers", solver_checks)):
+        print(f"phase 3 output side and solvers: {name}")
+        ctx.smoke.phase(f"phase 3 {name}", fn, ctx)
+
+
+def _host_ms(ctx, run, runs=3):
+    """Host clock (the work ends in a synchronise): median, min and max ms."""
+    import statistics
+
+    ms = []
+    for _ in range(runs):
+        ctx.sync()
+        t0 = time.perf_counter()
+        run()
+        ctx.sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms)}
+
+
+def output_times(ctx):
+    """Phase 4 of the output side and the solvers: host-clock times of the
+    mesh (the copy to the host and each extraction apart) and of the volume
+    files; CUDA-event times, launches and host synchronisations of the
+    textured render and of each solver call."""
+    import tempfile
+
+    from kangaroo_tpu_torch.fusion import marching_cubes as mc
+    from kangaroo_tpu_torch.fusion import marching_cubes256 as mc256
+    from kangaroo_tpu_torch.geometry import rectify
+    from kangaroo_tpu_torch.solvers import manhattan
+
+    pipe, card, out = ctx.kf_pipe, ctx.card, ctx.times
+
+    def host(name, run, runs=3):
+        out[name] = _host_ms(ctx, run, runs)
+        syncs = ctx.host_syncs(run)
+        out[name]["host_syncs"] = sum(syncs.values())
+        print(f"  {name:44s} {out[name]['median_ms']:.3f} ms (min {out[name]['min_ms']:.3f}, "
+              f"max {out[name]['max_ms']:.3f}, {runs} runs, host clock); "
+              f"{sum(syncs.values())} host synchronisations [{card}]")
+
+    def events(name, run, runs=10):
+        out[name] = dict(ctx.timed(name, run, runs=runs))
+        out[name]["host_syncs"] = sum(ctx.host_syncs(run).values())
+        print(f"  {'':34s} {out[name]['host_syncs']} host synchronisations a call")
+
+    vol = pipe.vol
+    arrays = mc.volume_arrays(vol)
+    res = "x".join(str(n) for n in vol.val.shape)
+    host(f"mesh copy to host (volume_arrays, {res})", lambda: mc.volume_arrays(vol))
+    host("mesh extraction tet (native, host)", lambda: mc.extract_arrays(*arrays))
+    host("mesh extraction mc (native, host)", lambda: mc256.extract_arrays(*arrays))
+    with tempfile.TemporaryDirectory() as tmp:
+        for method in ("tet", "mc"):
+            host(f"save_mesh {method} ({res}, whole call)",
+                 lambda: pipe.save_mesh(f"{tmp}/m.ply", method=method))
+        host(f"save_volume ({res})", lambda: pipe.save_volume(f"{tmp}/v.vol"))
+        other = ctx.kf.KinectFusion(ctx.kf_K, ctx.kf_cfg, device=ctx.dev)
+        host(f"load_volume ({res})", lambda: other.load_volume(f"{tmp}/v.vol"))
+    events(f"render_textured ({ctx.W}x{ctx.H}, 2 keyframes)",
+           lambda: ctx.kf_colour_pipe.render_textured())
+    s = solver_inputs(ctx)
+    for name, call in solver_calls(ctx, s).items():
+        events(name, lambda: call(s))
+    events(f"depth ESM Gauss-Newton ({GN_STEPS} steps)",
+           lambda: _gauss_newton(ctx, s, GN_STEPS), runs=3)
+    img, R0 = manhattan_inputs(ctx, ctx.dev)
+    events("estimate_manhattan_rotation (10 steps)",
+           lambda: manhattan.estimate_manhattan_rotation(img, ctx.kf_K, R0), runs=3)
+    T_rl, K_l, K_r, dist = rectify_rig(ctx)
+    events("create_scanline_rectified_lookup", lambda: rectify.create_scanline_rectified_lookup(
+        ctx.W, ctx.H, T_rl, K_l, K_r, *dist, device=ctx.dev))
+    starts, edges, priors = pose_graph_inputs(ctx)
+    events(f"PoseGraph.optimize ({ctx.keyframes} keyframes, 10 its)",
+           lambda: _graph(ctx, starts, edges, priors).optimize(iterations=10, device=ctx.dev),
+           runs=3)
+    print("  output-side and solver times: " + json.dumps(
+        {k: {m: round(v, 4) for m, v in d.items()} for k, d in out.items()}) + f" [{card}]")
+
+
 def main() -> int:
     if not (HERE / "kangaroo_tpu_torch").is_dir():
         die("the kangaroo_tpu_torch package is not beside chip_smoke.py")
@@ -399,6 +937,7 @@ def main() -> int:
     from kangaroo_tpu_torch.containers import BoundingBox, Intrinsics, TsdfVolume, pyramid
     from kangaroo_tpu_torch.core import se3
     from kangaroo_tpu_torch.fusion import raycast, rolling, sdf, separable, separable_cuda
+    from kangaroo_tpu_torch.fusion import marching_cubes, marching_cubes256
     from kangaroo_tpu_torch.ops import bilateral, blur, integral_image, resample
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
@@ -434,6 +973,14 @@ def main() -> int:
     ptxas = Path(lib._name).with_suffix(".log")
     if ptxas.exists():
         print(ptxas.read_text(), file=sys.stderr)
+    t0 = time.perf_counter()
+    try:
+        marching_cubes.native_library()
+        marching_cubes256.native_library()
+    except Exception as exc:  # g++'s own message says what failed
+        die(f"meshing core build failed: {exc}")
+    print(f"phase 1 build: {time.perf_counter() - t0:.3f} s for the 2 meshing cores (g++, "
+          f"kangaroo_tpu_torch/native/*.cpp, host code) [{card}]")
 
     smoke = Smoke(torch, np)
     rng = np.random.default_rng(0)
@@ -1476,6 +2023,7 @@ def main() -> int:
                                       f"times, tracking_good {pipe.tracking_good}")
             prev = now
         launches["separable_fuse"] = prev["separable_fuse"]
+        kf_data["pipe"] = pipe  # for the output side's checks
         loop_rmse = pipe.rmse
         if not (bool(torch.isfinite(torch.stack(loop_poses)).all())
                 and float(pipe.vol.weight.max()) > 0):
@@ -1887,6 +2435,7 @@ def main() -> int:
             torch.cuda.synchronize()
             now = read_counts()
             check_launched(f"Stereo2App {name} frame", now, frame_kernels["4-path"], frame_want)
+            kf_data["stereo2"] = app  # for the heightmap mesh check
             apps[f"stereo2 {name}"] = now
             if tuple(d3d.shape) != (H, W, 4) or not app.hm_initialised:
                 smoke.failures.append(f"phase 3 Stereo2App {name}: points {tuple(d3d.shape)}")
@@ -1953,6 +2502,20 @@ def main() -> int:
     smoke.phase("phase 3 Stereo2App", stereo2_phase)
     print(f"phase 3 census_stereo and dense_stereo at {W}x{H}/{D}, card vs CPU:")
     smoke.phase("phase 3 scanline", scanline_phase)
+
+    # the output side and the remaining solvers: volume files, meshes,
+    # keyframe texturing and the heightmap mesh on the runs above, then each
+    # solver against a CPU copy of its inputs (no kernel on these paths)
+    colour_run = kf_paths.get("colour", (None, None))
+    out_ctx = types.SimpleNamespace(
+        torch=torch, np=np, smoke=smoke, dev=dev, card=card, kf=kf, kf_K=kf_K, kf_cfg=kf_cfg,
+        kf_data=kf_data, kf_pipe=kf_data.get("pipe"), kf_colour_pipe=colour_run[0],
+        kf_colour_poses=colour_run[1], stereo2_app=kf_data.get("stereo2"), synthetic=synthetic,
+        se3=se3, Intrinsics=Intrinsics, depth_mod=depth_mod, reset_counts=reset_counts,
+        read_counts=read_counts, sync=torch.cuda.synchronize, host_syncs=host_syncs,
+        numpy_res=MESH_NUMPY_RES, scene_res=128, keyframes=POSE_GRAPH_KEYFRAMES, W=W, H=H,
+        mesh_triangles={}, mesh_quality={}, times={})
+    output_checks(out_ctx)
 
     # --- phase 4: times -------------------------------------------------------
     times, bound = {}, {}
@@ -3093,6 +3656,9 @@ def main() -> int:
 
     print(f"phase 4 the stereo apps' entry points at {W}x{H}/{D}:")
     smoke.phase("phase 4 apps", apps_timing_phase)
+    out_ctx.timed = timed
+    print(f"phase 4 the output side and the solvers at {W}x{H} (256^3 volumes):")
+    smoke.phase("phase 4 output side", output_times, out_ctx)
     torch.cuda.synchronize()
 
     if smoke.failures:

@@ -11,10 +11,13 @@ launches the kernel or raises.
 Ported so far: the SGM stereo frame (``apps.stereo_sgm.sgm_pipeline``, on
 one device or over a device mesh of ``parallel``) and its stacked batch
 (``sgm_pipeline_batched``), DTAM variational stereo (``apps.stereo``), the
-variational solvers (``variational``) and the KinectFusion frame on its
+variational solvers (``variational``), the KinectFusion frame on its
 three engines, with colour fusion and the moving workspace
-(``apps.kinectfusion``). As the JAX package, the package exports its
-containers and core modules.
+(``apps.kinectfusion``), its output side (meshes built on the host by
+``fusion.marching_cubes``, volume files, keyframe texturing), and the
+photometric, calibration and Manhattan solvers (``solvers``), scanline
+rectification and the pose graph (``geometry``). As the JAX package, the
+package exports its containers and core modules.
 """
 
 from .containers.bbox import BoundingBox, fit_to_frustum

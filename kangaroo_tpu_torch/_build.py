@@ -9,6 +9,11 @@ The build runs at first use, into
 on a hash of the sources and headers (``csrc/*.cu``, ``*.cuh``), the
 generated headers and the flags, so an edit to any of them rebuilds and an
 unchanged tree reuses the library.
+
+``host_library`` builds the host-side C++ of ``native/`` (the meshing
+cores) the same way with ``g++``: one library a source, keyed on its hash
+and the flags, published with ``os.replace`` so that processes building
+the same key at once all load a whole file.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+NATIVE_DIR = PKG_DIR / "native"
+# the JAX package's flags for the same sources, so the cores compute the same bits
+GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -168,3 +176,37 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+_host_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _compile_host(stem: str) -> Path:
+    src = NATIVE_DIR / f"{stem}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: native/{src.name} cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = Path(tmp) / lib_path.name
+        cmd = [gxx, *GXX_FLAGS, "-o", str(tmp_lib), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def host_library(stem: str) -> ctypes.CDLL:
+    """``native/<stem>.cpp`` built with g++ on first call and loaded (the
+    caller declares its functions' types); raises if the build fails."""
+    with _lock:
+        if stem not in _host_libs:
+            _host_libs[stem] = ctypes.CDLL(str(_compile_host(stem)))
+    return _host_libs[stem]

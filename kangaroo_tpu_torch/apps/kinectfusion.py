@@ -27,10 +27,15 @@ and its 'auto' sweep axis, the fuse's axis under 'auto', one read every 8
 march steps of the guided and exact raycasts, and the pose for the moving
 workspace.
 
+The output side runs on the host where the JAX package's does:
+``save_mesh`` copies the volume to the host once and meshes it there
+(``fusion/marching_cubes.py``, ``marching_cubes256.py``), and
+``save_volume`` / ``load_volume`` go through ``io/pxm.py``.
+``save_keyframe`` and ``render_textured`` texture a render from the last
+10 saved keyframes on the app's device.
+
 Not ported, and refused with ``NotImplementedError`` (ROADMAP Queue 1):
-``mesh=`` (model-parallel frames), and meshing, volume I/O and keyframe
-texturing (``save_mesh``, ``save_volume``, ``load_volume``,
-``save_keyframe``, ``render_textured``).
+``mesh=`` (model-parallel frames).
 """
 from __future__ import annotations
 
@@ -345,6 +350,7 @@ class KinectFusion:
         if cfg.use_colour:
             self.T_cd, self.K_rgb = _colour_camera(cfg, self.device)
         self.T_wl = se3.identity(self.device)
+        self.keyframes = []  # (img, K, T_iw) for view-dependent texturing
         self.frame = 0
         self.tracking_good = True
         self.rmse = 0.0
@@ -375,6 +381,7 @@ class KinectFusion:
             shape=tuple(self.vol.val.shape))
         self.T_wl = (se3.identity(self.device) if T_wl is None
                      else torch.as_tensor(T_wl, dtype=torch.float32, device=self.device))
+        self.keyframes.clear()
         self.frame = 0
         self.tracking_good = True
 
@@ -544,21 +551,64 @@ class KinectFusion:
         return rc.raycast_sdf(self.vol, T, Kl, w_l, h_l, cfg.near, cfg.far,
                               trunc_dist=self.trunc_dist, color_vol=cvol)
 
-    def _not_ported(self, what):
-        raise NotImplementedError(f"KinectFusion.{what} (meshing, volume I/O and keyframe "
-                                  f"texturing) {_TODO}")
-
     def save_keyframe(self, img, K_kf=None):
-        self._not_ported("save_keyframe")
+        """Store the current camera image and pose for view-dependent
+        texturing: T_iw = T_cd T_wl^-1 under ``use_colour`` (the colour
+        camera's world-to-image transform), else T_wl^-1. ``K_kf`` defaults
+        to the colour intrinsics under ``use_colour``, else the depth
+        camera's."""
+        if K_kf is None:
+            K_kf = self.K_rgb if self.cfg.use_colour else self.K
+        T_lw = se3.inverse(self.T_wl)
+        T_iw = se3.compose(self.T_cd, T_lw) if self.cfg.use_colour else T_lw
+        self.keyframes.append((torch.as_tensor(img, device=self.device), K_kf, T_iw))
 
     def render_textured(self, T_wc=None, level: int = 0):
-        self._not_ported("render_textured")
+        """View-only render textured from the saved keyframes: the raycast's
+        depth, normals and Phong shading, then the last 10 keyframes blended
+        by view alignment, the shading where none sees the surface.
+        Returns (depth, normals, rgba); without keyframes the rgba is the
+        grey shading with alpha 1."""
+        d, n, phong = self.render(T_wc, level)
+        if not self.keyframes:
+            rgba = torch.cat([phong[..., None].repeat_interleave(3, dim=-1),
+                              torch.ones_like(phong)[..., None]], dim=-1)
+            return d, n, rgba
+        T_wd = self.T_wl if T_wc is None else torch.as_tensor(T_wc, dtype=torch.float32,
+                                                               device=self.device)
+        rgba = depth_mod.texture_depth_keyframes(d, n, phong, self.keyframes[-10:], T_wd,
+                                                 self.K.level(level))
+        return d, n, rgba
 
     def save_mesh(self, path: str, method: str = "tet"):
-        self._not_ported("save_mesh")
+        """Mesh the TSDF into a binary PLY at ``path`` and return the
+        triangles ((n, 3, 3) float32 NumPy): ``method="tet"`` by marching
+        tetrahedra, ``"mc"`` by the classic 256-case tables (about a third
+        of the triangles). Unobserved (non-finite) values count as
+        ``trunc_dist``; the volume is copied to the host once."""
+        from ..fusion import marching_cubes as mc
+        from ..fusion import marching_cubes256 as mc256
+
+        if method not in ("tet", "mc"):
+            raise ValueError(f"save_mesh: method must be 'tet' or 'mc', got {method!r}")
+        val = self.vol.val
+        vol = TsdfVolume(torch.where(torch.isfinite(val), val, self.trunc_dist), self.vol.weight,
+                         self.vol.bbox)
+        tris = (mc256 if method == "mc" else mc).extract_mesh(vol)
+        mc.save_ply(path, tris)
+        return tris
 
     def save_volume(self, path: str):
-        self._not_ported("save_volume")
+        """Write the TSDF as a PXM volume with its box beside it
+        (``io/pxm.save_tsdf``)."""
+        from ..io import pxm
+
+        pxm.save_tsdf(path, self.vol)
 
     def load_volume(self, path: str):
-        self._not_ported("load_volume")
+        """Load a TSDF saved by :meth:`save_volume` onto the app's device; the
+        frame step is rebuilt for its box at the next frame."""
+        from ..io import pxm
+
+        self.vol = pxm.load_tsdf(path, device=self.device)
+        self._step = self._seq_run = self._seq_axis = None

@@ -1,4 +1,4 @@
 """TSDF fusion and raycasting: the exact and guided engines (voxel fuse and
-sphere trace), the plane-sweep (separable) engine with its fuse kernel, and
-the rolling workspace."""
-from . import raycast, rolling, sdf, separable
+sphere trace), the plane-sweep (separable) engine with its fuse kernel, the
+rolling workspace, and mesh extraction on the host."""
+from . import marching_cubes, marching_cubes256, raycast, rolling, sdf, separable

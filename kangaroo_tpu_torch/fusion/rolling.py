@@ -62,8 +62,11 @@ def recenter_shift(vol: TsdfVolume, T_wc, lead: float = 0.5,
                    threshold_voxels: int = 8) -> Tuple[int, int, int]:
     """Whole-voxel shift that re-centres the volume on the point ``lead``
     metres in front of the camera; zero on an axis until the drift there
-    reaches ``threshold_voxels`` (hysteresis). Returns plain ints."""
+    reaches ``threshold_voxels`` (hysteresis). Returns plain ints. ``T_wc``
+    must be a (3, 4) pose."""
     T_wc = torch.as_tensor(T_wc, dtype=torch.float32, device=vol.val.device)
+    if tuple(T_wc.shape) != (3, 4):
+        raise ValueError(f"recenter_shift: T_wc must be a (3, 4) pose, not {tuple(T_wc.shape)}")
     host = torch.cat([T_wc.reshape(-1), vol.bbox.lo + vol.bbox.hi,
                       vol.voxel_size_units()]).cpu().numpy()  # the one host read
     T, lo_hi, step = host[:12].reshape(3, 4), host[12:15], host[15:18]

@@ -1,2 +1,3 @@
-"""Geometry: depth images to point and normal images, and heightmap fusion."""
-from . import depth, heightmap
+"""Geometry: depth images to point and normal images, heightmap fusion, pose
+graphs and scanline rectification."""
+from . import depth, heightmap, pose_graph, rectify

@@ -143,8 +143,17 @@ class HeightmapFusion:
         T_wh = np.concatenate([Rinv, -(Rinv @ T[:, 3])[:, None]], 1).astype(np.float32)
         return generate_world_vbo_and_image(self.hm, torch.from_numpy(T_wh).to(self.hm.device))
 
-    def save_mesh(self, path: str):
-        """Triangle-mesh export: not ported yet (it writes through
-        ``fusion/marching_cubes.save_ply``, ROADMAP Queue 1 item 6)."""
-        raise NotImplementedError("HeightmapFusion.save_mesh: fusion/marching_cubes.save_ply "
-                                  "is not ported yet (ROADMAP Queue 1, item 6)")
+    def save_mesh(self, path: str) -> int:
+        """Export the world-frame vertex grid as a binary PLY triangle soup:
+        the serpentine triangle strip's triangles, degenerate ones dropped.
+        Returns the triangle count."""
+        from ..fusion.marching_cubes import save_ply
+
+        vbo, _ = self.world_vbo()
+        verts = vbo[..., :3].reshape(-1, 3).cpu().numpy()
+        idx = triangle_strip_index_buffer(self.w, self.h).astype(np.int64)
+        a, b, c = idx[:-2], idx[1:-1], idx[2:]
+        keep = (a != b) & (b != c) & (a != c)
+        tris = np.stack([verts[a[keep]], verts[b[keep]], verts[c[keep]]], axis=1)
+        save_ply(path, tris.astype(np.float32).reshape(-1, 3, 3))
+        return len(tris)

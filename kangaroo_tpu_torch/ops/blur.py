@@ -15,9 +15,12 @@ from ..backend import f32_scalars
 
 def _binomial_1d(f: torch.Tensor, dim: int) -> torch.Tensor:
     """(prev + 2 centre + next) / 4 along ``dim`` of a float32 (H, W) image;
-    the first and last entries (2 edge + inner neighbour) / 3."""
+    the first and last entries (2 edge + inner neighbour) / 3, and a lone
+    entry (2 f + f) / 3, its own neighbour (the JAX package's clamped read)."""
     n = f.shape[dim]
     three, = f32_scalars(f.device, 3.0)
+    if n < 2:
+        return (2.0 * f + f) / three
     out = (torch.roll(f, 1, dim) + 2.0 * f + torch.roll(f, -1, dim)) / 4.0
     first = (2.0 * f.narrow(dim, 0, 1) + f.narrow(dim, 1, 1)) / three
     last = (2.0 * f.narrow(dim, n - 1, 1) + f.narrow(dim, n - 2, 1)) / three
@@ -25,8 +28,7 @@ def _binomial_1d(f: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def blur(img: torch.Tensor) -> torch.Tensor:
-    """3-tap binomial blur, along x then y; needs at least 2 pixels along
-    each axis."""
+    """3-tap binomial blur, along x then y."""
     out = _binomial_1d(_binomial_1d(img.to(torch.float32), 1), 0)
     return out if img.dtype.is_floating_point else out.to(img.dtype)
 

@@ -1,2 +1,3 @@
-"""Solvers: Gauss-Newton normal equations, projective ICP and the robust plane fit."""
-from . import icp, lss, plane_fit
+"""Solvers: Gauss-Newton normal equations, projective ICP, the robust plane
+fit, photometric pose refinement, calibration and the Manhattan frame."""
+from . import calibration, icp, lss, manhattan, photometric, plane_fit

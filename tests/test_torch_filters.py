@@ -83,6 +83,23 @@ def test_blur_matches_jax(shape):
     within_1lsb(tblur.blur(t(u8)), jblur.blur(u8))
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (1, 6), (6, 1), (1, 16), (16, 1)])
+def test_blur_of_one_row_or_column_matches_jax(shape):
+    """An axis of one entry is its own neighbour on both sides: the JAX
+    package gives (2 f + f) / 3 there, and its blur_reduce levels below
+    come out empty along that axis."""
+    for img in (image(shape, 5), uint8_image(shape, 6)):
+        got, want = tblur.blur(t(img)), jblur.blur(img)
+        assert got.numpy().dtype == np.asarray(want).dtype
+        (within_1lsb if img.dtype == np.uint8 else close)(got, want)
+        for levels in (1, 3, 5):
+            gp, wp = tpyr.blur_reduce(t(img), levels), jpyr.blur_reduce(img, levels)
+            assert [tuple(g.shape) for g in gp] == [tuple(w.shape) for w in wp]
+            for g, w in zip(gp, wp):
+                if g.numel():  # an empty level has nothing more to compare
+                    (within_1lsb if img.dtype == np.uint8 else close)(g, w)
+
+
 @pytest.mark.parametrize("shape", SIZES)
 @pytest.mark.parametrize("sigma,rad", [(2.0, 10), (0.7, 3), (0.0, 2)])
 def test_gaussian_blur_matches_jax(shape, sigma, rad):

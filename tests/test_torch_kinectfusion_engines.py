@@ -20,6 +20,11 @@ volume's gradient at the hit, which an ulp of the volume turns by up to
 only. The rgb frame is
 synthetic.colour_texture (seed 0), seen by a colour camera of focal 55 and
 a 5 cm baseline.
+
+The output side runs on the JAX package's state after the orbit (the
+colour and guided runs): volume files byte-equal and read back equal,
+meshes ("tet" and "mc") bit-equal with byte-equal .ply files, and the
+keyframe-textured render at the render tolerances above.
 """
 import dataclasses
 
@@ -280,3 +285,97 @@ def test_cpu_engine_frames_launch_no_kernel(orbit, rgb):
     for name in ("guided", "colour"):
         _port_loop(K, frames[:2], name, rgb)
     assert separable_cuda.launches == before
+
+
+# --- the output side: volume files, meshes and keyframe texturing ------------------------
+
+
+def _shared_state(name, orbit, jax_runs):
+    """The JAX package's pipeline after the orbit and a port pipeline that
+    holds the same state (state_from_numpy)."""
+    K, frames = orbit
+    jpipe, _ = jax_runs(name)
+    _, cfg = _config(**CONFIGS[name])
+    pipe = _port(K, cfg, frames[0][0])
+    colour = np.asarray(jpipe.color_vol.data) if jpipe.color_vol is not None else None
+    state = tkf.state_from_numpy(np.asarray(jpipe.vol.val), np.asarray(jpipe.vol.weight),
+                                 np.asarray(jpipe.vol.bbox.lo), np.asarray(jpipe.vol.bbox.hi),
+                                 np.asarray(jpipe.T_wl), device="cpu", color=colour)
+    pipe.vol, pipe.T_wl = state[0], state[-1]
+    if colour is not None:
+        pipe.color_vol = state[1]
+    return jpipe, pipe
+
+
+@pytest.mark.parametrize("name", ["colour", "guided"])
+def test_volume_files_match_jax(orbit, jax_runs, name, tmp_path):
+    """save_volume writes the JAX package's bytes; load_volume reads them
+    back onto the app's device, equal, and the next frame runs."""
+    K, frames = orbit
+    jpipe, pipe = _shared_state(name, orbit, jax_runs)
+    pipe.save_volume(str(tmp_path / "t.vol"))
+    jpipe.save_volume(str(tmp_path / "j.vol"))
+    for suffix in ("", ".bbox.npy"):
+        assert ((tmp_path / f"t.vol{suffix}").read_bytes()
+                == (tmp_path / f"j.vol{suffix}").read_bytes())
+    _, cfg = _config(**CONFIGS[name])
+    fresh = _port(K, cfg, frames[0][0])
+    fresh.load_volume(str(tmp_path / "j.vol"))
+    for a, b in ((fresh.vol.val, pipe.vol.val), (fresh.vol.weight, pipe.vol.weight),
+                 (fresh.vol.bbox.lo, pipe.vol.bbox.lo), (fresh.vol.bbox.hi, pipe.vol.bbox.hi)):
+        assert a.device.type == "cpu"
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    if cfg.use_colour:  # the frame step is rebuilt for the loaded volume
+        fresh.T_wl, fresh.frame = pipe.T_wl, 4
+        fresh.process_frame(torch.from_numpy(frames[-1][1].copy()),
+                            rgb=tsyn.colour_texture(W, H, device="cpu"))
+        assert fresh.tracking_good
+
+
+@pytest.mark.parametrize("method", ["tet", "mc"])
+def test_save_mesh_matches_jax(orbit, jax_runs, method, tmp_path):
+    """The fused orbit's mesh: the JAX package's triangles and .ply bytes."""
+    jpipe, pipe = _shared_state("colour", orbit, jax_runs)
+    got = pipe.save_mesh(str(tmp_path / "t.ply"), method=method)
+    want = jpipe.save_mesh(str(tmp_path / "j.ply"), method=method)
+    assert len(got) > 1000
+    np.testing.assert_array_equal(got, want)
+    assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
+    with pytest.raises(ValueError, match="method"):
+        pipe.save_mesh(str(tmp_path / "x.ply"), method="marching")
+
+
+@pytest.mark.parametrize("name", ["colour", "guided"])
+def test_keyframe_texturing_matches_jax(orbit, jax_runs, rgb, name):
+    """render_textured without keyframes (grey shading, alpha 1), then after
+    two save_keyframe calls at two poses of the orbit (the colour camera's
+    T_iw and K_rgb under use_colour, the depth camera's without), from the
+    last pose and from a given one, at the render tolerances above."""
+    K, frames = orbit
+    jpipe, pipe = _shared_state(name, orbit, jax_runs)
+    jkeys, jT = list(jpipe.keyframes), jpipe.T_wl
+    jpipe.keyframes.clear()
+    try:
+        _compare_renders(pipe.render_textured(), jpipe.render_textured())
+        got = pipe.render_textured()[2]
+        assert got.shape == (H, W, 4) and bool((got[..., 3] == 1).all())
+        img = (255.0 * rgb[..., 1]).astype(np.float32)
+        for T in (frames[1][0], frames[-1][0]):
+            pipe.T_wl, jpipe.T_wl = torch.from_numpy(T.copy()), jnp.asarray(T)
+            pipe.save_keyframe(torch.from_numpy(img))
+            jpipe.save_keyframe(jnp.asarray(img))
+        assert len(pipe.keyframes) == 2
+        _, K_kf, T_iw = pipe.keyframes[-1]
+        _, jK_kf, jT_iw = jpipe.keyframes[-1]
+        assert (K_kf.fu, K_kf.u0) == (float(jK_kf.fu), float(jK_kf.u0))
+        np.testing.assert_allclose(T_iw.numpy(), np.asarray(jT_iw), atol=1e-6, rtol=0)
+        for kw in ({}, dict(T_wc=frames[2][0])):
+            want = jpipe.render_textured(**kw)
+            got = pipe.render_textured(**{k: torch.from_numpy(v.copy()) for k, v in kw.items()})
+            _compare_renders(got, want)
+            textured = np.isfinite(np.asarray(want[0]))
+            assert np.ptp(np.asarray(want[2])[..., 0][textured]) > 0.1  # keyframe colour
+        pipe.reset()
+        assert pipe.keyframes == []
+    finally:  # the JAX pipeline is the module's, shared with the tests above
+        jpipe.keyframes[:], jpipe.T_wl = jkeys, jT

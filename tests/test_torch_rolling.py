@@ -99,6 +99,24 @@ def test_recenter_shift_and_follow_camera_match_jax(t_wc, lead, threshold):
         _equal_volumes(moved, jroll.follow_camera(_jvol(), T, lead, threshold))
 
 
+@pytest.mark.parametrize("rows", [3, 4])
+def test_recenter_shift_takes_only_a_3x4_pose(rows):
+    """A (4, 4) pose is refused, as the JAX package refuses it (its row
+    (0, 0, 0, 1) is not read as the box); its (3, 4) rows agree."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = (0.7, -0.4, 0.9)
+    T = T[:rows]
+    if rows == 4:
+        with pytest.raises(ValueError):
+            jroll.recenter_shift(_jvol(), T, lead=0.5, threshold_voxels=1)
+        with pytest.raises(ValueError, match=r"\(3, 4\)"):
+            troll.recenter_shift(port_vol(_jvol()), t(T), lead=0.5, threshold_voxels=1)
+    else:
+        want = jroll.recenter_shift(_jvol(), T, lead=0.5, threshold_voxels=1)
+        assert want == (5, -3, 10)
+        assert troll.recenter_shift(port_vol(_jvol()), t(T), lead=0.5, threshold_voxels=1) == want
+
+
 def _rand_bounded(seed=1):
     rng = np.random.default_rng(seed)
     bbox = kt.BoundingBox.create((-1.0, -0.5, 0.2), (1.5, 0.9, 2.0))

@@ -6,7 +6,8 @@ Tolerances: one GN system (JTJ, JTy) 1e-5 of its largest entry (float32
 sums over the image in another order); ``make_q_inv`` and the plane's pose
 1e-6; the fitted normal n_c within 1e-4 of its length after the 105-step
 reset (the GN steps compound the sums' last bits); heightmap counts exactly, means
-1e-5 relative; the triangle-strip index buffer exactly; the app's disparity
+1e-5 relative; the triangle-strip index buffer exactly, and the heightmap
+mesh's .ply file byte for byte; the app's disparity
 >= 99.5 % of pixels both NaN or within 1e-3 px, as the SGM frame's.
 
 ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_stereo2.py``
@@ -184,7 +185,7 @@ def test_triangle_strip_index_buffer_matches_jax(w, h):
     np.testing.assert_array_equal(got, want)
 
 
-def test_heightmap_fusion_matches_jax():
+def test_heightmap_fusion_matches_jax(tmp_path):
     pts, image, T = heightmap_inputs(seed=4)
     T_hw = np.asarray(jse3.exp(jnp.asarray([0.3, 0.4, 0.0, 0.0, 0.0, 0.1], jnp.float32)))
     want = jhm.HeightmapFusion(1.6, 1.2, 0.2, T_hw=T_hw)
@@ -196,8 +197,8 @@ def test_heightmap_fusion_matches_jax():
     np.testing.assert_allclose(got.hm.numpy(), np.asarray(want.hm), rtol=1e-5, atol=1e-6)
     for g, w in zip(got.world_vbo(), want.world_vbo()):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="save_ply"):
-        got.save_mesh("unused.ply")
+    assert got.save_mesh(str(tmp_path / "t.ply")) == want.save_mesh(str(tmp_path / "j.ply")) > 0
+    assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
 
 
 # --- Stereo2App -------------------------------------------------------------------------
