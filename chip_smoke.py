@@ -7,7 +7,8 @@ Needs one CUDA card of compute capability 9.0 (H100) and ``nvcc``; it
 builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
 
 1. the card's name and power limit (nvidia-smi) and the kernels' build time,
-   then the two meshing cores' (g++, ``kangaroo_tpu_torch/native``);
+   then the three host cores' (g++, ``kangaroo_tpu_torch/native``: the two
+   meshing cores and the frame loader);
 2. each CUDA kernel against its plain PyTorch version on the card: the SGM
    frame's kernels (4- and 8-path) and the DTAM auxiliary search (theta
    100, 1, 1e-3) at 640x480/64 and 1242x375/128 on random inputs (NumPy
@@ -119,7 +120,23 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    ``estimate_manhattan_rotation`` after 3 steps (1e-5),
    ``create_scanline_rectified_lookup`` on a tilted rig (1e-4 px) and a
    ``PoseGraph`` of 100 keyframes with loop edges and a prior (the final
-   residual within 1e-4 relative);
+   residual within 1e-4 relative); the host side: the KinectFusion orbit's
+   9 frames as 16-bit PGM files in millimetres through ``FrameLoader`` (one
+   thread) into ``KinectFusion(front_volume=True, depth_scale=1e-3)`` at
+   256^3/VGA, seeded at frame 0's pose (indices in order, the fuse kernel
+   once a frame and nothing else, poses bit-equal to the same uint16 frames
+   fed from memory, ATE and final rmse within the JAX package's CPU-JAX
+   figures + slack, 4 loader threads bit-equal to 1), ``save_rig`` and
+   ``load_rig`` of a two-camera rig (baseline 0.08 within 1e-6;
+   ``depth_and_cloud`` of the SGM frame with the rig's K and baseline
+   bit-equal to the call with them given), every demo of
+   ``kangaroo_tpu_torch/examples`` at its defaults in this process (the
+   kernels of its path launched and no other, the JAX demo's files
+   written), the ``roo`` names' representative calls on the card against
+   CPU copies (no launch), ``debug_mode`` raising on a NaN made on the
+   card, ``device_memory_report`` naming the card, and, after phase 4 (so
+   that no profile phase 4 counts launches in follows it), a
+   ``profiling.trace`` of an SGM frame naming the path kernels;
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
@@ -175,10 +192,15 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    to the host and each extraction apart, both ``save_mesh`` calls,
    ``save_volume`` and ``load_volume`` (host clock, host synchronisations),
    and ``render_textured`` and each solver call (events, launches, device
-   time and host synchronisations).
+   time and host synchronisations); the host side: the loader's decode rate
+   of VGA 16-bit PGMs with 1 and 4 threads and the NumPy reader (host
+   clock), the upload of a frame, the file-fed KinectFusion frame against
+   the memory-fed one in turns (events), ``sum_speed_demo``'s LSS reduction
+   (``time_fn_stats``) and each demo's wall time.
 
 The line before the last is a JSON object with each kernel's route,
-source, launches on its main path, error, times and bound (the larger of
+source, launches on its main path and on the host side's runs, error,
+times and bound (the larger of
 the bytes its call must move over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -191,6 +213,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import types
@@ -372,6 +395,19 @@ GN_PERTURB = (0.01, -0.008, 0.006, 0.004, -0.005, 0.003)
 TEX_FREQ = (30.0, 25.0, 35.0)
 MANHATTAN_ATOL, MANHATTAN_STEPS, RECTIFY_ATOL = 1e-5, 3, 1e-4
 POSE_GRAPH_KEYFRAMES, POSE_GRAPH_RTOL = 100, 1e-4
+# the host side: the KinectFusion phase's 9 orbit frames as 16-bit PGM files in
+# millimetres (NaN -> 0), read by FrameLoader into KinectFusion(front_volume=True,
+# depth_scale=1e-3), poses relative to frame 0 and frame 0 seeded at the identity
+# (where a file-fed run starts). The JAX package's CPU-JAX ATE and final rmse on
+# the same quantised frames (`PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_examples.py`), held to the KinectFusion slacks above; the roo
+# calls on the card against their CPU copies (floats within 1e-5 relative to the
+# largest entry and 1e-5 absolute: the plain ops' reductions and exp may differ
+# in the last bits between the card and the CPU); the loader's decode rate over
+# LOADER_FRAMES files
+KF_FILE_JAX = {"ate_rmse_m": 0.017294295132160187, "final_rmse": 0.0005691859987564385}
+ROO_RTOL, ROO_ATOL = 1e-5, 1e-5
+LOADER_FRAMES = 64
 # fuse checks: (tag, (D, H, W) volume, (W, H) depth, focal length)
 FUSE_SHAPES = (("vga", (256, 256, 256), (640, 480), 550.0),
                ("kitti", (200, 136, 248), (1242, 375), 1068.0))
@@ -918,6 +954,417 @@ def output_times(ctx):
         {k: {m: round(v, 4) for m, v in d.items()} for k, d in out.items()}) + f" [{card}]")
 
 
+# --- the host side (phase 3 checks, phase 4 times) -----------------------------------------
+# The frame loader, the rig files, the roo names, the debug, profiling and
+# timing helpers and the demo programs. The file-fed KinectFusion frame and the
+# demos launch the kernels of their paths, counted into ``ctx.host_launches``;
+# the rest launches none. ``ctx`` is the output side's, with the stereo pair,
+# the SGM frame and a scratch directory added.
+
+
+def _same(torch, a, b):
+    """Bit-equal, NaN at the same places."""
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0)))
+
+
+def orbit_pgms(ctx):
+    """The KinectFusion phase's orbit frames as 16-bit PGM depth files in
+    millimetres (NaN -> 0): (paths, the raw uint16 frames, the true poses
+    relative to frame 0, float32 (3, 4))."""
+    from kangaroo_tpu_torch.io import pxm
+
+    np = ctx.np
+    T0 = np.vstack([ctx.kf_data["poses"][0].cpu().numpy().astype(np.float64), [0, 0, 0, 1]])
+    paths, raws, rel = [], [], []
+    for i, (T, d) in enumerate(zip(ctx.kf_data["poses"], ctx.kf_data["depths"])):
+        raw = np.rint(np.nan_to_num(d.cpu().numpy(), nan=0.0) * np.float32(1000)).astype(np.uint16)
+        paths.append(f"{ctx.tmp}/orbit/depth_{i:05d}.pgm")
+        Path(paths[-1]).parent.mkdir(exist_ok=True)
+        pxm.save_pxm(paths[-1], raw)
+        raws.append(raw)
+        T = np.vstack([T.cpu().numpy().astype(np.float64), [0, 0, 0, 1]])
+        rel.append((np.linalg.inv(T0) @ T)[:3].astype(np.float32))
+    return paths, raws, rel
+
+
+def _count_launches(ctx, launched):
+    for k, n in launched.items():
+        ctx.host_launches[k] += n
+
+
+def file_fed_checks(ctx):
+    """KinectFusion(front_volume=True, depth_scale=1e-3) at 256^3/VGA fed
+    16-bit PGM files through FrameLoader: frame indices in order, the fuse
+    kernel once a frame, poses bit-equal to the same frames fed from memory,
+    ATE and final rmse within the JAX package's CPU-JAX figures + slack, and
+    4 loader threads bit-equal to 1."""
+    from kangaroo_tpu_torch.io.frame_loader import FrameLoader
+
+    torch, np = ctx.torch, ctx.np
+    paths, raws, rel = ctx.orbit = orbit_pgms(ctx)
+    raw0 = torch.from_numpy(raws[0])
+    _check(ctx, torch.equal(raw0.to(ctx.dev).to(torch.float32).cpu(), raw0.to(torch.float32)),
+           "uint16 on the card", "a uint16 tensor on the card converts to float32 exactly")
+
+    def run(frames):
+        cfg = dataclasses.replace(ctx.kf_cfg, front_volume=True)
+        pipe = ctx.kf.KinectFusion(ctx.kf_K, cfg, device=ctx.dev)
+        cfg.depth_scale = 1e-3  # after construction, as the demo sets it
+        pipe.T_wl = torch.from_numpy(rel[0]).to(ctx.dev)
+        ctx.sync()
+        ctx.reset_counts()
+        prev = ctx.read_counts()
+        indices, poses, launches = [], [], []
+        for i, raw in frames:
+            indices.append(i)
+            poses.append(pipe.process_frame(torch.from_numpy(raw)).clone())
+            ctx.sync()
+            now = ctx.read_counts()
+            launches.append({k: now[k] - prev[k] for k in now if now[k] != prev[k]})
+            prev = now
+        return pipe, indices, poses, launches
+
+    pipe, indices, poses, launches = run(FrameLoader(paths, n_threads=1))
+    ctx.file_pipe = pipe
+    for f, (T, n) in enumerate(zip(poses, launches)):
+        print(f"  frame {f}: kernel launches {n or 'none'}, t {T[:, 3].tolist()}")
+    _count_launches(ctx, {k: sum(n.get(k, 0) for n in launches) for k in ctx.host_launches})
+    _check(ctx, indices == list(range(len(paths))), "file-fed frames",
+           f"indices {indices} in order")
+    _check(ctx, all(n == {"separable_fuse": 1} for n in launches), "file-fed fuse",
+           f"the fuse kernel once a frame and nothing else, frame 0 too (front_volume=True): "
+           f"{launches}")
+    _, _, mem_poses, _ = run(enumerate(raws))
+    _check(ctx, all(torch.equal(a, b) for a, b in zip(poses, mem_poses)), "file vs memory",
+           "poses bit-equal to the same uint16 frames fed from memory")
+    est = torch.stack(poses[1:])[:, :, 3].cpu().numpy()
+    ref = np.stack(rel[1:])[:, :, 3]
+    q = {"ate_rmse_m": float(np.sqrt(np.mean(np.sum((est - ref) ** 2, axis=1)))),
+         "final_rmse": pipe.rmse}
+    lim = {"ate_rmse_m": KF_FILE_JAX["ate_rmse_m"] + KF_ATE_SLACK,
+           "final_rmse": KF_FILE_JAX["final_rmse"] + KF_RMSE_SLACK}
+    _check(ctx, all(np.isfinite(q[k]) and q[k] <= lim[k] for k in lim), "file-fed quality",
+           f"{json.dumps(q)}; the JAX package on CPU-JAX: {json.dumps(KF_FILE_JAX)}; limits "
+           f"{json.dumps(lim)}")
+    one = dict(FrameLoader(paths, n_threads=1))
+    four = dict(FrameLoader(paths, n_threads=4))
+    _check(ctx, sorted(four) == sorted(one) and all(np.array_equal(four[i], one[i]) for i in one),
+           "loader threads", f"4 threads yield all {len(one)} frames bit-equal to 1 thread")
+
+
+RIG_JSON = {"cameras": [
+    {"name": "left", "width": 1280, "height": 960, "fu": 1152.0, "fv": 1152.0, "u0": 639.5,
+     "v0": 479.5},
+    {"name": "right", "width": 1280, "height": 960, "fu": 1152.0, "fv": 1152.0, "u0": 639.5,
+     "v0": 479.5, "T_wc": [0.08, 0.0, 0.0, 0.0, 0.0, 0.0]}]}
+
+
+def rig_checks(ctx):
+    """save_rig, then load_rig, of a two-camera rig with a 0.08 m baseline
+    (at twice VGA, scaled to it); depth_and_cloud of the VGA/64 SGM frame
+    with the rig's K and baseline equal to the call with them given."""
+    from kangaroo_tpu_torch.apps import stereo
+    from kangaroo_tpu_torch.io import rig as rig_mod
+
+    torch = ctx.torch
+    src, path = Path(ctx.tmp) / "rig_in.json", Path(ctx.tmp) / "rig.json"
+    src.write_text(json.dumps(RIG_JSON))
+    rig_mod.save_rig(str(path), rig_mod.load_rig(str(src)))
+    rig = rig_mod.load_rig(str(path))
+    ctx.rig_path = str(path)
+    _check(ctx, abs(rig.baseline() - 0.08) <= 1e-6, "rig baseline",
+           f"baseline() {rig.baseline()!r} (0.08 within 1e-6)")
+    K = rig["left"].scaled_to(ctx.W, ctx.H).intrinsics()
+    given = ctx.Intrinsics.create(576.0, 576.0, 319.5, 239.5)
+    got = _no_launches(ctx, "depth_and_cloud with the rig",
+                       lambda: stereo.depth_and_cloud(ctx.sgm_disp, K, rig.baseline(), 1.0))
+    want = stereo.depth_and_cloud(ctx.sgm_disp, given, 0.08, 1.0)
+    _check(ctx, K == given and all(_same(torch, a, b) for a, b in zip(got, want)), "rig path",
+           f"K {K}; depth and cloud bit-equal to the call with K and 0.08 given")
+
+
+# (run, demo module, arguments, kernels it must launch, kernels it may launch,
+# the files the JAX demo writes); "{input}" and "{rig}" are filled in
+_SGM4 = {"sgm", "wta", "median", "lr_check"}
+_DTAM = {"wta", "median", "lr_check", "wta_sq", "dtam"}
+_KF_FILES = ("kf_render.png", "kf_depth.png", "kf_mesh.ply", "kf_save.vol")
+
+
+def _stereo_files(mode, extra=()):
+    return ("left.png", "gt_disp.png", f"disp_{mode}.png", f"depth_{mode}.png",
+            f"cloud_{mode}.ply") + extra
+
+
+DEMO_RUNS = (
+    ("kinectfusion", "kinectfusion_demo", [], {"separable_fuse"}, {"separable_fuse"}, _KF_FILES),
+    ("kinectfusion --input", "kinectfusion_demo", ["--input", "{input}"], {"separable_fuse"},
+     {"separable_fuse"}, _KF_FILES),
+    ("kinectfusion --sequence", "kinectfusion_demo", ["--sequence"], {"separable_fuse"},
+     {"separable_fuse"}, _KF_FILES),
+    # the colour fuse is plain PyTorch: no kernel
+    ("kinectfusion --colour", "kinectfusion_demo", ["--colour"], set(), set(), _KF_FILES),
+    ("stereo sgm", "stereo_demo", [], _SGM4, _SGM4, _stereo_files("sgm")),
+    ("stereo sgm --heightmap", "stereo_demo", ["--heightmap"], _SGM4, _SGM4,
+     _stereo_files("sgm", ("heightmap_sgm.ply",))),
+    ("stereo sgm --rig", "stereo_demo", ["--rig", "{rig}"], _SGM4, _SGM4, _stereo_files("sgm")),
+    ("stereo dtam", "stereo_demo", ["--mode", "dtam"], _DTAM, _DTAM, _stereo_files("dtam")),
+    ("stereo wta", "stereo_demo", ["--mode", "wta"], {"wta"}, {"wta", "median", "lr_check"},
+     _stereo_files("wta")),
+    ("stereo multiview", "stereo_demo", ["--mode", "multiview"], {"wta", "wta_sq", "dtam"},
+     _DTAM, _stereo_files("multiview")),
+    ("denoising", "denoising_demo", [], {"rof", "tgv"}, {"rof", "tgv"},
+     ("noisy.png", "denoised_rof.png", "denoised_tgv.png", "blurry.png", "deconvolved.png",
+      "corrupted.png", "inpainted.png")),
+    ("filters", "filters_demo", [], set(), set(), ("anaglyph.png", "bilateral.png", "guided.png")),
+    ("features", "features_demo", [], set(), set(), ("fast.png", "harris_nms.png")),
+    ("raycast", "raycast_demo", [], set(), set(),
+     tuple(f"raycast_{k}_{i}.png" for k in ("shaded", "depth", "normals", "sweep")
+           for i in range(3))),
+    ("sdf_fusion", "sdf_fusion_demo", [], set(), set(),
+     ("raycast_primitives.png", "sdf_fusion_render.png", "sdf_fusion_gt_diff.png", "save.vol",
+      "fused.ply")),
+    ("sdf_difference", "sdf_difference_demo", [], set(), set(),
+     ("sdf_diff.png", "sdf_diff_shaded.png")),
+    ("sum_speed", "sum_speed_demo", [], set(), set(), ()),
+)
+
+
+def demo_input(ctx):
+    """The kinectfusion demo's --input: 8 frames of its default camera
+    (160x120, focal 144) on an orbit of radius 2 m, as 16-bit PGM files."""
+    from kangaroo_tpu_torch.io import pxm
+
+    torch, np, syn = ctx.torch, ctx.np, ctx.synthetic
+    d = Path(ctx.tmp) / "demo_input"
+    d.mkdir(exist_ok=True)
+    K = ctx.Intrinsics.centered(144.0, 160, 120)
+    scene = syn.sphere_scene(res=128, device=ctx.dev)
+    for i, (_, depth) in enumerate(syn.depth_sequence(8, K, 160, 120, scene=scene, step=0.02,
+                                                      radius=2.0)):
+        raw = torch.round(torch.nan_to_num(depth, nan=0.0) * 1000.0).cpu().numpy()
+        pxm.save_pxm(str(d / f"depth_{i:05d}.pgm"), raw.astype(np.uint16))
+    return str(d)
+
+
+def demo_checks(ctx):
+    """Each demo's main at its defaults, in this process, with the launch
+    counts set to 0 just before and read just after: the kernels of its
+    path launched, no other, and the JAX demo's files written."""
+    import importlib
+    import io
+    import os
+
+    fill = {"{input}": demo_input(ctx), "{rig}": ctx.rig_path}
+    ctx.demo_times = {}
+    for name, module, args, must, may, files in DEMO_RUNS:
+        demo = importlib.import_module(f"kangaroo_tpu_torch.examples.{module}")
+        out = Path(ctx.tmp) / "demos" / name.replace(" ", "_").replace("-", "")
+        out.mkdir(parents=True)
+        argv = [fill.get(a, a) for a in args]
+        prev_out = os.environ.get("KANGAROO_OUT")
+        os.environ["KANGAROO_OUT"] = str(out)
+        log = io.StringIO()
+        try:
+            ctx.sync()
+            ctx.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                result = demo.main(argv)
+            ctx.sync()
+            ctx.demo_times[name] = time.perf_counter() - t0
+        finally:
+            if prev_out is None:
+                del os.environ["KANGAROO_OUT"]
+            else:
+                os.environ["KANGAROO_OUT"] = prev_out
+        launched = {k: v for k, v in ctx.read_counts().items() if v}
+        _count_launches(ctx, launched)
+        missing = [f for f in files if not (out / f).is_file() or (out / f).stat().st_size == 0]
+        ok = set(must) <= set(launched) <= set(may) and not missing
+        last = log.getvalue().strip().splitlines()[-1:] or [""]
+        _check(ctx, ok, f"demo {name}",
+               f"{ctx.demo_times[name]:.2f} s, kernel launches {launched or 'none'}, "
+               f"{len(files) - len(missing)} of {len(files)} files (missing {missing}); "
+               f"{last[0][:120]}")
+        if name == "sum_speed":
+            ctx.lss_stats = result
+
+
+def roo_checks(ctx):
+    """The reference-namespace shim's representative calls on CUDA tensors
+    against the same calls on CPU copies, with no kernel launched: floats
+    within ROO_RTOL relative and ROO_ATOL absolute (SGM within the kernels'
+    1e-4), integers exactly, NaN at the same places."""
+    from kangaroo_tpu_torch import BoundingBox, TsdfVolume
+    from kangaroo_tpu_torch import roo
+
+    torch, np = ctx.torch, ctx.np
+    rng = np.random.default_rng(0)
+    right = rng.random((48, 96)).astype(np.float32)
+    host = {"img": rng.random((120, 160)).astype(np.float32), "left": np.roll(right, 3, axis=1),
+            "right": right, "J": rng.random((120, 160, 6)).astype(np.float32),
+            "y": rng.random((120, 160)).astype(np.float32),
+            "p": rng.random((120, 160, 2)).astype(np.float32)}
+
+    def calls(dev):
+        a = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        vol = roo.CensusStereoVolume(roo.Census(a["left"], window="9x7"),
+                                     roo.Census(a["right"], window="9x7"), max_disp=16).float()
+        dl = roo.CostVolMinimumSubpix(vol, -1)
+        sgm = roo.SemiGlobalMatching(vol, a["left"], 0.01, 0.02)
+        box = BoundingBox.create((-1.0,) * 3, (1.0,) * 3, device=dev)
+        sphere = roo.SdfSphere(TsdfVolume.create(32, 32, 32, box, trunc_dist=0.2),
+                               torch.zeros(3, device=dev), 0.5)
+        lss = roo.SumSpeedTest(a["J"], a["y"])
+        return {"GaussianBlur": roo.GaussianBlur(a["img"], 2.0, rad=3),
+                "MedianFilter3x3": roo.MedianFilter3x3(a["img"]),
+                "CostVolMinimum": roo.CostVolMinimum(vol),
+                "CostVolMinimumSubpix": dl,
+                "LeftRightCheck": roo.LeftRightCheck(dl, roo.CostVolMinimumSubpix(vol, 1), -1,
+                                                     0.5, 16),
+                "SemiGlobalMatching": sgm,
+                "SdfSphere": sphere.val,
+                "GradU": roo.GradU(a["img"]), "Divergence": roo.Divergence(a["p"]),
+                "SumSpeedTest JTJ": lss.JTJ, "SumSpeedTest JTy": lss.JTy,
+                "DenseStereoSubpix": roo.DenseStereoSubpix(a["left"], a["right"], 6),
+                "ConvertImage uint8": roo.ConvertImage(a["img"], "uint8")}
+
+    got = _no_launches(ctx, "roo calls on the card", lambda: calls(ctx.dev))
+    want = calls("cpu")
+    bad = []
+    for name, g in got.items():
+        g, w = g.cpu(), want[name]
+        if not g.is_floating_point():
+            ok = torch.equal(g, w)
+        else:
+            atol = ATOL["sgm"] if name == "SemiGlobalMatching" else ROO_ATOL
+            scale = float(w[torch.isfinite(w)].abs().max()) if bool(torch.isfinite(w).any()) else 0
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            err = float((g[fin] - w[fin]).abs().max()) if bool(fin.any()) else 0.0
+            ok = torch.equal(torch.isnan(g), torch.isnan(w)) and err <= atol + ROO_RTOL * scale
+        if not ok:
+            bad.append(name)
+    _check(ctx, not bad, "roo card vs CPU", f"{len(got)} calls agree with their CPU copies"
+           + (f"; differ: {bad}" if bad else ""))
+
+
+def debug_profiling_checks(ctx):
+    """debug_mode raising on a NaN made on the card, checked recording a
+    division by zero there; device_memory_report naming the card; Timer."""
+    from kangaroo_tpu_torch.apps import stereo_sgm
+    from kangaroo_tpu_torch.utils import debug, profiling, timing
+
+    torch = ctx.torch
+    x = torch.tensor([-1.0, 1.0], device=ctx.dev)
+    try:
+        with debug.debug_mode():
+            torch.log(x)
+        raised = None
+    except FloatingPointError as exc:
+        raised = str(exc)
+    with debug.debug_mode():
+        torch.exp(x)  # finite: no raise
+    err, _ = debug.checked(lambda v: 1.0 / (v + 1.0))(x)
+    _check(ctx, raised == "invalid value (nan) encountered in log"
+           and err.get() == "division by zero", "debug on the card",
+           f"debug_mode raised {raised!r}; checked recorded {err.get()!r}")
+    report = profiling.device_memory_report()
+    _check(ctx, ctx.kind in report, "device_memory_report", report.replace("\n", "; "))
+    timer = timing.Timer("sgm")
+    timer.start()
+    disp = stereo_sgm.sgm_pipeline(ctx.left, ctx.right, ctx.sgm_cfg)
+    _check(ctx, timer.stop({"disp": [disp]}) > 0 and len(timer.times) == 1, "Timer",
+           f"one interval of {1e3 * timer.times[0]:.3f} ms ending in a synchronise")
+
+
+def trace_check(ctx):
+    """A profiling.trace of one SGM frame: its Chrome trace names the path
+    kernels. Run after phase 4, so that no profile that phase 4 counts
+    launches in follows this profile."""
+    import os
+
+    from kangaroo_tpu_torch.apps import stereo_sgm
+    from kangaroo_tpu_torch.utils import profiling
+
+    logdir = Path(ctx.tmp) / "trace"
+    with profiling.trace(str(logdir)):
+        stereo_sgm.sgm_pipeline(ctx.left, ctx.right, ctx.sgm_cfg)
+    traces = os.listdir(logdir)
+    text = (logdir / traces[0]).read_text() if len(traces) == 1 else ""
+    _check(ctx, "sgm_rows_kernel" in text and "sgm_cols_kernel" in text, "profiling.trace",
+           f"{traces}: {len(text)} bytes naming sgm_rows_kernel and sgm_cols_kernel")
+
+
+def host_side_checks(ctx):
+    """Phase 3 of the host side (``trace_check`` runs after phase 4)."""
+    for name, fn in (("file-fed KinectFusion", file_fed_checks), ("rig", rig_checks),
+                     ("demos", demo_checks), ("roo", roo_checks),
+                     ("debug, memory report, timing", debug_profiling_checks)):
+        print(f"phase 3 host side: {name}")
+        ctx.smoke.phase(f"phase 3 {name}", fn, ctx)
+
+
+def host_side_times(ctx):
+    """Phase 4 of the host side: the loader's decode rate (host clock), the
+    file-fed frame against the memory-fed frame in turns (events), the
+    upload's host time, the LSS reduction of sum_speed_demo and each demo's
+    wall time."""
+    import statistics
+
+    from kangaroo_tpu_torch.io.frame_loader import FrameLoader
+    from kangaroo_tpu_torch.io import pxm
+
+    torch, np, card, out = ctx.torch, ctx.np, ctx.card, ctx.times
+    paths, raws, _ = ctx.orbit
+    many = [f"{ctx.tmp}/decode/depth_{i:05d}.pgm" for i in range(LOADER_FRAMES)]
+    Path(many[0]).parent.mkdir(exist_ok=True)
+    for i, p in enumerate(many):
+        pxm.save_pxm(p, raws[i % len(raws)])
+    for label, kw in (("1 thread", {"n_threads": 1}), ("4 threads", {"n_threads": 4}),
+                      ("NumPy reader", {"use_native": False})):
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in FrameLoader(many, **kw))
+            rates.append(n / (time.perf_counter() - t0))
+        out[f"decode {label}"] = {"median_fps": statistics.median(rates), "min_fps": min(rates),
+                                  "max_fps": max(rates)}
+        print(f"  decode VGA 16-bit PGM, {label}: {statistics.median(rates):.1f} frames/s (min "
+              f"{min(rates):.1f}, max {max(rates):.1f}; {LOADER_FRAMES} files, 3 runs, host "
+              f"clock) [{card}]")
+    raw = raws[-1]
+    out["upload (host clock)"] = _host_ms(ctx, lambda: torch.from_numpy(raw).to(ctx.dev), runs=20)
+    print(f"  upload of a 640x480 uint16 frame: {out['upload (host clock)']['median_ms']:.4f} ms "
+          f"(20 runs, host clock, ends in a synchronise) [{card}]")
+    pipe = ctx.file_pipe  # a stationary camera on the last frame: the same work each call
+
+    def file_fed():
+        it = iter(FrameLoader([paths[-1]] * 24, n_threads=1))
+        return lambda: pipe.process_frame(torch.from_numpy(next(it)[1]))
+
+    for k, turn in enumerate(("file-fed", "memory-fed", "memory-fed", "file-fed")):
+        run = file_fed() if turn == "file-fed" else (
+            lambda: pipe.process_frame(torch.from_numpy(raw)))
+        out[f"KinectFusion frame {turn} {k}"] = ctx.timed(f"KinectFusion frame, {turn}", run,
+                                                          runs=10, warmup=2)
+    s = ctx.lss_stats
+    n = 480 * 640
+    out["LSS reduction"] = {"median_ms": 1e3 * s["median"], "min_ms": 1e3 * s["min"],
+                            "max_ms": 1e3 * s["max"], "gobs_per_s": n / s["median"] / 1e9}
+    print(f"  sum_speed_demo LSS<float,6> over {n} obs: {1e3 * s['median']:.4f} ms (min "
+          f"{1e3 * s['min']:.4f}, max {1e3 * s['max']:.4f}; time_fn_stats, 3 x 2000 calls, "
+          f"events), {n / s['median'] / 1e9:.2f} Gobs/s [{card}]")
+    for name, t in ctx.demo_times.items():
+        out[f"demo {name}"] = {"wall_s": t}
+    print("  demo wall times (host clock, first call in this process, the kernels already "
+          "built): " + json.dumps({k: round(v, 3) for k, v in ctx.demo_times.items()})
+          + f" [{card}]")
+    print("  host-side times: " + json.dumps(
+        {k: {m: round(v, 4) for m, v in d.items()} for k, d in out.items()
+         if k.startswith(("decode", "upload", "KinectFusion frame", "LSS"))}) + f" [{card}]")
+
+
 def main() -> int:
     if not (HERE / "kangaroo_tpu_torch").is_dir():
         die("the kangaroo_tpu_torch package is not beside chip_smoke.py")
@@ -938,6 +1385,7 @@ def main() -> int:
     from kangaroo_tpu_torch.core import se3
     from kangaroo_tpu_torch.fusion import raycast, rolling, sdf, separable, separable_cuda
     from kangaroo_tpu_torch.fusion import marching_cubes, marching_cubes256
+    from kangaroo_tpu_torch.io import frame_loader
     from kangaroo_tpu_torch.ops import bilateral, blur, integral_image, resample
     from kangaroo_tpu_torch.ops import median as median_plain
     from kangaroo_tpu_torch.ops import median_cuda
@@ -977,10 +1425,11 @@ def main() -> int:
     try:
         marching_cubes.native_library()
         marching_cubes256.native_library()
+        frame_loader.native_library()
     except Exception as exc:  # g++'s own message says what failed
-        die(f"meshing core build failed: {exc}")
-    print(f"phase 1 build: {time.perf_counter() - t0:.3f} s for the 2 meshing cores (g++, "
-          f"kangaroo_tpu_torch/native/*.cpp, host code) [{card}]")
+        die(f"host core build failed: {exc}")
+    print(f"phase 1 build: {time.perf_counter() - t0:.3f} s for the 3 host cores (the 2 meshing "
+          f"cores and the frame loader; g++, kangaroo_tpu_torch/native/*.cpp) [{card}]")
 
     smoke = Smoke(torch, np)
     rng = np.random.default_rng(0)
@@ -2517,6 +2966,15 @@ def main() -> int:
         mesh_triangles={}, mesh_quality={}, times={})
     output_checks(out_ctx)
 
+    # the host side: the file-fed KinectFusion frame, the rig path, the demos,
+    # the roo names, the debug, profiling and timing helpers
+    scratch = tempfile.TemporaryDirectory()
+    vars(out_ctx).update(
+        tmp=scratch.name, kind=kind, left=left, right=right, sgm_cfg=cfgs["4-path"],
+        sgm_disp=stereo_sgm.sgm_pipeline(left, right, cfgs["4-path"]),
+        host_launches={k: 0 for k in KERNELS})
+    host_side_checks(out_ctx)
+
     # --- phase 4: times -------------------------------------------------------
     times, bound = {}, {}
 
@@ -3659,7 +4117,12 @@ def main() -> int:
     out_ctx.timed = timed
     print(f"phase 4 the output side and the solvers at {W}x{H} (256^3 volumes):")
     smoke.phase("phase 4 output side", output_times, out_ctx)
+    print(f"phase 4 the host side at {W}x{H} (256^3 volume):")
+    smoke.phase("phase 4 host side", host_side_times, out_ctx)
+    print("phase 3 host side, run last: profiling.trace of an SGM frame")
+    smoke.phase("phase 3 profiling.trace", trace_check, out_ctx)
     torch.cuda.synchronize()
+    scratch.cleanup()
 
     if smoke.failures:
         for f in smoke.failures:
@@ -3670,6 +4133,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": smoke.max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1],
+         # launches on the host side's runs: the file-fed frame and the demos
+         "host_side_launches": out_ctx.host_launches[name],
          # no single PyTorch call computes any of these functions (for the
          # fuse, F.grid_sample computes only the interpolation: none of the
          # update gate, the blend or the 1e-6 weight snap)

@@ -16,8 +16,12 @@ three engines, with colour fusion and the moving workspace
 (``apps.kinectfusion``), its output side (meshes built on the host by
 ``fusion.marching_cubes``, volume files, keyframe texturing), and the
 photometric, calibration and Manhattan solvers (``solvers``), scanline
-rectification and the pose graph (``geometry``). As the JAX package, the
-package exports its containers and core modules.
+rectification and the pose graph (``geometry``); the host side: the
+threaded frame loader, rig and tracker files (``io``), timing, profiling,
+the NaN debug modes and sorting networks (``utils``), the reference's
+``roo::`` names (``roo``) and the demo programs (``examples``, each run as
+``python -m kangaroo_tpu_torch.examples.<name>_demo``). As the JAX
+package, the package exports its containers and core modules.
 """
 
 from .containers.bbox import BoundingBox, fit_to_frustum
@@ -32,11 +36,12 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     """Subpackages on attribute access: kangaroo_tpu_torch.stereo, .fusion,
-    .variational, .geometry, .solvers, .parallel, .apps, .ops, .io, .utils."""
+    .variational, .geometry, .solvers, .parallel, .apps, .ops, .io, .utils,
+    .roo."""
     import importlib
 
     if name in {"stereo", "fusion", "variational", "geometry", "solvers", "parallel", "apps",
-                "ops", "io", "utils", "backend"}:
+                "ops", "io", "utils", "backend", "roo"}:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)
 

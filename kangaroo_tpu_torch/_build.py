@@ -11,9 +11,9 @@ generated headers and the flags, so an edit to any of them rebuilds and an
 unchanged tree reuses the library.
 
 ``host_library`` builds the host-side C++ of ``native/`` (the meshing
-cores) the same way with ``g++``: one library a source, keyed on its hash
-and the flags, published with ``os.replace`` so that processes building
-the same key at once all load a whole file.
+cores and the frame loader) the same way with ``g++``: one library a
+source, keyed on its hash and the flags, published with ``os.replace`` so
+that processes building the same key at once all load a whole file.
 """
 from __future__ import annotations
 
@@ -30,8 +30,9 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NATIVE_DIR = PKG_DIR / "native"
-# the JAX package's flags for the same sources, so the cores compute the same bits
-GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+# the JAX package's flags for the meshing cores, so they compute the same bits;
+# -pthread for the frame loader's worker threads (the JAX package builds it so)
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,2 +1,3 @@
-"""Host-side IO: the PXM image, volume and depth-map files."""
-from . import pxm
+"""Host-side IO: PXM images, volumes and depth maps, the threaded frame
+loader, camera rig files and streaming tracker-pose input."""
+from . import frame_loader, pxm, rig, tracker

@@ -1,1 +1,2 @@
-"""Utilities: CUDA-event timing."""
+"""Utilities: timing, profiling, the NaN debug modes and sorting networks."""
+from . import profiling, timing
