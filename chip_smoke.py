@@ -30,7 +30,13 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    depth, on the three sweep axes, an empty and a fused volume, three plane
    windows, and enable=False (a bit-exact passthrough), each case and an
    empty window also through the voxel design it replaced
-   (``kt_separable_fuse_voxel``, exactly); the median on tiles against the
+   (``kt_separable_fuse_voxel``, exactly), and on each of the 4 z-slabs of
+   the 256^3/VGA volume of a virtual 4-shard mesh (each slab its own box
+   and sweep tables; empty and fused, the frame's near/far window,
+   enable=False exactly); the fuse's gradient with respect to the depth,
+   the normals and the volume (kernel 12 forward, the plain loop's VJP
+   backward) against the all-plain autograd, within 1e-4 of the largest
+   entry, at 16^3/32x24 and 256^3/VGA; the median on tiles against the
    one-thread-per-pixel design it replaced
    (``kt_median_reject_invalid_pixel``, exactly; +0 equal to -0) and plain
    at radius 1, 2 and 3 and max_bad 0, 1, 12, K and K + 5, on inputs with
@@ -99,7 +105,20 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    of the JAX package's, ``run_sequence(rgbs=)`` against the frame loop
    (poses 1e-4, colour 1e-3) and ``render(show_colour=True)`` hitting; the
    moving workspace against the frame of plain versions after the same
-   rolls (poses 1e-4); the output side and the remaining solvers, each with
+   rolls (poses 1e-4); the multi-device layer:
+   ``KinectFusion(mesh=make_mesh(devices=["cuda:0"] * 4))`` with
+   ``raycast_downsample`` for the same 8 frames (kernel 12 four times a frame,
+   once a slab, and nothing else; every frame tracked; ATE within 1 mm and
+   the final pose within 0.02 of the single-device one-sweep run;
+   ``run_sequence`` within 1e-4 of the loop; with colour, touched share and
+   median grey within 1e-3 of the single-device colour run),
+   ``stereo_pipeline(mesh=)`` (DTAM 50 on 4 disparity shards: the right WTA,
+   median and LR check kernels; >= 99.5 % within 1e-3 px of the
+   single-device frame, quality within 0.01 of the JAX package's),
+   ``frame_parallel(sgm_pipeline)`` on 4 pairs (equal to the frames),
+   ``sharded_census_wta`` (equal to the single-device WTA) and
+   ``sharded_icp_point_plane`` (1e-4 of each field's largest entry); the
+   output side and the remaining solvers, each with
    the launch counts read around it (none of them launches a kernel):
    ``save_volume`` of the 8-frame separable run and ``load_volume`` into a
    second app (val, weight and box bit-equal), ``save_mesh`` "tet" and "mc"
@@ -196,11 +215,16 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    of VGA 16-bit PGMs with 1 and 4 threads and the NumPy reader (host
    clock), the upload of a frame, the file-fed KinectFusion frame against
    the memory-fed one in turns (events), ``sum_speed_demo``'s LSS reduction
-   (``time_fn_stats``) and each demo's wall time.
+   (``time_fn_stats``) and each demo's wall time; the multi-device layer
+   in turns against its single-device counterparts (the mesh KinectFusion
+   frame, the DTAM mesh frame, ``frame_parallel`` of 4 against
+   ``sgm_pipeline_batched``: events, launches, device busy time, host
+   synchronisations, peak memory) and the fuse's forward + backward at
+   256^3/VGA, kernel route against the all-plain autograd.
 
 The line before the last is a JSON object with each kernel's route,
-source, launches on its main path and on the host side's runs, error,
-times and bound (the larger of
+source, launches on its main path, on the host side's runs and on the
+multi-device runs, error, times and bound (the larger of
 the bytes its call must move over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -271,6 +295,9 @@ ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "sgm_segment": 1e-4, "sgm_diag_segment":
         "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
         "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5}
 FUSE_WEIGHT_ATOL, FUSE_MAX_FLIP_SHARE = 1e-4, 1e-5
+# the fuse's gradient, kernel forward against the plain autograd: max abs
+# difference within this share of the gradient's largest entry
+FUSE_GRAD_RTOL = 1e-4
 GRAD_ATOL = 1e-4
 # lam, sigma_q, sigma_d, huber_alpha: the StereoConfig defaults
 DTAM_ARGS = (20.0, 0.7, 0.7, 0.002)
@@ -327,6 +354,10 @@ KF_JAX_PATHS = {
                "rolls": 4},
 }
 KF_COLOUR_ATOL = 1e-3
+# the z-sharded frame on the virtual 4-shard mesh against the single-device
+# one-sweep frame (raycast_downsample=True): final pose within
+# tests/test_parallel.py's mesh bound, ATE within KF_ATE_SLACK
+MESH_POSE_ATOL = 0.02
 # BASELINE config 1 (bench.py bench_filters): one 640x480 float32 frame of
 # numpy's default_rng(0).random, gaussian_blur(img, 2.0, rad=10) and
 # bilateral(img, 2.0, 0.1, 5); beside them blur, a 4-level blur_reduce and
@@ -1391,9 +1422,10 @@ def main() -> int:
     from kangaroo_tpu_torch.ops import median_cuda
     from kangaroo_tpu_torch.parallel import mesh as mesh_mod
     from kangaroo_tpu_torch.parallel import sharding
-    from kangaroo_tpu_torch.solvers import plane_fit
+    from kangaroo_tpu_torch.solvers import icp, plane_fit
     from kangaroo_tpu_torch.geometry import depth as depth_mod
     from kangaroo_tpu_torch.geometry import heightmap
+    from kangaroo_tpu_torch.parallel import batch as batch_mod
     from kangaroo_tpu_torch.stereo import census, costvolume, dense_stereo, dispatch, lr_cuda
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
     from kangaroo_tpu_torch.stereo import dtam_cuda, sgm_cuda, wta_cuda
@@ -2085,6 +2117,142 @@ def main() -> int:
         smoke.phase(f"phase 2 fuse {tag}", fuse_vs_plain, tag, vol_shape, wh, f)
         torch.cuda.synchronize()
 
+    # the fuse on the z-slabs of the mesh frame, and its reverse mode
+    vmesh = mesh_mod.make_mesh(devices=[dev] * MESH_SHARDS)
+    fuse_frame = {}  # the 256^3/VGA frame of the slab checks, for the gradient and phase 4
+
+    def vga_fuse_frame():
+        """The VGA depth frame seen from SWEEP_EYES[0] (the z sweep), an empty
+        256^3 volume and that volume fused once by the kernel."""
+        if not fuse_frame:
+            Wi, Hi = 640, 480
+            K = Intrinsics.centered(550.0, Wi, Hi)
+            cfg = kf.KinectFusionConfig(w=Wi, h=Hi)
+            scene = synthetic.sphere_scene(res=128, device=dev)
+            bbox = BoundingBox.create((-1.2,) * 3, (1.2,) * 3, device=dev)
+            vol = TsdfVolume.create(256, 256, 256, bbox, trunc_dist=float("nan"))
+            trunc = 2.0 * float(np.linalg.norm(vol.voxel_size_units().cpu().numpy()))
+            T_wc = look_at(SWEEP_EYES[0])
+            depth, _, _ = raycast.raycast_sdf(scene, T_wc, K, Wi, Hi, 0.5, 8.0)
+            _, v, n = kf.preprocess_depth(torch.nan_to_num(depth, 0.0), K, cfg)
+            d, nrm, T_cw = v[0][..., 2], n[0], se3.inverse(T_wc)
+            fused = separable.sdf_fuse_separable(vol, d, nrm, T_cw, K, trunc)
+            fuse_frame.update(K=K, vol=vol, fused=fused, trunc=trunc, d=d, n=nrm, T_cw=T_cw,
+                              wh=(Wi, Hi))
+        return fuse_frame
+
+    def fuse_slabs_vs_plain():
+        """Kernel 12 on each z-slab of the 4-shard mesh frame (each slab its
+        own box, so its own sweep tables), against the plain loop on the same
+        slab: the frame's near/far window, an empty and a fused volume, and
+        enable=False."""
+        fr = vga_fuse_frame()
+        Wi, Hi = fr["wh"]
+        total = 0
+        for state in ("vol", "fused"):
+            zs = sharding.shard_volume_z(fr[state], vmesh)
+            for k in range(vmesh.size):
+                slab = zs.slab(k)
+                for enable in (True, False):
+                    gmd, gct, params, window = separable.fuse_inputs(
+                        slab, fr["d"], fr["n"], fr["T_cw"], fr["K"], fr["trunc"], 1000.0, 0.1, 0,
+                        enable=enable, near=0.5, far=6.0)
+                    got = (slab.val.clone(), slab.weight.clone())
+                    want = (slab.val.clone(), slab.weight.clone())
+                    separable_cuda.fuse_planes(*got, gmd, gct, params, window, 0, Wi, Hi)
+                    separable.fuse_planes_plain(*want, gmd, gct, params, window, 0, Wi, Hi)
+                    what = (f"slab {k} of {vmesh.size} ({state}, planes {tuple(slab.val.shape)}, "
+                            f"window {window.tolist()}, enable={enable})")
+                    if not enable:
+                        for i, part in enumerate(("val", "weight")):
+                            smoke.compare("separable_fuse", f"{what} {part}", got[i],
+                                          (slab.val, slab.weight)[i], 0.0)
+                        continue
+                    gu, wu = got[1] > 0, want[1] > 0
+                    flips = int((gu != wu).sum())
+                    total += int(wu.sum())
+                    ok = flips <= FUSE_MAX_FLIP_SHARE * gu.numel()
+                    print(f"  {'ok  ' if ok else 'FAIL'} separable_fuse {what}: {int(wu.sum())} "
+                          f"voxels updated, {flips} on one side only (limit "
+                          f"{FUSE_MAX_FLIP_SHARE * gu.numel():.0f})")
+                    if not ok:
+                        smoke.failures.append(f"separable_fuse {what}: flips {flips}")
+                    both = gu & wu
+                    smoke.compare("separable_fuse", f"{what} val", got[0], want[0],
+                                  ATOL["separable_fuse"], both)
+                    smoke.compare("separable_fuse", f"{what} weight", got[1], want[1],
+                                  FUSE_WEIGHT_ATOL, both)
+                    smoke.compare("separable_fuse", f"{what} untouched val", got[0], want[0],
+                                  0.0, ~gu & ~wu)
+        if total < 10000:
+            smoke.failures.append(f"phase 2 fuse slabs: only {total} voxels updated")
+
+    def fuse_grads(route, vol, d, n, T_cw, K, trunc, wh, wv):
+        """d loss / d (depth, normals, vol.val) of loss = sum(wv * val') +
+        0.01 sum(weight'^2) through the fuse: ``route`` 'kernel' is
+        sdf_fuse_separable's autograd op (kernel 12 forward, plain backward),
+        'plain' the out-of-place plain loop under autograd throughout."""
+        val = vol.val.clone().requires_grad_(True)
+        depth = d.clone().requires_grad_(True)
+        normals = n.clone().requires_grad_(True)
+        src = TsdfVolume(val, vol.weight, vol.bbox)
+        if route == "kernel":
+            out = separable.sdf_fuse_separable(src, depth, normals, T_cw, K, trunc, sweep_axis=0)
+            v, w = out.val, out.weight
+        else:
+            gmd, gct, params, window = separable.fuse_inputs(src, depth, normals, T_cw, K, trunc,
+                                                             1000.0, 0.1, 0)
+            v, w = separable.fuse_planes_plain_grad(val, vol.weight, gmd, gct, params, window, 0,
+                                                    *wh)
+        loss = (wv * torch.where(w > 0, v, 0.0)).sum() + 0.01 * (w * w).sum()
+        return torch.autograd.grad(loss, [depth, normals, val])
+
+    def fuse_grad_vs_plain():
+        """The fuse's gradient with the kernel forward against the all-plain
+        autograd, within FUSE_GRAD_RTOL of the largest entry: a 16^3 volume
+        fused once with a 32x24 plane at 2.9 m, then a plane at 3 m; and the
+        256^3/VGA frame on its fused volume."""
+        g = torch.Generator(device=dev).manual_seed(0)
+        Wi, Hi = 32, 24
+        K = Intrinsics.centered(30.0, Wi, Hi)
+        bbox = BoundingBox.create((-1.0,) * 3, (1.0,) * 3, device=dev)
+        T_cw = se3.inverse(look_at((0.0, 0.0, -3.0)))
+        small = TsdfVolume.create(16, 16, 16, bbox, trunc_dist=0.2)
+
+        def plane(z):
+            d = torch.full((Hi, Wi), z, device=dev)
+            return d, depth_mod.normals_from_vbo(depth_mod.depth_to_vbo(d, K))
+
+        small = separable.sdf_fuse_separable(small, *plane(2.9), T_cw, K, 0.2, sweep_axis=0)
+        fr = vga_fuse_frame()
+        cases = (("16^3/32x24", small, *plane(3.0), T_cw, K, 0.2, (Wi, Hi)),
+                 ("256^3/VGA", fr["fused"], fr["d"], fr["n"], fr["T_cw"], fr["K"], fr["trunc"],
+                  fr["wh"]))
+        for tag, vol, d, n, T, Kc, trunc, wh in cases:
+            wv = torch.randn(vol.val.shape, generator=g, device=dev)
+            before = separable_cuda.launches
+            got = fuse_grads("kernel", vol, d, n, T, Kc, trunc, wh, wv)
+            torch.cuda.synchronize()
+            fwd = separable_cuda.launches - before
+            want = fuse_grads("plain", vol, d, n, T, Kc, trunc, wh, wv)
+            if fwd != 1:
+                smoke.failures.append(f"phase 2 fuse gradient {tag}: {fwd} kernel launches")
+            for name, a, b in zip(("depth", "normals", "vol.val"), got, want):
+                scale = b.abs().max().item()
+                err = (a - b).abs().max().item()
+                ok = scale > 0 and err <= FUSE_GRAD_RTOL * scale and bool(torch.isfinite(a).all())
+                print(f"  {'ok  ' if ok else 'FAIL'} fuse gradient {tag} d/d {name}: kernel "
+                      f"forward ({fwd} launch) vs plain, max abs diff {err:.3g}, largest entry "
+                      f"{scale:.4g} (limit {FUSE_GRAD_RTOL:g} of it)")
+                if not ok:
+                    smoke.failures.append(f"phase 2 fuse gradient {tag} {name}: {err} of {scale}")
+
+    print(f"phase 2 separable_fuse on the {MESH_SHARDS} z-slabs of 256^3 (VGA depth) vs plain:")
+    smoke.phase("phase 2 fuse slabs", fuse_slabs_vs_plain)
+    print("phase 2 the fuse's gradient (kernel forward, plain backward) vs the plain autograd:")
+    smoke.phase("phase 2 fuse gradient", fuse_grad_vs_plain)
+    torch.cuda.synchronize()
+
     # --- phase 3: the main paths ----------------------------------------------
     cfgs = {"4-path": stereo_sgm.SgmConfig(),
             "8-path": stereo_sgm.SgmConfig(do_diagonal=True)}
@@ -2172,7 +2340,6 @@ def main() -> int:
                 "bad1px_frac": float((err > 1.0).mean())}
 
     # the multi-device frames on a virtual mesh of the card, and the batch
-    vmesh = mesh_mod.make_mesh(devices=[dev] * MESH_SHARDS)
     mesh_kernels = {"4-path": ("sgm", "sgm_segment", "wta", "median", "lr_check"),
                     "8-path": ("sgm", "sgm_segment", "sgm_diag_segment", "wta", "median",
                                "lr_check")}
@@ -2631,6 +2798,199 @@ def main() -> int:
         print(f"phase 3 KinectFusion {name} ({json.dumps(KF_PATHS[name])}; 256^3 TSDF, {W}x{H}, "
               f"its (1, 0, 2, 3)): frame 0 seeded, {KF_FRAMES} frames:")
         smoke.phase(f"phase 3 KinectFusion {name}", kf_path_phase, name)
+
+    # the multi-device layer: the z-sharded KinectFusion frame on the virtual
+    # 4-shard mesh of the card against the single-device one-sweep frame,
+    # stereo_pipeline(mesh=), frame_parallel, the sharded census WTA and ICP
+    mesh_cfg = dataclasses.replace(kf_cfg, raycast_downsample=True)
+    mesh_runs = {}  # (name) -> (pipeline after its loop, loop poses)
+    multi_device_launches = {k: 0 for k in KERNELS}
+
+    def kf_mesh_seeded(cfg, mesh=None):
+        pipe = kf.KinectFusion(kf_K, cfg, mesh=mesh, device=dev)
+        pipe.T_wl = kf_data["poses"][0].clone()
+        pipe.process_frame(kf_data["depths"][0], rgb=kf_data["rgb"] if cfg.use_colour else None)
+        return pipe
+
+    def kf_mesh_loop(name, cfg, mesh, fuses=None):
+        """8 frames through ``cfg`` (on ``mesh``), the counts read around each
+        frame: kernel 12 ``fuses`` times a frame and nothing else launched
+        (None: not checked), every frame tracked."""
+        rgb = kf_data["rgb"] if cfg.use_colour else None
+        pipe = kf_mesh_seeded(cfg, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        prev, poses = read_counts(), []
+        for f, depth in enumerate(kf_data["depths"][1:], 1):
+            poses.append(pipe.process_frame(depth, rgb=rgb).clone())
+            torch.cuda.synchronize()
+            now = read_counts()
+            launched = {k: now[k] - prev[k] for k in now if now[k] != prev[k]}
+            prev = now
+            if fuses is not None:
+                print(f"  {name} frame {f}: kernel launches {launched or 'none'}, rmse "
+                      f"{pipe.rmse:.6g}, tracking {pipe.tracking_good}")
+                if launched != ({"separable_fuse": fuses} if fuses else {}):
+                    smoke.failures.append(f"phase 3 {name} frame {f}: launches {launched}")
+            if not pipe.tracking_good:
+                smoke.failures.append(f"phase 3 {name} frame {f}: tracking lost")
+        mesh_runs[name] = (pipe, poses)
+        return pipe, poses, prev
+
+    def kf_mesh_phase():
+        """KinectFusion(mesh=make_mesh(devices=["cuda:0"] * 4)) at 256^3/VGA:
+        kernel 12 once a slab a frame and no host synchronisation in the
+        sharded fuse, the ATE within KF_ATE_SLACK and the
+        final pose within MESH_POSE_ATOL of the single-device one-sweep run,
+        run_sequence within 1e-4 of the frame loop, and the colour volume
+        within KF_COLOUR_ATOL of the single-device colour run."""
+        single, single_poses, _ = kf_mesh_loop("KinectFusion one-sweep", mesh_cfg, None, 1)
+        pipe, poses, counts = kf_mesh_loop("KinectFusion mesh", mesh_cfg, vmesh, vmesh.size)
+        multi_device_launches["separable_fuse"] += counts["separable_fuse"]
+        slabs = pipe._vol
+        ok = (isinstance(slabs, sharding.ZSlabs) and len(slabs.val) == vmesh.size
+              and all(v.device == dev for v in slabs.val))
+        ate, ate1 = kf_ate(poses), kf_ate(single_poses)
+        pose_err = (poses[-1] - single_poses[-1]).abs().max().item()
+        ok = ok and abs(ate - ate1) <= KF_ATE_SLACK and pose_err <= MESH_POSE_ATOL
+        print(f"  {'ok  ' if ok else 'FAIL'} mesh ATE {ate!r} m against the single-device "
+              f"one-sweep run's {ate1!r} (limit {KF_ATE_SLACK} apart); final pose {pose_err:.3g} "
+              f"apart (limit {MESH_POSE_ATOL}); final rmse {pipe.rmse!r} / {single.rmse!r}; "
+              f"{len(slabs.val)} slabs of {tuple(slabs.val[0].shape)}")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion mesh: ATE {ate} vs {ate1}, pose "
+                                  f"{pose_err}")
+        check_kf_quality("mesh", ate, pipe.rmse, KF_JAX["loop"])
+        # the sharded fuse reads nothing on the host (the gate stays on the card)
+        _, kin_v, kin_n = kf.preprocess_depth(kf_data["depths"][-1], kf_K, mesh_cfg)
+        gate = torch.zeros((), dtype=torch.bool, device=dev)
+        trunc = pipe.trunc_dist  # a host read of the box, outside the fuse
+        sites = host_syncs(lambda: sharding.sharded_sdf_fuse_separable(
+            slabs, kin_v[0][..., 2], kin_n[0], se3.inverse(pipe.T_wl), kf_K, trunc,
+            mesh_cfg.max_w, mesh_cfg.min_cos_theta, vmesh, enable=gate, near=mesh_cfg.near,
+            far=mesh_cfg.far))
+        print(f"  {'ok  ' if not sites else 'FAIL'} sharded_sdf_fuse_separable host "
+              f"synchronisations: {sum(sites.values())} {json.dumps(dict(sites))}")
+        if sites:
+            smoke.failures.append(f"phase 3 KinectFusion mesh: fuse host syncs {dict(sites)}")
+        seq = kf_mesh_seeded(mesh_cfg, vmesh)
+        reset_counts()
+        seq_poses, _ = seq.run_sequence(torch.stack(kf_data["depths"][1:]))
+        torch.cuda.synchronize()
+        n_seq = read_counts()["separable_fuse"]
+        err = (seq_poses - torch.stack(poses)).abs().max().item()
+        ok = err <= 1e-4 and n_seq == vmesh.size * KF_FRAMES
+        print(f"  {'ok  ' if ok else 'FAIL'} mesh run_sequence vs the mesh frame loop: max pose "
+              f"difference {err:.3g} (limit 1e-4), kernel 12 launched {n_seq} times")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion mesh: sequence {err}, {n_seq} launches")
+        ccfg = dataclasses.replace(mesh_cfg, use_colour=True)
+        got = {}
+        for name, mesh in (("colour one-sweep", None), ("colour mesh", vmesh)):
+            cpipe, _, _ = kf_mesh_loop(f"KinectFusion {name}", ccfg, mesh, 0)
+            touched = cpipe.vol.weight > 0
+            got[name] = {"touched_share": touched.float().mean().item(),
+                         "median_grey": cpipe.color_vol.data[touched].median().item()}
+        a, b = got["colour mesh"], got["colour one-sweep"]
+        ok = all(abs(a[k] - b[k]) <= KF_COLOUR_ATOL for k in a)
+        print(f"  {'ok  ' if ok else 'FAIL'} mesh colour volume {json.dumps(a)} against the "
+              f"single-device one-sweep colour run {json.dumps(b)} (limit {KF_COLOUR_ATOL:g} each)")
+        if not ok:
+            smoke.failures.append(f"phase 3 KinectFusion mesh colour: {a} vs {b}")
+
+    def stereo_mesh_phase():
+        """stereo_pipeline(mesh=) at VGA/64, DTAM 50 on the 4 disparity shards,
+        against the single-device frame and the JAX package's quality."""
+        reset_counts()
+        disp = stereo.stereo_pipeline(left, right, dcfg, mesh=vmesh)
+        torch.cuda.synchronize()
+        now = {k: v for k, v in read_counts().items() if v}
+        for k, v in now.items():
+            multi_device_launches[k] += v
+        want = {"wta": 1, "median": 1, "lr_check": 1}
+        print(f"  {'ok  ' if now == want else 'FAIL'} DTAM mesh frame: kernel launches {now} "
+              f"(the sharded solve is plain; the right WTA, median and LR check kernels)")
+        if now != want:
+            smoke.failures.append(f"phase 3 DTAM mesh: launches {now}")
+        if tuple(disp.shape) != (H, W) or disp.device != dev:
+            smoke.failures.append(f"phase 3 DTAM mesh: output {tuple(disp.shape)} {disp.device}")
+        check_agreement("DTAM mesh", disp, stereo.stereo_pipeline(left, right, dcfg),
+                        "vs the single-device kernel frame")
+        check_dtam_quality(f"DTAM mesh {DTAM_ITERS}", disp, DTAM_JAX["cold50"])
+
+    def frame_parallel_phase():
+        """frame_parallel(sgm_pipeline) on 4 VGA/64 pairs, equal to the frames
+        one by one."""
+        pairs = [synthetic.stereo_pair(W, H, D, seed=k, device=dev) for k in range(BATCH)]
+        lefts, rights = (torch.stack([p[i] for p in pairs]) for i in (0, 1))
+        cfg = cfgs["4-path"]
+        run = batch_mod.frame_parallel(lambda l, r: stereo_sgm.sgm_pipeline(l, r, cfg), vmesh)
+        reset_counts()
+        stereo_sgm.sgm_pipeline(lefts[0], rights[0], cfg)
+        torch.cuda.synchronize()
+        want = {k: BATCH * v for k, v in read_counts().items() if v}
+        reset_counts()
+        disp = run(lefts, rights)
+        torch.cuda.synchronize()
+        now = {k: v for k, v in read_counts().items() if v}
+        for k, v in now.items():
+            multi_device_launches[k] += v
+        print(f"  {'ok  ' if now == want else 'FAIL'} frame_parallel of {BATCH}: kernel launches "
+              f"{now} ({BATCH} single frames' {want})")
+        if now != want:
+            smoke.failures.append(f"phase 3 frame_parallel: launches {now}")
+        for k in range(BATCH):
+            frame = stereo_sgm.sgm_pipeline(lefts[k], rights[k], cfg)
+            same = bool(((torch.isnan(disp[k]) & torch.isnan(frame)) | (disp[k] == frame)).all())
+            print(f"  {'ok  ' if same else 'FAIL'} frame_parallel frame {k} equal to its "
+                  "single-device frame")
+            if not same:
+                smoke.failures.append(f"phase 3 frame_parallel: frame {k} differs")
+
+    def census_icp_phase():
+        """sharded_census_wta against the single-device WTA of the census
+        volume (exactly), sharded_icp_point_plane against the single-device
+        system on a KinectFusion frame (1e-4 of each field's largest entry),
+        no kernel launched."""
+        reset_counts()
+        got = sharding.sharded_census_wta(left, right, D, vmesh, "9x7")
+        cl, cr = census.census(left, "9x7"), census.census(right, "9x7")
+        want = costvolume.cost_vol_minimum(census.census_cost_volume(cl, cr, D, -1, 64), D)
+        same = got.dtype == torch.int32 and torch.equal(got, want)
+        print(f"  {'ok  ' if same else 'FAIL'} sharded_census_wta ({vmesh.size} shards of "
+              f"{D // vmesh.size} disparities) equal to the single-device WTA")
+        if not same:
+            smoke.failures.append("phase 3 sharded_census_wta differs")
+        _, v, n = kf.preprocess_depth(kf_data["depths"][1], kf_K, kf_cfg)
+        _, v0, n0 = kf.preprocess_depth(kf_data["depths"][0], kf_K, kf_cfg)
+        T_rl = se3.compose(se3.inverse(kf_data["poses"][0]), kf_data["poses"][1])
+        KT = kf_K.matrix(dev) @ se3.inverse(T_rl)
+        a = sharding.sharded_icp_point_plane(v[0], v0[0], n0[0], KT, T_rl, 0.1, vmesh)
+        b = icp.icp_point_plane(v[0], v0[0], n0[0], KT, T_rl, 0.1)
+        torch.cuda.synchronize()
+        for name in ("JTJ", "JTy", "sqErr", "obs"):
+            x, y = getattr(a, name), getattr(b, name)
+            scale = y.abs().max().item()
+            err = (x - y).abs().max().item()
+            ok = err <= 1e-4 * max(scale, 1e-30)
+            print(f"  {'ok  ' if ok else 'FAIL'} sharded_icp_point_plane {name}: max abs diff "
+                  f"{err:.3g}, largest entry {scale:.4g} (limit 1e-4 of it)")
+            if not ok:
+                smoke.failures.append(f"phase 3 sharded ICP {name}: {err} of {scale}")
+        launched = {k: v for k, v in read_counts().items() if v}
+        if launched:
+            smoke.failures.append(f"phase 3 sharded census / ICP: launched {launched}")
+
+    print(f"phase 3 KinectFusion(mesh=make_mesh(devices=[{str(dev)!r}] * {MESH_SHARDS})) at 256^3 "
+          f"TSDF, {W}x{H}, raycast_downsample: frame 0 seeded, {KF_FRAMES} frames:")
+    smoke.phase("phase 3 KinectFusion mesh", kf_mesh_phase)
+    print(f"phase 3 stereo_pipeline(mesh=) DTAM {DTAM_ITERS} on {MESH_SHARDS} disparity shards at "
+          f"{W}x{H}/{D}:")
+    smoke.phase("phase 3 DTAM mesh", stereo_mesh_phase)
+    print(f"phase 3 frame_parallel(sgm_pipeline) on {BATCH} pairs at {W}x{H}/{D}:")
+    smoke.phase("phase 3 frame_parallel", frame_parallel_phase)
+    print(f"phase 3 sharded_census_wta and sharded_icp_point_plane at {W}x{H}:")
+    smoke.phase("phase 3 sharded census and ICP", census_icp_phase)
 
     # BASELINE config 1 and the filters beside it, on the card against the
     # same calls on the CPU (no kernel: plain PyTorch on the tensor's device)
@@ -4114,6 +4474,85 @@ def main() -> int:
 
     print(f"phase 4 the stereo apps' entry points at {W}x{H}/{D}:")
     smoke.phase("phase 4 apps", apps_timing_phase)
+
+    def run_stats(name, run, runs=10, profiled=True):
+        """Events (median, min, max of ``runs``); with ``profiled`` also the
+        launches and device busy time of one run (torch.profiler), host
+        synchronisations by site and peak memory above what was held before
+        the run."""
+        ms = timing.time_fn(run, warmup=1, runs=runs)
+        if not profiled:
+            print(f"  {name:32s} {ms['median_ms']:.3f} ms (min {ms['min_ms']:.3f}, max "
+                  f"{ms['max_ms']:.3f}, {runs} runs) [{card}]")
+            return ms["median_ms"]
+        kernels, wall_us = device_us(run)
+        n = sum(c for c, _ in kernels.values())
+        busy = sum(us for _, us in kernels.values())
+        sites = host_syncs(run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"  {name:32s} {ms['median_ms']:.3f} ms (min {ms['min_ms']:.3f}, max "
+              f"{ms['max_ms']:.3f}, {runs} runs); {n} launches, device busy {busy / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f} ms profiled wall (idle {1 - busy / max(wall_us, 1e-9):.3f}); "
+              f"{sum(sites.values())} host synchronisations "
+              f"{json.dumps(dict(sites.most_common(4)))}; "
+              f"peak memory {peak / 2**20:.1f} MiB above {base / 2**20:.1f} [{card}]")
+        return ms["median_ms"]
+
+    def multi_device_timing_phase():
+        """In turns (a, b, b, a): the z-sharded KinectFusion frame on the
+        virtual 4-shard mesh against the single-device one-sweep frame (frame
+        8 again on each run's model), the DTAM frame on 4 disparity shards
+        against the single-device frame, frame_parallel of 4 SGM frames
+        against sgm_pipeline_batched; then the fuse's forward and backward at
+        256^3/VGA (kernel forward, plain backward) and the all-plain
+        autograd."""
+        pairs = {
+            "KinectFusion frame": tuple(
+                (what, lambda p=mesh_runs[key][0]: p.process_frame(kf_data["depths"][-1]))
+                for what, key in (("one-sweep", "KinectFusion one-sweep"),
+                                  ("mesh of 4", "KinectFusion mesh"))),
+            "DTAM frame": (("single", lambda: stereo.stereo_pipeline(left, right, dcfg)),
+                           ("mesh of 4", lambda: stereo.stereo_pipeline(left, right, dcfg,
+                                                                        mesh=vmesh))),
+        }
+        stack = [synthetic.stereo_pair(W, H, D, seed=k, device=dev) for k in range(BATCH)]
+        lefts, rights = (torch.stack([p[i] for p in stack]) for i in (0, 1))
+        cfg = cfgs["4-path"]
+        fp = batch_mod.frame_parallel(lambda l, r: stereo_sgm.sgm_pipeline(l, r, cfg), vmesh)
+        pairs[f"{BATCH} SGM frames"] = (
+            ("sgm_pipeline_batched", lambda: stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg)),
+            ("frame_parallel", lambda: fp(lefts, rights)))
+        for what, ((na, a), (nb, b)) in pairs.items():
+            got = {}
+            for name, run in ((na, a), (nb, b), (nb, b), (na, a)):
+                ms = run_stats(f"{what}, {name}", run, profiled=name not in got)
+                got.setdefault(name, []).append(ms)
+            print(f"  {what}: {nb} {got[nb]} ms against {na} {got[na]} ms "
+                  f"({min(got[nb]) / min(got[na]):.2f}x)"
+                  + (f"; {BATCH / (min(got[nb]) / 1e3):.2f} against "
+                     f"{BATCH / (min(got[na]) / 1e3):.2f} fps" if "SGM" in what else "")
+                  + f" [{card}]")
+        fr = vga_fuse_frame()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        wv = torch.randn(fr["fused"].val.shape, generator=gen, device=dev)
+        args = (fr["fused"], fr["d"], fr["n"], fr["T_cw"], fr["K"], fr["trunc"], fr["wh"], wv)
+        seen = set()
+        for route in ("plain", "kernel", "kernel", "plain"):
+            run_stats(f"fuse forward + backward, {route}", lambda: fuse_grads(route, *args),
+                      runs=5, profiled=route not in seen)
+            seen.add(route)
+        vol = TsdfVolume(fr["fused"].val.clone(), fr["fused"].weight.clone(), fr["fused"].bbox)
+        run_stats("fuse forward alone (kernel)", lambda: separable.sdf_fuse_separable(
+            vol, fr["d"], fr["n"], fr["T_cw"], fr["K"], fr["trunc"], sweep_axis=0,
+            inplace=True))
+
+    print(f"phase 4 the multi-device layer and the fuse's reverse mode at {W}x{H} (256^3):")
+    smoke.phase("phase 4 multi-device", multi_device_timing_phase)
     out_ctx.timed = timed
     print(f"phase 4 the output side and the solvers at {W}x{H} (256^3 volumes):")
     smoke.phase("phase 4 output side", output_times, out_ctx)
@@ -4135,6 +4574,9 @@ def main() -> int:
          "bound_by": bound[name][1],
          # launches on the host side's runs: the file-fed frame and the demos
          "host_side_launches": out_ctx.host_launches[name],
+         # launches on the multi-device runs: the mesh KinectFusion loop,
+         # stereo_pipeline(mesh=) and frame_parallel
+         "multi_device_launches": multi_device_launches[name],
          # no single PyTorch call computes any of these functions (for the
          # fuse, F.grid_sample computes only the interpolation: none of the
          # update gate, the blend or the 1e-6 weight snap)

@@ -34,8 +34,17 @@ The output side runs on the host where the JAX package's does:
 ``save_keyframe`` and ``render_textured`` texture a render from the last
 10 saved keyframes on the app's device.
 
-Not ported, and refused with ``NotImplementedError`` (ROADMAP Queue 1):
-``mesh=`` (model-parallel frames).
+``mesh=`` (a ``parallel.mesh.Mesh``) runs the frame model-parallel, as the
+JAX package's: the TSDF (and the colour volume) lives as z-slabs, slab k on
+``mesh.devices[k]`` (``parallel.sharding.ZSlabs``); the frame step sweeps
+the slabs (``sharded_raycast_separable``) and fuses each slab
+(``sharded_sdf_fuse_separable``: on a card one fuse launch a slab), while
+the image-space work (preprocess, ICP) runs on ``mesh.devices[0]``. It
+needs the separable engine, ``raycast_downsample`` and a mesh that divides
+``vol_res``. ``vol`` and ``color_vol`` read as whole volumes gathered onto
+``mesh.devices[0]`` (a copy) and are cut into slabs when assigned, so the
+rare readers and writers (render, save, load, the moving workspace's roll)
+work as on one device.
 """
 from __future__ import annotations
 
@@ -58,10 +67,11 @@ from ..fusion import sdf as sdf_mod
 from ..fusion import separable
 from ..geometry import depth as depth_mod
 from ..ops import bilateral as bf
+from ..parallel import sharding as sh
+from ..parallel.mesh import Mesh
 from ..solvers import icp as icp_mod
 from ..solvers.lss import LSS
 
-_TODO = "is not ported yet (ROADMAP Queue 1)"
 ENGINES = ("separable", "guided", "exact")
 
 
@@ -108,10 +118,34 @@ class KinectFusionConfig:
 
 
 def _check_config(cfg: KinectFusionConfig, mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"KinectFusion mesh= (model-parallel frames) {_TODO}")
     if cfg.engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {cfg.engine!r}")
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a kangaroo_tpu_torch.parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if cfg.engine != "separable" or not cfg.raycast_downsample:
+        raise ValueError("the mesh-parallel frame requires engine='separable' and "
+                         "raycast_downsample=True (one sharded full-resolution sweep)")
+    if cfg.vol_res % mesh.size:
+        raise ValueError(f"the {mesh.size}-way mesh must divide vol_res={cfg.vol_res}")
+
+
+def _app_device(device, mesh) -> torch.device:
+    """The app's device: ``device`` (the card by default), or with a mesh
+    its first device, which ``device`` must then name."""
+    if mesh is None:
+        return torch.device("cuda" if device is None else device)
+    dev0 = mesh.devices[0]
+    if device is not None:
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d != dev0:
+            raise ValueError(f"device {d} differs from the mesh's first device {dev0}, where "
+                             "the image-space work runs")
+    return dev0
 
 
 def preprocess_depth(depth_raw: torch.Tensor, K: Intrinsics, cfg: KinectFusionConfig):
@@ -234,21 +268,34 @@ def make_frame_step(K: Intrinsics, cfg: KinectFusionConfig, bbox, trunc_dist: fl
     the fuse's sweep axis (0 z, 1 y, 2 x; the one full-resolution
     raycast's too under ``raycast_downsample``) or picks it per pose
     ('auto'); the per-level model raycasts pick their own, as in the JAX
-    package. The model raycasts are the config's engine's, as there."""
+    package. The model raycasts are the config's engine's, as there.
+
+    With ``mesh`` (see :func:`_check_config`) ``val``, ``weight`` and
+    ``cval`` are tuples of z-slabs (``parallel.sharding.ZSlabs``' fields),
+    updated in place and returned; the full-resolution sweep and the fuse
+    are their z-sharded versions on the z axis, whatever ``sweep_axis``
+    says, and the rest runs on ``mesh.devices[0]``."""
     del bbox  # the bbox flows through as (lo, hi) arguments
     _check_config(cfg, mesh)
     pixel_lattice = cfg.raycast_downsample or cfg.engine != "separable"
 
     def body(val, weight, T_wl, depth_raw, first, lo, hi, cval=None, rgb=None):
-        dev = val.device
+        dev = T_wl.device
         _, kin_v, kin_n = preprocess_depth(depth_raw, K, cfg)
-        vol = TsdfVolume(val, weight, BoundingBox(lo, hi))
+        bbox = BoundingBox(lo, hi)
+        vol = (sh.ZSlabs(bbox, mesh, val=tuple(val), weight=tuple(weight)) if mesh is not None
+               else TsdfVolume(val, weight, bbox))
         if cfg.engine == "separable" and cfg.raycast_downsample:
             # one full-resolution sweep; the coarser ICP levels from a
             # NaN-aware box downsampling of its depth
-            d0, _, _ = separable.raycast_sdf_separable(
-                vol, T_wl, K, cfg.w, cfg.h, cfg.near, cfg.far, trunc_dist=trunc_dist,
-                shade=False, sweep_axis=sweep_axis)
+            if mesh is not None:
+                d0, _, _ = sh.sharded_raycast_separable(vol, T_wl, K, cfg.w, cfg.h, mesh,
+                                                        near=cfg.near, far=cfg.far,
+                                                        trunc_dist=trunc_dist, shade=False)
+            else:
+                d0, _, _ = separable.raycast_sdf_separable(
+                    vol, T_wl, K, cfg.w, cfg.h, cfg.near, cfg.far, trunc_dist=trunc_dist,
+                    shade=False, sweep_axis=sweep_axis)
             d_pyr = pyr_mod.box_reduce_ignore_invalid(d0, cfg.max_levels)
             ray_v, ray_n = [], []
             for l in range(cfg.max_levels):
@@ -268,14 +315,25 @@ def make_frame_step(K: Intrinsics, cfg: KinectFusionConfig, bbox, trunc_dist: fl
         T_lw = se3.inverse(T_new)
         if cval is not None:
             T_cd, K_rgb = _colour_camera(cfg, dev)
-            fusedv, fusedc = separable.sdf_fuse_color_separable(
-                vol, BoundedVolume(cval, vol.bbox), kin_v[0][..., 2], kin_n[0], T_lw, K, rgb,
-                se3.compose(T_cd, T_lw), K_rgb, trunc_dist, cfg.max_w, cfg.min_cos_theta,
-                enable=good | first, sweep_axis=sweep_axis, inplace=True, **_roi(cfg))
+            args = (kin_v[0][..., 2], kin_n[0], T_lw, K, rgb, se3.compose(T_cd, T_lw), K_rgb,
+                    trunc_dist, cfg.max_w, cfg.min_cos_theta)
+            if mesh is not None:
+                fusedv, fusedc = sh.sharded_sdf_fuse_color_separable(
+                    vol, sh.ZSlabs(bbox, mesh, data=tuple(cval)), *args, mesh,
+                    enable=good | first, inplace=True, **_roi(cfg))
+            else:
+                fusedv, fusedc = separable.sdf_fuse_color_separable(
+                    vol, BoundedVolume(cval, bbox), *args, enable=good | first,
+                    sweep_axis=sweep_axis, inplace=True, **_roi(cfg))
             return fusedv.val, fusedv.weight, fusedc.data, T_new, rmse
-        fused = separable.sdf_fuse_separable(
-            vol, kin_v[0][..., 2], kin_n[0], T_lw, K, trunc_dist, cfg.max_w, cfg.min_cos_theta,
-            enable=good | first, sweep_axis=sweep_axis, inplace=True, **_roi(cfg))
+        args = (kin_v[0][..., 2], kin_n[0], T_lw, K, trunc_dist, cfg.max_w, cfg.min_cos_theta)
+        if mesh is not None:
+            fused = sh.sharded_sdf_fuse_separable(vol, *args, mesh, enable=good | first,
+                                                  inplace=True, **_roi(cfg))
+        else:
+            fused = separable.sdf_fuse_separable(vol, *args, enable=good | first,
+                                                 sweep_axis=sweep_axis, inplace=True,
+                                                 **_roi(cfg))
         return fused.val, fused.weight, T_new, rmse
 
     if cfg.use_colour:
@@ -334,18 +392,20 @@ def state_from_numpy(val, weight, lo, hi, T_wl, device="cuda", color=None):
 
 class KinectFusion:
     """The app's main loop as a stateful object, on ``device`` (the card
-    unless the caller asks for another)."""
+    unless the caller asks for another), or with ``mesh`` model-parallel
+    over its devices (see the module docstring)."""
 
     def __init__(self, K: Intrinsics, cfg: KinectFusionConfig = KinectFusionConfig(), mesh=None,
-                 device="cuda"):
+                 device=None):
         _check_config(cfg, mesh)
         self.K, self.cfg, self.mesh = K, cfg, mesh
-        self.device = torch.device(device)
+        self.device = _app_device(device, mesh)
         e = cfg.vol_extent
         if cfg.front_volume:
-            bb = BoundingBox.create((-e, -e, cfg.near), (e, e, cfg.near + 2 * e), device=device)
+            bb = BoundingBox.create((-e, -e, cfg.near), (e, e, cfg.near + 2 * e),
+                                    device=self.device)
         else:
-            bb = BoundingBox.create((-e,) * 3, (e,) * 3, device=device)
+            bb = BoundingBox.create((-e,) * 3, (e,) * 3, device=self.device)
         self.vol, self.color_vol = self._fresh_volumes(bb)
         if cfg.use_colour:
             self.T_cd, self.K_rgb = _colour_camera(cfg, self.device)
@@ -358,9 +418,44 @@ class KinectFusion:
         self._seq_run = None  # the sequence runner and its sweep axis
         self._seq_axis = None
 
+    @property
+    def vol(self) -> TsdfVolume:
+        """The TSDF; with a mesh its slabs gathered onto ``mesh.devices[0]``
+        (a copy: write through the setter)."""
+        return self._vol.gather() if self.mesh is not None else self._vol
+
+    @vol.setter
+    def vol(self, vol: TsdfVolume) -> None:
+        self._vol = sh.shard_volume_z(vol, self.mesh) if self.mesh is not None else vol
+
+    @property
+    def color_vol(self) -> Optional[BoundedVolume]:
+        """The colour volume (None without ``use_colour``), gathered as
+        :attr:`vol` is."""
+        if self.mesh is None or self._color is None:
+            return self._color
+        return self._color.gather()
+
+    @color_vol.setter
+    def color_vol(self, cvol: Optional[BoundedVolume]) -> None:
+        self._color = (sh.shard_bounded_volume_z(cvol, self.mesh)
+                       if self.mesh is not None and cvol is not None else cvol)
+
+    def _set_state(self, val, weight, cval, bbox) -> None:
+        """Replace the volumes by the frame step's outputs: tensors, or with a
+        mesh tuples of slabs."""
+        if self.mesh is not None:
+            self._vol = sh.ZSlabs(bbox, self.mesh, val=tuple(val), weight=tuple(weight))
+            if cval is not None:
+                self._color = sh.ZSlabs(self._color.bbox, self.mesh, data=tuple(cval))
+        else:
+            self._vol = TsdfVolume(val, weight, bbox)
+            if cval is not None:
+                self._color = BoundedVolume(cval, self._color.bbox)
+
     def _fresh_volumes(self, bb, cbb=None, shape=None):
         """(NaN-reset TSDF, colour volume filled with 0.5 or None) of the
-        config's cube, or of ``shape`` (D, H, W)."""
+        config's cube, or of ``shape`` (D, H, W), as whole volumes."""
         d, h, w = shape if shape is not None else (self.cfg.vol_res,) * 3
         vol = TsdfVolume.create(w, h, d, bb, trunc_dist=math.nan)
         cvol = None
@@ -371,14 +466,14 @@ class KinectFusion:
     @property
     def trunc_dist(self) -> float:
         return self.cfg.trunc_dist_factor * float(np.linalg.norm(
-            self.vol.voxel_size_units().cpu().numpy()))
+            self._vol.voxel_size_units().cpu().numpy()))
 
     def reset(self, T_wl=None):
         """NaN-reset the TSDF, refill the colour volume with 0.5 and go back to
         the identity pose (or ``T_wl``)."""
         self.vol, self.color_vol = self._fresh_volumes(
-            self.vol.bbox, cbb=self.color_vol.bbox if self.color_vol is not None else None,
-            shape=tuple(self.vol.val.shape))
+            self._vol.bbox, cbb=self._color.bbox if self._color is not None else None,
+            shape=tuple(self._vol.shape if self.mesh is not None else self._vol.val.shape))
         self.T_wl = (se3.identity(self.device) if T_wl is None
                      else torch.as_tensor(T_wl, dtype=torch.float32, device=self.device))
         self.keyframes.clear()
@@ -390,14 +485,15 @@ class KinectFusion:
         ``use_colour``); only the rmse is read on the host."""
         colour = self.cfg.use_colour
         if self._step is None:
-            self._step = make_frame_step(self.K, self.cfg, self.vol.bbox, self.trunc_dist)
-        bbox = self.vol.bbox
+            self._step = make_frame_step(self.K, self.cfg, self._vol.bbox, self.trunc_dist,
+                                         mesh=self.mesh)
+        bbox = self._vol.bbox
 
         def call(first):
             if colour:
-                return self._step(self.vol.val, self.vol.weight, self.color_vol.data, self.T_wl,
+                return self._step(self._vol.val, self._vol.weight, self._color.data, self.T_wl,
                                   depth_raw, rgb, first, bbox.lo, bbox.hi)
-            out = self._step(self.vol.val, self.vol.weight, self.T_wl, depth_raw, first,
+            out = self._step(self._vol.val, self._vol.weight, self.T_wl, depth_raw, first,
                              bbox.lo, bbox.hi)
             return out[:2] + (None,) + out[2:]
 
@@ -410,9 +506,7 @@ class KinectFusion:
             val, w, cval, T_new, _ = call(True)
         else:
             self.tracking_good = self.frame == 0 or self.rmse < self.cfg.max_rmse
-        self.vol = TsdfVolume(val, w, bbox)
-        if colour:
-            self.color_vol = BoundedVolume(cval, self.color_vol.bbox)
+        self._set_state(val, w, cval, bbox)
         self.T_wl = T_new
         self.frame += 1
         return self.T_wl
@@ -422,7 +516,7 @@ class KinectFusion:
         step (with stacked (N, H, W, 3) ``rgbs`` under ``use_colour``);
         returns (poses (N, 3, 4), rmses (N,)) and leaves the pipeline at the
         last frame. The sweep axis is the seed pose's for the whole
-        sequence, and neither the divergence reset nor the moving workspace
+        sequence (z under a mesh), and neither the divergence reset nor the moving workspace
         fires mid-sequence, as in the JAX package's scan replay. The
         separable engine only, as there."""
         cfg = self.cfg
@@ -435,22 +529,25 @@ class KinectFusion:
                              "ignored")
         depths = torch.as_tensor(depths, device=self.device)
         n = depths.shape[0]
-        axis = separable._view_axis_index(se3.inverse(self.T_wl))
+        axis = (0 if self.mesh is not None
+                else separable._view_axis_index(se3.inverse(self.T_wl)))
         if self._seq_run is None or self._seq_axis != axis:
-            self._seq_run = make_sequence_runner(self.K, cfg, self.trunc_dist, sweep_axis=axis)
+            self._seq_run = make_sequence_runner(self.K, cfg, self.trunc_dist, mesh=self.mesh,
+                                                 sweep_axis=axis)
             self._seq_axis = axis
         was_first = self.frame == 0
         firsts = [i == 0 and was_first for i in range(n)]
-        lo, hi = self.vol.bbox.lo, self.vol.bbox.hi
+        bbox = self._vol.bbox
         if cfg.use_colour:
             val, w, cval, T_wl, poses, rmses = self._seq_run(
-                self.vol.val, self.vol.weight, self.color_vol.data, self.T_wl, depths,
-                torch.as_tensor(rgbs, device=self.device), firsts, lo, hi)
-            self.color_vol = BoundedVolume(cval, self.color_vol.bbox)
+                self._vol.val, self._vol.weight, self._color.data, self.T_wl, depths,
+                torch.as_tensor(rgbs, device=self.device), firsts, bbox.lo, bbox.hi)
         else:
-            val, w, T_wl, poses, rmses = self._seq_run(self.vol.val, self.vol.weight, self.T_wl,
-                                                       depths, firsts, lo, hi)
-        self.vol = TsdfVolume(val, w, self.vol.bbox)
+            cval = None
+            val, w, T_wl, poses, rmses = self._seq_run(self._vol.val, self._vol.weight,
+                                                       self.T_wl, depths, firsts, bbox.lo,
+                                                       bbox.hi)
+        self._set_state(val, w, cval, bbox)
         self.T_wl = T_wl
         self.frame += n
         if was_first and n == 1:
@@ -469,12 +566,12 @@ class KinectFusion:
         cfg = self.cfg
         if cfg.moving_threshold_voxels <= 0 or self.frame == 0:
             return
-        shift = rolling.recenter_shift(self.vol, self.T_wl, lead=cfg.moving_lead_m,
+        shift = rolling.recenter_shift(self._vol, self.T_wl, lead=cfg.moving_lead_m,
                                        threshold_voxels=cfg.moving_threshold_voxels)
         if shift == (0, 0, 0):
             return
         self.vol = rolling.roll_volume(self.vol, shift)
-        if self.color_vol is not None:
+        if self._color is not None:
             self.color_vol = rolling.roll_bounded_volume(self.color_vol, shift)
 
     def process_frame(self, depth_raw, rgb=None, fuse: bool = True,
@@ -591,9 +688,9 @@ class KinectFusion:
 
         if method not in ("tet", "mc"):
             raise ValueError(f"save_mesh: method must be 'tet' or 'mc', got {method!r}")
-        val = self.vol.val
-        vol = TsdfVolume(torch.where(torch.isfinite(val), val, self.trunc_dist), self.vol.weight,
-                         self.vol.bbox)
+        vol = self.vol
+        vol = TsdfVolume(torch.where(torch.isfinite(vol.val), vol.val, self.trunc_dist),
+                         vol.weight, vol.bbox)
         tris = (mc256 if method == "mc" else mc).extract_mesh(vol)
         mc.save_ply(path, tris)
         return tris

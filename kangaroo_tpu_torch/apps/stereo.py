@@ -17,8 +17,11 @@ On a CUDA tensor the alternation runs in the DTAM kernel
 (``stereo/dtam_cuda.py``, which launches the auxiliary-search kernel once
 per iteration), the WTA initialisation, median and LR check in theirs; on a
 CPU tensor every step is its plain version, :func:`dtam_iterate_plain`
-being the transcription of the JAX package's XLA loop. Not ported yet, and
-refused with ``NotImplementedError``: ``mesh`` (multi-device DTAM).
+being the transcription of the JAX package's XLA loop. ``stereo_pipeline``'s
+``mesh`` runs the cold solve with the volume's disparity axis sharded
+(``parallel.sharding.sharded_dtam_solve``, plain PyTorch on every device,
+as the JAX package's sharded solve is XLA); the rest of the frame, and its
+kernels, stay on the inputs' device.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..geometry import depth as depth_mod
 from ..io import pxm
 from ..ops import integral_image as ii
 from ..ops import resample as resample_mod
+from ..parallel import sharding
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
@@ -263,12 +267,18 @@ def stereo_pipeline(left, right, cfg: StereoConfig = StereoConfig(), use_dtam: b
     """Full frame for the left image of a rectified (H, W) pair:
     preprocess -> volume -> (guided filter) -> cold DTAM solve of
     ``cfg.dtam_iterations`` steps (from the upsampled half-size solve with
-    ``cfg.coarse_init``), or WTA -> post. Returns float32 disparity with NaN
-    invalids, on the inputs' device."""
-    if mesh is not None:
-        raise NotImplementedError("stereo_pipeline: mesh (multi-device DTAM) is not ported yet")
+    ``cfg.coarse_init``), or WTA -> post. With ``mesh`` (a
+    ``parallel.mesh.Mesh``) the DTAM solve is the disparity-sharded one,
+    from the WTA as the JAX package's (``coarse_init`` does not apply); the
+    mesh does nothing without ``use_dtam``. Returns float32 disparity with
+    NaN invalids, on the inputs' device."""
     left_p, right_p, vol_l = _volumes(left, right, cfg)
-    if use_dtam:
+    if use_dtam and mesh is not None:
+        disp_l = sharding.sharded_dtam_solve(
+            vol_l, left_p, cfg.lam, cfg.theta_start, cfg.sigma_q, cfg.sigma_d, cfg.huber_alpha,
+            cfg.beta, cfg.g_alpha, cfg.g_beta, mesh,
+            iterations=cfg.dtam_iterations).to(left_p.device)
+    elif use_dtam:
         d_init = _coarse_disparity(left_p, right_p, cfg) if cfg.coarse_init else None
         disp_l = dtam_solve(vol_l, left_p, cfg.lam, cfg.theta_start, cfg.sigma_q, cfg.sigma_d,
                             cfg.huber_alpha, cfg.beta, cfg.g_alpha, cfg.g_beta,

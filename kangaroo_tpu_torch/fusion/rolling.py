@@ -63,8 +63,9 @@ def recenter_shift(vol: TsdfVolume, T_wc, lead: float = 0.5,
     """Whole-voxel shift that re-centres the volume on the point ``lead``
     metres in front of the camera; zero on an axis until the drift there
     reaches ``threshold_voxels`` (hysteresis). Returns plain ints. ``T_wc``
-    must be a (3, 4) pose."""
-    T_wc = torch.as_tensor(T_wc, dtype=torch.float32, device=vol.val.device)
+    must be a (3, 4) pose. ``vol`` may be any volume with a box and a voxel
+    size (a ``parallel.sharding.ZSlabs`` too)."""
+    T_wc = torch.as_tensor(T_wc, dtype=torch.float32, device=vol.bbox.device)
     if tuple(T_wc.shape) != (3, 4):
         raise ValueError(f"recenter_shift: T_wc must be a (3, 4) pose, not {tuple(T_wc.shape)}")
     host = torch.cat([T_wc.reshape(-1), vol.bbox.lo + vol.bbox.hi,

@@ -34,10 +34,21 @@ colour test too, so a colour frame's TSDF differs from a depth-only
 frame's; it is plain PyTorch on every device (the JAX package takes its
 Pallas fuse only without colour). ``normals='gradient'`` differentiates the
 swept slabs through the sweep Jacobian on the two-orientation scan over
-every plane. Not ported: the reverse-mode gradient of the fuse (the JAX
-package's ``_windowed_fori`` custom_vjp): the fuse refuses inputs that
-require grad. The JAX package's ``gather_bits`` routes and the static
+every plane. The JAX package's ``gather_bits`` routes and the static
 ``sweep_axis`` pinning for scans are TPU layout work with no counterpart.
+
+Both fuses are differentiable. Where an input requires grad, the plane
+loop of ``sdf_fuse_separable`` runs as an autograd op (``_KernelOp``, as
+the stereo kernels' in ``stereo/dispatch.py``): its forward is the kernel
+on a card (:func:`fuse_planes_plain` on the CPU) on copies of the volume,
+its backward the vector-Jacobian product of :func:`fuse_planes_plain_grad`,
+the plain loop built out of place; the colour fuse builds its loop out of
+place under grad too. The gradient reaches the volume and, through the
+warped grids and the params, the depth, the normals and ``T_cw``. The plane
+window is read on the host, so PyTorch's autograd through the loop is exact
+for the primal it computed; the JAX package's static-trip twin
+(``_windowed_fori``'s custom_vjp) works around ``fori_loop`` and has no
+counterpart. ``inplace=True`` with an input that requires grad raises.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from ..backend import constant, f32_scalars
 from ..containers.volume import BoundedVolume, TsdfVolume
 from ..core import sampling, se3
 from ..geometry import depth as depth_mod
+from ..stereo.dispatch import _KernelOp
 from .raycast import phong_shade
 
 # world axes playing the (i, j, k) roles for each sweep axis, and the
@@ -338,6 +350,47 @@ def fuse_planes_plain(val, weight, gmd, gct, params, window, axis: int, Wi: int,
     return val, weight
 
 
+def _assemble(srcs, batches, perm):
+    """Each sweep-layout volume of ``srcs`` with the planes of every
+    ``(slice, new_0, new_1, ...)`` of ``batches`` replaced by ``new_i``,
+    built by concatenation rather than written in place (which would
+    overwrite what autograd saved of the old planes), back in [z, y, x]."""
+    parts, k = [[] for _ in srcs], 0
+    for sl, *news in batches:
+        for out, src, new in zip(parts, srcs, news):
+            out += [src[k:sl.start], new]
+        k = sl.stop
+    inv = tuple(perm.index(i) for i in range(3))
+    return tuple(torch.cat(out + [src[k:]]).permute(inv) for out, src in zip(parts, srcs))
+
+
+def fuse_planes_plain_grad(val, weight, gmd, gct, params, window, axis: int, Wi: int,
+                           Hi: int):
+    """:func:`fuse_planes_plain` built out of place, for autograd: returns
+    the new (val, weight), the planes outside the window those of the
+    inputs."""
+    _check_full_f32(val, "fuse_planes_plain_grad")
+    perm = _PERM[axis]
+    val_p, wgt_p = val.permute(perm), weight.permute(perm)
+    trunc, max_w = params[16], params[17]
+    batches = []
+    for sl, update, sd, w in _plane_batches(val_p, gmd, gct, params, window, Wi, Hi):
+        new_sd, w_new = _new_sdf(update, sd, w, trunc)
+        batches.append((sl, *_blend(val_p[sl], wgt_p[sl], new_sd, w_new, max_w)))
+    return _assemble((val_p, wgt_p), batches, perm)
+
+
+def _fuse_copies(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: int):
+    """The autograd op's forward: the plane loop on copies of the volume."""
+    val, weight = val.detach().clone(), weight.detach().clone()
+    return fuse_planes(val, weight, gmd.detach(), gct.detach(), params.detach(), window, axis,
+                       Wi, Hi)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def fuse_planes(val, weight, gmd, gct, params, window, axis: int, Wi: int, Hi: int):
     """The fuse's plane loop, in place: the CUDA kernel on a CUDA tensor (it
     raises off an sm_90 card), :func:`fuse_planes_plain` on a CPU tensor."""
@@ -434,10 +487,10 @@ def fuse_plane_window(vol, depth, normals, T_cw, K, trunc_dist, mincostheta=0.1,
                            far_t)
 
 
-def _refuse_grad(op: str, **tensors) -> None:
-    for name, t in tensors.items():
-        if t.requires_grad:
-            raise RuntimeError(f"{op}: the fuse has no gradient; {name} requires grad")
+def _check_inplace(op: str, inplace: bool, grad: bool) -> None:
+    if inplace and grad:
+        raise ValueError(f"{op}: inplace=True with an input that requires grad; autograd needs "
+                         "the volume it fused into")
 
 
 def sdf_fuse_separable(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0,
@@ -456,15 +509,22 @@ def sdf_fuse_separable(vol, depth, normals, T_cw, K, trunc_dist, max_w=1000.0,
     semantics hold: new tensors come back and ``vol`` is untouched, unless
     ``inplace`` asks for ``vol``'s own tensors to be updated and returned
     (the KinectFusion frame does, since it replaces its volume anyway).
+    Differentiable with respect to the volume, ``depth``, ``normals`` and
+    ``T_cw`` (see the module docstring); ``inplace`` then raises.
     """
-    _refuse_grad("sdf_fuse_separable", **{"vol.val": vol.val, "vol.weight": vol.weight,
-                                          "depth": depth, "normals": normals})
+    grad = _wants_grad(vol.val, vol.weight, depth, normals, T_cw)
+    _check_inplace("sdf_fuse_separable", inplace, grad)
     axis = _view_axis_index(T_cw) if sweep_axis == "auto" else int(sweep_axis)
     gmd, gct, params, window = fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w,
                                            mincostheta, axis, grid_w, grid_h, warp, enable,
                                            clip_planes, near, far)
-    val, weight = (vol.val, vol.weight) if inplace else (vol.val.clone(), vol.weight.clone())
     Hi, Wi = depth.shape
+    if grad:
+        val, weight = _KernelOp.apply(_fuse_copies, fuse_planes_plain_grad,
+                                      dict(axis=axis, Wi=Wi, Hi=Hi), vol.val, vol.weight, gmd,
+                                      gct, params, window)
+        return TsdfVolume(val, weight, vol.bbox)
+    val, weight = (vol.val, vol.weight) if inplace else (vol.val.clone(), vol.weight.clone())
     fuse_planes(val, weight, gmd, gct, params, window, axis, Wi, Hi)
     return TsdfVolume(val, weight, vol.bbox)
 
@@ -482,10 +542,10 @@ def sdf_fuse_color_separable(vol, color_vol, depth, normals, T_cw, K, img, T_iw,
     updates (TSDF and grey, blended over the old weight) only where the
     colour camera sees it with every lerp tap inside its image. The other
     arguments, and ``inplace``, are :func:`sdf_fuse_separable`'s; plain
-    PyTorch on every device."""
-    _refuse_grad("sdf_fuse_color_separable", **{
-        "vol.val": vol.val, "vol.weight": vol.weight, "color_vol.data": color_vol.data,
-        "depth": depth, "normals": normals})
+    PyTorch on every device, built out of place where an input requires
+    grad."""
+    grad = _wants_grad(vol.val, vol.weight, color_vol.data, depth, normals, T_cw, img, T_iw)
+    _check_inplace("sdf_fuse_color_separable", inplace, grad)
     _check_full_f32(vol.val, "sdf_fuse_color_separable")
     axis = _view_axis_index(T_cw) if sweep_axis == "auto" else int(sweep_axis)
     gmd, gct, params, window = fuse_inputs(vol, depth, normals, T_cw, K, trunc_dist, max_w,
@@ -508,9 +568,13 @@ def sdf_fuse_color_separable(vol, color_vol, depth, normals, T_cw, K, img, T_iw,
     G2m = torch.where(ok2[..., None], G2, 0.0).reshape(gh, gw * 2)
     A2, g2 = geom2.A, geom2.g
 
-    val, weight, colour = ((vol.val, vol.weight, color_vol.data) if inplace else
-                           (vol.val.clone(), vol.weight.clone(), color_vol.data.clone()))
+    if grad:
+        val, weight, colour = vol.val, vol.weight, color_vol.data
+    else:
+        val, weight, colour = ((vol.val, vol.weight, color_vol.data) if inplace else
+                               (vol.val.clone(), vol.weight.clone(), color_vol.data.clone()))
     val_p, wgt_p, col_p = val.permute(perm), weight.permute(perm), colour.permute(perm)
+    batches = []  # under grad: assembled after the loop, not written in place
     D, Hv, Wv = val_p.shape
     iv = torch.arange(Wv, dtype=torch.float32, device=dev)
     jv = torch.arange(Hv, dtype=torch.float32, device=dev)
@@ -539,9 +603,15 @@ def sdf_fuse_color_separable(vol, color_vol, depth, normals, T_cw, K, img, T_iw,
         update = update & p2_ok[:, None, None] & in_c & (grey_ok > 0.999)
         new_sd, w_new = _new_sdf(update, sd, w, trunc)
         old_w, old_c = wgt_p[sl], col_p[sl]
-        col_p[sl] = torch.where(update, (w_new * grey + old_c * old_w)
-                                / torch.clamp(w_new + old_w, min=1e-20), old_c)
-        val_p[sl], wgt_p[sl] = _blend(val_p[sl], old_w, new_sd, w_new, max_w_t)
+        c = torch.where(update, (w_new * grey + old_c * old_w)
+                        / torch.clamp(w_new + old_w, min=1e-20), old_c)
+        v, wt = _blend(val_p[sl], old_w, new_sd, w_new, max_w_t)
+        if grad:
+            batches.append((sl, v, wt, c))
+        else:
+            col_p[sl], val_p[sl], wgt_p[sl] = c, v, wt
+    if grad:
+        val, weight, colour = _assemble((val_p, wgt_p, col_p), batches, perm)
     return TsdfVolume(val, weight, vol.bbox), BoundedVolume(colour, color_vol.bbox)
 
 

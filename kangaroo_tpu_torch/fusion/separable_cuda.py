@@ -7,10 +7,11 @@ voxel of the plane window in place on the current stream, reading the
 fuse adds no host round trip. A block takes a tile of a plane (or 32
 planes on the x sweep) with the plane geometry in shared-memory tables
 (``kt_separable_fuse``). The plain version is
-``separable.fuse_planes_plain``. The JAX package's fuse has a gradient
-(its windowed loop's custom_vjp) that nothing on the ported paths uses;
-the kernel has none, so an input that requires grad is refused rather than
-cut from the graph.
+``separable.fuse_planes_plain``. The kernel has no gradient of its own, so
+this wrapper refuses an input that requires grad rather than cut it from
+the graph; ``separable.sdf_fuse_separable`` differentiates the fuse with an
+autograd op whose forward launches this kernel on copies of the volume and
+whose backward is the plain loop's (``separable.fuse_planes_plain_grad``).
 """
 from __future__ import annotations
 

@@ -1,2 +1,4 @@
-"""Multi-device SGM (``kangaroo_tpu/parallel``): a mesh of devices and the
-row- and column-sharded aggregation strategies with their sharded tail."""
+"""Multi-device paths (``kangaroo_tpu/parallel``): a mesh of devices, the
+row- and column-sharded SGM aggregations with their sharded tail, sharded
+stencils, disparity-sharded census WTA and DTAM, the z-sharded volume with
+its fuses and raycasts, sharded ICP, and frame-parallel batches."""

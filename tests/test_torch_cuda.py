@@ -450,8 +450,10 @@ def test_separable_fuse_checks_its_arguments(dev):
     args = (gmd, gct, params, window, 0, 64, 48)
     with pytest.raises(RuntimeError, match="requires grad"):
         separable_cuda.fuse_planes(vol.val.clone().requires_grad_(True), vol.weight, *args)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        separable.sdf_fuse_separable(vol, d.clone().requires_grad_(True), n, T_cw, K, trunc)
+    # the fuse differentiates through its autograd op, but not in place
+    with pytest.raises(ValueError, match="inplace"):
+        separable.sdf_fuse_separable(vol, d.clone().requires_grad_(True), n, T_cw, K, trunc,
+                                     inplace=True)
     with pytest.raises(ValueError, match="contiguous"):
         separable_cuda.fuse_planes(vol.val.transpose(1, 2), vol.weight, *args)
     with pytest.raises(TypeError):

@@ -41,6 +41,7 @@ from kangaroo_tpu_torch.apps import stereo as tst
 from kangaroo_tpu_torch.apps import synthetic as tsyn
 from kangaroo_tpu_torch.ops import integral_image as tii
 from kangaroo_tpu_torch.ops import median_cuda
+from kangaroo_tpu_torch.parallel import mesh as tmesh
 from kangaroo_tpu_torch.stereo import costvolume as tcv
 from kangaroo_tpu_torch.stereo import dispatch, dtam_cuda, lr_cuda, wta_cuda
 
@@ -334,12 +335,23 @@ def test_config_from_dict_carries_every_field():
     assert dataclasses.asdict(tst.StereoConfig()) == dataclasses.asdict(jst.StereoConfig())
 
 
-# coarse_init runs since the stereo apps' slice (tests/test_torch_stereo_apps.py)
-@pytest.mark.parametrize("cfg,mesh,piece", [(tst.StereoConfig(), object(), "mesh")])
+# coarse_init runs since the stereo apps' slice (tests/test_torch_stereo_apps.py), mesh since
+# the multi-device slice (tests/test_torch_kinectfusion_mesh.py)
+@pytest.mark.parametrize("cfg,mesh,piece", [(
+    tst.StereoConfig(max_disp=8, census_window="9x7", dtam_iterations=4, lr_check=False),
+    tmesh.make_mesh(devices=["cpu"] * 2), "mesh")])
 def test_unported_options_raise(cfg, mesh, piece):
-    left = torch.zeros(8, 16, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match=piece):
-        tst.stereo_pipeline(left, left, cfg, mesh=mesh)
+    """No option is refused any more: without DTAM the pipeline ignores
+    ``mesh`` (bit-equal to no mesh), with DTAM it runs the sharded solve,
+    within 1e-4 px of the single-device frame (tests/test_parallel.py)."""
+    left, right, _ = tsyn.stereo_pair(32, 16, 8, seed=1, device="cpu")
+    for use_dtam in (False, True):
+        got = tst.stereo_pipeline(left, right, cfg, use_dtam=use_dtam, mesh=mesh)
+        want = tst.stereo_pipeline(left, right, cfg, use_dtam=use_dtam)
+        same = (torch.isnan(got) & torch.isnan(want)) | ((got - want).abs() <= 1e-4)
+        assert bool(same.all()), (piece, use_dtam)
+        if not use_dtam:
+            assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
 
 
 def test_cpu_path_launches_no_kernel():

@@ -30,10 +30,12 @@ import torch
 import kangaroo_tpu as kt
 from kangaroo_tpu.apps import kinectfusion as jkf
 from kangaroo_tpu.apps import synthetic as jsyn
+from kangaroo_tpu.parallel import mesh as jmesh
 from kangaroo_tpu_torch.apps import kinectfusion as tkf
 from kangaroo_tpu_torch.apps import synthetic as tsyn
 from kangaroo_tpu_torch.containers import Intrinsics
 from kangaroo_tpu_torch.fusion import separable_cuda
+from kangaroo_tpu_torch.parallel import mesh as tmesh
 
 W, H = 64, 48
 POSE_TOL, WEIGHT_TOL, MAX_FLIP_SHARE = 1e-4, 1e-3, 0.01
@@ -173,10 +175,18 @@ def test_config_from_dict_carries_every_field():
 
 @pytest.mark.parametrize("call", ["mesh"])
 def test_unported_entry_points_raise(call):
-    _, cfg = _config()
+    """Every entry point is ported; ``mesh=`` raises the JAX package's
+    ValueError without the one-sweep frame (tests/test_parallel.py), and
+    runs with it (tests/test_torch_kinectfusion_mesh.py)."""
+    jcfg, cfg = _config()
+    mesh = tmesh.make_mesh(devices=["cpu"] * 8)
+    with pytest.raises(ValueError):
+        jkf.KinectFusion(kt.Intrinsics.centered(55.0, W, H), jcfg, mesh=jmesh.make_mesh(8))
     K = Intrinsics.centered(55.0, W, H)
-    with pytest.raises(NotImplementedError):
-        tkf.KinectFusion(K, cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        tkf.KinectFusion(K, cfg, mesh=mesh, device="cpu")
+    assert tkf.KinectFusion(K, dataclasses.replace(cfg, raycast_downsample=True), mesh=mesh,
+                            device="cpu").mesh is mesh
 
 
 def test_raycast_downsample_frame_tracks(orbit):

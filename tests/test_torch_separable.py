@@ -202,11 +202,27 @@ def test_fuse_in_place_updates_the_given_volume():
 
 
 def test_fuse_refuses_inputs_that_require_grad():
-    K, vol, T_wc, gt, norm, W, H = _scene()
+    """Under grad the fuse refuses only ``inplace`` (autograd needs the
+    volume it fused into); otherwise its gradient with respect to the depth
+    is ``jax.grad``'s within 1e-4 of the largest entry (the fuse's reverse
+    mode; tests/test_torch_differentiability.py has the other inputs)."""
+    K, vol, T_wc, gt, norm, W, H = _scene(POSES[1])
     pv = port_vol(vol)
+    T_cw = jse3.inverse(T_wc)
     depth = t(gt).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        tsep.sdf_fuse_separable(pv, depth, t(norm), t(jse3.inverse(T_wc)), port_K(K), TRUNC)
+    with pytest.raises(ValueError, match="inplace"):
+        tsep.sdf_fuse_separable(pv, depth, t(norm), t(T_cw), port_K(K), TRUNC, inplace=True)
+    out = tsep.sdf_fuse_separable(pv, depth, t(norm), t(T_cw), port_K(K), TRUNC)
+    torch.sum(torch.where(out.weight > 0, out.val, 0.0) ** 2).backward()
+
+    def loss(d):
+        o = jsep.sdf_fuse_separable(vol, d, norm, T_cw, K, TRUNC, MAX_W, MINCOS)
+        return jnp.sum(jnp.where(o.weight > 0, o.val, 0.0) ** 2)
+
+    want = np.asarray(jax.jit(jax.grad(loss))(gt))
+    assert float(pv.weight.max()) == 0.0 and np.abs(want).max() > 0
+    np.testing.assert_allclose(depth.grad.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
 
 
 def test_plain_window_and_limit_weight():
