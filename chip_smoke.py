@@ -155,7 +155,9 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    CPU copies (no launch), ``debug_mode`` raising on a NaN made on the
    card, ``device_memory_report`` naming the card, and, after phase 4 (so
    that no profile phase 4 counts launches in follows it), a
-   ``profiling.trace`` of an SGM frame naming the path kernels;
+   ``profiling.trace`` of an SGM frame naming the path kernels and the
+   program's ``roo:`` ranges of the frame, its census volume and its SGM
+   dispatch;
 4. CUDA-event times of each kernel, of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
@@ -1311,7 +1313,8 @@ def debug_profiling_checks(ctx):
 
 def trace_check(ctx):
     """A profiling.trace of one SGM frame: its Chrome trace names the path
-    kernels. Run after phase 4, so that no profile that phase 4 counts
+    kernels and the spans of the frame (entry), its census volume (stage)
+    and its SGM kernel wrapper (dispatch). Run after phase 4, so that no profile that phase 4 counts
     launches in follows this profile."""
     import os
 
@@ -1323,8 +1326,13 @@ def trace_check(ctx):
         stereo_sgm.sgm_pipeline(ctx.left, ctx.right, ctx.sgm_cfg)
     traces = os.listdir(logdir)
     text = (logdir / traces[0]).read_text() if len(traces) == 1 else ""
-    _check(ctx, "sgm_rows_kernel" in text and "sgm_cols_kernel" in text, "profiling.trace",
-           f"{traces}: {len(text)} bytes naming sgm_rows_kernel and sgm_cols_kernel")
+    ranges = [profiling.PREFIX + n for n in ("apps.stereo_sgm.sgm_pipeline",
+                                             "stereo.census.census_cost_volume",
+                                             "stereo.sgm_cuda.semi_global_matching")]
+    _check(ctx, "sgm_rows_kernel" in text and "sgm_cols_kernel" in text
+           and all(f'"{r}"' in text for r in ranges), "profiling.trace",
+           f"{traces}: {len(text)} bytes naming sgm_rows_kernel, sgm_cols_kernel and the "
+           f"ranges {', '.join(ranges)}")
 
 
 def host_side_checks(ctx):
@@ -1429,7 +1437,7 @@ def main() -> int:
     from kangaroo_tpu_torch.stereo import census, costvolume, dense_stereo, dispatch, lr_cuda
     from kangaroo_tpu_torch.stereo import sgm as sgm_plain
     from kangaroo_tpu_torch.stereo import dtam_cuda, sgm_cuda, wta_cuda
-    from kangaroo_tpu_torch.utils import timing
+    from kangaroo_tpu_torch.utils import profiling, timing
     from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1465,21 +1473,7 @@ def main() -> int:
 
     smoke = Smoke(torch, np)
     rng = np.random.default_rng(0)
-    # kernel -> (module, attribute) of its launch count
-    counters = {"sgm": (sgm_cuda, "launches"), "sgm_8path": (sgm_cuda, "diagonal_launches"),
-                "sgm_segment": (sgm_cuda, "segment_launches"),
-                "sgm_diag_segment": (sgm_cuda, "diag_segment_launches"),
-                "wta": (wta_cuda, "launches"), "median": (median_cuda, "launches"),
-                "lr_check": (lr_cuda, "launches"), "rof": (solvers_cuda, "rof_launches"),
-                "tgv": (solvers_cuda, "tgv_launches"), "wta_sq": (wta_cuda, "sq_launches"),
-                "dtam": (dtam_cuda, "launches"), "separable_fuse": (separable_cuda, "launches")}
-
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    reset_counts, read_counts = profiling.reset_counts, profiling.counts
 
     @contextlib.contextmanager
     def lines_design():
@@ -1544,7 +1538,9 @@ def main() -> int:
         """Device time by kernel of ``reps`` runs of ``run()`` (torch.profiler):
         {name: (launches, us)}, and the wall time in us. The stream is
         drained first; a profile that recorded no device activity (a short
-        one now and then does) is taken again, up to three times."""
+        one now and then does) is taken again, up to three times. The
+        program's spans (``roo:`` ranges on the card's timeline) are neither
+        kernels nor device time and are left out."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -1557,7 +1553,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 wall_us = 1e6 * (time.perf_counter() - t0)
             kernels = {e.key: (e.count, e.self_device_time_total)
-                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                       and not e.key.startswith(profiling.PREFIX)}
             if kernels:
                 break
         return kernels, wall_us
@@ -4242,7 +4239,8 @@ def main() -> int:
                 run()
                 torch.cuda.synchronize()
                 wall_us = 1e6 * (time.perf_counter() - t0)
-            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(profiling.PREFIX)]  # not the spans' ranges
             return (sum(e.self_device_time_total for e in ev), sum(e.count for e in ev), wall_us,
                     sorted(((e.self_device_time_total, e.count, e.key) for e in ev),
                            reverse=True))

@@ -42,6 +42,7 @@ from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
 from ..stereo import dtam_cuda
+from ..utils import profiling
 from ..variational import rof
 from .stereo_sgm import _intensity
 
@@ -240,6 +241,7 @@ class VariationalStereo:
     def theta(self):
         return float(self.state[3]) if self.state is not None else None
 
+    @profiling.spanned("entry")
     def process_frame(self, left, right) -> torch.Tensor:
         """Run one frame; returns the postprocessed disparity."""
         its = self.its_per_frame
@@ -262,6 +264,7 @@ def _coarse_disparity(left_p, right_p, cfg: StereoConfig) -> torch.Tensor:
     return 2.0 * resample_mod.resample(d_c, W, H, "bilinear")
 
 
+@profiling.spanned("entry")
 def stereo_pipeline(left, right, cfg: StereoConfig = StereoConfig(), use_dtam: bool = True,
                     mesh=None) -> torch.Tensor:
     """Full frame for the left image of a rectified (H, W) pair:
@@ -303,6 +306,7 @@ class MultiViewStereo:
         self.img_v = None
         self.T_wv = None
 
+    @profiling.spanned("entry")
     def reset(self, img_v: torch.Tensor, T_wv: torch.Tensor, right=None):
         """Anchor a new keyframe: an empty volume, or with ``right`` one seeded
         from the rectified pair, at the patch radius ``add`` uses (the
@@ -316,6 +320,7 @@ class MultiViewStereo:
             self.n, self.s = cv.cost_volume_from_stereo(img_v, right, self.cfg.max_disp, sd=-1,
                                                         rad=self.rad)
 
+    @profiling.spanned("entry")
     def add(self, img_c: torch.Tensor, T_wc: torch.Tensor):
         """Accumulate one posed view: KT_cv = K (T_wc^-1 T_wv). Returns (n, s)."""
         if self.img_v is None:
@@ -327,6 +332,7 @@ class MultiViewStereo:
                                             self.baseline, rad=self.rad)
         return self.n, self.s
 
+    @profiling.spanned("entry")
     def volume(self) -> torch.Tensor:
         """The accumulated volume on the DTAM solver's cost scale: the running
         means over 255, clipped to [0, 1e6] (an empty cell's 1e30 becomes
@@ -334,6 +340,7 @@ class MultiViewStereo:
         (scale,) = f32_scalars(self.n.device, 255.0)
         return torch.clamp(cv.cost_elem_to_float(self.n, self.s) / scale, 0.0, 1e6)
 
+    @profiling.spanned("entry")
     def solve(self, use_dtam: bool = True) -> torch.Tensor:
         """Disparity of the accumulated :meth:`volume`: the cold DTAM solve on
         the keyframe as it is, or WTA + subpixel."""

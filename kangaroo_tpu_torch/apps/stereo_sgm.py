@@ -29,6 +29,7 @@ from ..solvers import plane_fit as pf
 from ..stereo import census as census_mod
 from ..stereo import costvolume as cv
 from ..stereo import dispatch as fast
+from ..utils import profiling
 
 
 def _intensity(img: torch.Tensor) -> torch.Tensor:
@@ -119,6 +120,7 @@ def _volume_dtype(cfg: SgmConfig, bits: int) -> torch.dtype:
     return torch.bfloat16
 
 
+@profiling.spanned("entry")
 def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmConfig(),
                  mesh=None) -> torch.Tensor:
     """Full SGM frame for the left image of a rectified (H, W) pair; returns
@@ -189,6 +191,7 @@ def sgm_pipeline(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig = SgmCo
     return disp_l
 
 
+@profiling.spanned("entry")
 def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
                          cfg: SgmConfig = SgmConfig()) -> torch.Tensor:
     """SGM over a batch of (B, H, W) rectified pairs on one device; returns

@@ -11,6 +11,8 @@ import functools
 
 import torch
 
+from .utils import profiling
+
 # the kernels are built for sm_90a only (_build.NVCC_FLAGS)
 KERNEL_CAPABILITY = (9, 0)
 
@@ -44,8 +46,12 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_launch(rc: int, op: str) -> None:
-    """Raise if a kernel's C entry returned a CUDA error code."""
+def launch(entry, *args, op: str) -> None:
+    """Call a kernel's C entry (a function of ``_build.library()``) with
+    ``args`` inside its ``kernel`` span, named after the entry; raise if it
+    returned a CUDA error code."""
+    with profiling.span(entry.__name__, "kernel"):
+        rc = entry(*args)
     if rc != 0:
         raise RuntimeError(f"{op}: kernel launch failed with cudaError {rc}")
 

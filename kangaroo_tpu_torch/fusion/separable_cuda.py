@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build, backend
+from ..utils import profiling
 from .separable import N_PARAMS, sweep_shape
 
 # fuse kernel launches since the last reset (one per fuse)
@@ -52,13 +53,14 @@ def _fuse(entry: str, val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor
     gh, gw = gmd.shape
     lib = _build.library()
     with torch.cuda.device(val.device):
-        rc = getattr(lib, entry)(val.data_ptr(), weight.data_ptr(), gmd.data_ptr(),
-                                 gct.data_ptr(), params.data_ptr(), window.data_ptr(), D, H, W,
-                                 int(axis), gh, gw, int(Wi), int(Hi), backend.stream_handle(val))
-    backend.check_launch(rc, "separable_fuse")
+        backend.launch(getattr(lib, entry), val.data_ptr(), weight.data_ptr(), gmd.data_ptr(),
+                       gct.data_ptr(), params.data_ptr(), window.data_ptr(), D, H, W, int(axis),
+                       gh, gw, int(Wi), int(Hi), backend.stream_handle(val),
+                       op="separable_fuse")
     return val, weight
 
 
+@profiling.spanned("dispatch")
 def fuse_planes(val: torch.Tensor, weight: torch.Tensor, gmd: torch.Tensor, gct: torch.Tensor,
                 params: torch.Tensor, window: torch.Tensor, axis: int, Wi: int, Hi: int):
     """Fuse in place on the card: val, weight (D, H, W) float32 [z, y, x];

@@ -309,9 +309,8 @@ def median_filter_reject_invalid(img: torch.Tensor, max_bad: int, rad: int = 2) 
     out = torch.empty_like(img)
     lib = _build.library()
     with torch.cuda.device(img.device):
-        rc = lib.kt_median_reject_invalid(img.data_ptr(), out.data_ptr(), N, H, W, int(rad),
-                                          int(max_bad), backend.stream_handle(img))
-        backend.check_launch(rc, "median")
+        backend.launch(lib.kt_median_reject_invalid, img.data_ptr(), out.data_ptr(), N, H, W,
+                       int(rad), int(max_bad), backend.stream_handle(img), op="median")
         launches += 1
     return out
 
@@ -327,8 +326,7 @@ def _median_pixel(img: torch.Tensor, max_bad: int, rad: int = 2) -> torch.Tensor
     H, W = img.shape
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):
-        rc = _build.library().kt_median_reject_invalid_pixel(
-            img.data_ptr(), out.data_ptr(), H, W, int(rad), int(max_bad),
-            backend.stream_handle(img))
-    backend.check_launch(rc, "median")
+        backend.launch(_build.library().kt_median_reject_invalid_pixel, img.data_ptr(),
+                       out.data_ptr(), H, W, int(rad), int(max_bad), backend.stream_handle(img),
+                       op="median")
     return out

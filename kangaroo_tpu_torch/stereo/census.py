@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 # (offsets, capacity_bits): capacity matches sizeof(T)*8, the reference's
 # score normaliser (cu_census.cu:293)
 _WINDOWS = {
@@ -31,6 +33,7 @@ def shift_clamped(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
     return img.index_select(0, ys).index_select(1, xs)
 
 
+@profiling.spanned("stage")
 def census(img: torch.Tensor, window: str = "16x16") -> torch.Tensor:
     """Census-transform a grayscale (H, W) image -> (H, W, K) int64 words
     holding 32 bits each; a bit is set when neighbour < centre."""
@@ -63,6 +66,7 @@ def norm_bits(window: str) -> int:
     return _WINDOWS[window][1]
 
 
+@profiling.spanned("stage")
 def census_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                        sd: int = -1, bits: int | None = None,
                        dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..backend import f32_scalars
 from ..core import invalid as invalid_mod
+from ..utils import profiling
 from . import census as census_mod
 
 _BIG = 1e10
@@ -101,6 +102,7 @@ def cost_vol_minimum_square_penalty_subpix(vol: torch.Tensor, last_disp: torch.T
     return torch.where(interior & sensible, subpix, bf)
 
 
+@profiling.spanned("stage")
 def exponential_edge_weight(img: torch.Tensor, alpha, beta) -> torch.Tensor:
     """g = exp(-alpha |grad I|^beta) with central differences, zero on the
     image border."""
@@ -215,6 +217,7 @@ def _box_zero_padded(img: torch.Tensor, rad: int) -> torch.Tensor:
     return s[:, k:] - s[:, :-k]
 
 
+@profiling.spanned("stage")
 def cost_volume_from_stereo(img_l: torch.Tensor, img_r: torch.Tensor, max_disp: int,
                             sd: int = -1, rad: int = 2):
     """Zero-mean SAD patch volume of a rectified pair as a running-mean
@@ -285,6 +288,7 @@ def _bilinear_finite(flat: torch.Tensor, H: int, W: int, x: torch.Tensor,
     return torch.addcmul(top, bot.sub_(top), fy)
 
 
+@profiling.spanned("stage")
 def cost_volume_add(n: torch.Tensor, s: torch.Tensor, img_v: torch.Tensor, img_c: torch.Tensor,
                     KT_cv: torch.Tensor, K, baseline, rad: int = 1):
     """Accumulate a posed view into the running-mean volume (n, s) of the

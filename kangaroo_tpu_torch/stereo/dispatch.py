@@ -19,21 +19,24 @@ import torch
 from ..backend import f32_scalars
 from ..ops import median as _median
 from ..ops import median_cuda
+from ..utils import profiling
 from . import costvolume as _cv
 from . import lr_cuda, sgm_cuda, wta_cuda
 from . import sgm as _sgm
 
 
 class _KernelOp(torch.autograd.Function):
-    """forward: ``kernel(*inputs, **kwargs)``, a tensor or a tuple of them;
-    backward: the vector-Jacobian product of ``plain(*inputs, **kwargs)``,
-    each output with its own incoming gradient."""
+    """forward: ``kernel(*inputs, **kwargs)``, a tensor or a tuple of them,
+    inside a ``dispatch`` span named after the kernel's wrapper; backward:
+    the vector-Jacobian product of ``plain(*inputs, **kwargs)``, each output
+    with its own incoming gradient."""
 
     @staticmethod
     def forward(ctx, kernel, plain, kwargs, *inputs):
         ctx.plain, ctx.kwargs = plain, kwargs
         ctx.save_for_backward(*inputs)
-        return kernel(*inputs, **kwargs)
+        with profiling.span(kernel, "dispatch"):
+            return kernel(*inputs, **kwargs)
 
     @staticmethod
     def backward(ctx, *grads):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import _build, backend
+from ..utils import profiling
 from . import wta_cuda
 
 # whole-alternation calls since the last reset (a call of 0 iterations
@@ -62,15 +63,16 @@ def _run(entry: str, vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: tor
     planes = q.permute(2, 0, 1).contiguous()  # (2, H, W): q0, q1
     lib = _build.library()
     with torch.cuda.device(vol.device):
-        rc = getattr(lib, entry)(vol.data_ptr(), int(vol.dtype == torch.bfloat16), g.data_ptr(),
-                                 d.data_ptr(), a.data_ptr(), planes.data_ptr(), thetas.ctypes.data,
-                                 D, H, W, int(sd), float(lam), float(sigma_q), float(sigma_d),
-                                 float(huber_alpha), int(iterations), backend.stream_handle(vol))
-    backend.check_launch(rc, "dtam")
-    theta_out = torch.tensor(thetas[-1], dtype=torch.float32, device=vol.device)
+        backend.launch(getattr(lib, entry), vol.data_ptr(), int(vol.dtype == torch.bfloat16),
+                       g.data_ptr(), d.data_ptr(), a.data_ptr(), planes.data_ptr(),
+                       thetas.ctypes.data, D, H, W, int(sd), float(lam), float(sigma_q),
+                       float(sigma_d), float(huber_alpha), int(iterations),
+                       backend.stream_handle(vol), op="dtam")
+    (theta_out,) = backend.f32_scalars(vol.device, thetas[-1])
     return d, a, planes.permute(1, 2, 0).contiguous(), theta_out
 
 
+@profiling.spanned("dispatch")
 def dtam_run(vol: torch.Tensor, g: torch.Tensor, d: torch.Tensor, a: torch.Tensor,
              q: torch.Tensor, theta, n0, lam, sigma_q, sigma_d, huber_alpha, beta,
              iterations: int, sd: int = -1):
@@ -114,5 +116,5 @@ def dtam_step(vol, g, d, a, q, theta, n, lam, sigma_q, sigma_d, huber_alpha, bet
     (d, a, q, theta, n + iterations), theta and n float32 0-dim tensors."""
     d, a, q, theta = dtam_run(vol, g, d, a, q, theta, n, lam, sigma_q, sigma_d, huber_alpha,
                               beta, iterations, sd)
-    n_out = torch.tensor(float(n) + iterations, dtype=torch.float32, device=vol.device)
+    (n_out,) = backend.f32_scalars(vol.device, float(n) + iterations)
     return d, a, q, theta, n_out

@@ -37,11 +37,10 @@ def _launch(disp_l, disp_r, out_l, out_r, sd, max_diff, max_disp):
     global launches
     H, W = disp_l.shape
     with torch.cuda.device(disp_l.device):
-        rc = _build.library().kt_lr_check(
-            disp_l.data_ptr(), disp_r.data_ptr(), out_l.data_ptr(),
-            None if out_r is None else out_r.data_ptr(), H, W, int(sd), float(max_diff),
-            int(max_disp), backend.stream_handle(disp_l))
-        backend.check_launch(rc, "lr_check")
+        backend.launch(_build.library().kt_lr_check, disp_l.data_ptr(), disp_r.data_ptr(),
+                       out_l.data_ptr(), None if out_r is None else out_r.data_ptr(), H, W,
+                       int(sd), float(max_diff), int(max_disp), backend.stream_handle(disp_l),
+                       op="lr_check")
         launches += 1
 
 
@@ -79,8 +78,7 @@ def _check_pixel(disp_l: torch.Tensor, disp_r: torch.Tensor, sd: int = -1,
     k_min, k_max = (-1, max_disp - 1) if sd < 0 else (-max_disp, 1)
     out = torch.empty_like(disp_l)
     with torch.cuda.device(disp_l.device):
-        rc = _build.library().kt_lr_check_pixel(
-            disp_l.data_ptr(), disp_r.data_ptr(), out.data_ptr(), H, W, int(sd),
-            float(max_diff), k_min, k_max, backend.stream_handle(disp_l))
-    backend.check_launch(rc, "lr_check")
+        backend.launch(_build.library().kt_lr_check_pixel, disp_l.data_ptr(),
+                       disp_r.data_ptr(), out.data_ptr(), H, W, int(sd), float(max_diff), k_min,
+                       k_max, backend.stream_handle(disp_l), op="lr_check")
     return out

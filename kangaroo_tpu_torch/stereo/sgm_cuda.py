@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build, backend
+from ..utils import profiling
 from . import sgm as _plain
 
 # kernel launches since the last reset, one per path direction: the
@@ -94,13 +95,12 @@ def _segment(entry, vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
     cout = carry_out or (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(vol.device):
-        rc = getattr(_build.library(), entry)(
-            vol.data_ptr(), int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
-            img.data_ptr(), img.stride(0), out.data_ptr(), ptr(acc), out.stride(0),
-            out.stride(1), D, S, N, step[0], step[1], int(sd), int(xoff), int(width),
-            int(seam), float(P1), float(P2), *map(ptr, cin), *map(ptr, cout),
-            backend.stream_handle(vol))
-    backend.check_launch(rc, op)
+        backend.launch(getattr(_build.library(), entry), vol.data_ptr(),
+                       int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
+                       img.data_ptr(), img.stride(0), out.data_ptr(), ptr(acc), out.stride(0),
+                       out.stride(1), D, S, N, step[0], step[1], int(sd), int(xoff), int(width),
+                       int(seam), float(P1), float(P2), *map(ptr, cin), *map(ptr, cout),
+                       backend.stream_handle(vol), op=op)
 
 
 def _launch(vol, img, out, acc, step, sd, xoff, width, seam, P1, P2, op,
@@ -132,12 +132,11 @@ def _path(vol, img, out, step, sd, P1, P2, accumulate, op) -> None:
     global launches, diagonal_launches
     D, S, N = vol.shape
     with torch.cuda.device(vol.device):
-        rc = _build.library().kt_sgm_path(
-            vol.data_ptr(), int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
-            img.data_ptr(), img.stride(0), out.data_ptr(), out.stride(0), out.stride(1), D, S, N,
-            step[0], step[1], int(sd), float(P1), float(P2), int(bool(accumulate)),
-            backend.stream_handle(vol))
-    backend.check_launch(rc, op)
+        backend.launch(_build.library().kt_sgm_path, vol.data_ptr(),
+                       int(vol.dtype == torch.bfloat16), vol.stride(0), vol.stride(1),
+                       img.data_ptr(), img.stride(0), out.data_ptr(), out.stride(0),
+                       out.stride(1), D, S, N, step[0], step[1], int(sd), float(P1), float(P2),
+                       int(bool(accumulate)), backend.stream_handle(vol), op=op)
     if step[0] and step[1]:
         diagonal_launches += 1
     else:
@@ -200,6 +199,7 @@ def semi_global_matching(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
     return out
 
 
+@profiling.spanned("dispatch")
 def sgm_aggregate_scan(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01, P2: float = 0.02,
                        do_reverse: bool = True, mask_mode: str = "left", scan_is_x: bool = False,
                        width: int | None = None, acc: torch.Tensor | None = None,
@@ -232,6 +232,7 @@ def sgm_aggregate_scan(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01, P
     return out
 
 
+@profiling.spanned("dispatch")
 def sgm_aggregate_block(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
                         P2: float = 0.02, mask_mode: str = "left", width: int | None = None,
                         seed: bool = True, carry_prev=None, carry_best=None, last_img=None,
@@ -262,6 +263,7 @@ def sgm_aggregate_block(vol: torch.Tensor, img: torch.Tensor, P1: float = 0.01,
     return out, cout[0], cout[1], img[0 if reverse else -1]
 
 
+@profiling.spanned("dispatch")
 def sgm_aggregate_diag_block(vol: torch.Tensor, img: torch.Tensor, carry_prev, carry_best,
                              carry_has, last_img, P1: float = 0.01, P2: float = 0.02,
                              mask_mode: str = "left", dx: int = 1, width: int | None = None,

@@ -29,9 +29,8 @@ def cost_vol_minimum_subpix(vol: torch.Tensor, sd: int = -1) -> torch.Tensor:
     out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
     lib = _build.library()
     with torch.cuda.device(vol.device):
-        rc = lib.kt_wta_subpix(vol.data_ptr(), int(vol.dtype == torch.bfloat16),
-                               out.data_ptr(), D, H, W, int(sd), backend.stream_handle(vol))
-        backend.check_launch(rc, "wta")
+        backend.launch(lib.kt_wta_subpix, vol.data_ptr(), int(vol.dtype == torch.bfloat16),
+                       out.data_ptr(), D, H, W, int(sd), backend.stream_handle(vol), op="wta")
         launches += 1
     return out
 
@@ -54,10 +53,9 @@ def _search(entry: str, vol: torch.Tensor, last_disp: torch.Tensor, lam, theta,
     out = torch.empty((H, W), dtype=torch.float32, device=vol.device)
     lib = _build.library()
     with torch.cuda.device(vol.device):
-        rc = getattr(lib, entry)(vol.data_ptr(), int(vol.dtype == torch.bfloat16),
-                                 last_disp.data_ptr(), out.data_ptr(), D, H, W, int(sd),
-                                 float(lam), float(theta), backend.stream_handle(vol))
-    backend.check_launch(rc, "wta_sq")
+        backend.launch(getattr(lib, entry), vol.data_ptr(), int(vol.dtype == torch.bfloat16),
+                       last_disp.data_ptr(), out.data_ptr(), D, H, W, int(sd), float(lam),
+                       float(theta), backend.stream_handle(vol), op="wta_sq")
     return out
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build, backend
+from ..utils import profiling
 
 # solves launched since the last reset (a ROF solve is ceil(iterations /
 # ROF_STEPS) kernel launches, a TGV solve ceil(iterations / TGV_STEPS); a
@@ -49,14 +50,15 @@ def _rof(entry: str, planes: int, g: torch.Tensor, lam, sigma, tau, alpha, itera
     scratch = torch.empty((planes, H, W), dtype=torch.float32, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):
-        rc = getattr(lib, entry)(
-            g.data_ptr(), None if lam_weight is None else lam_weight.data_ptr(), u.data_ptr(),
-            scratch.data_ptr(), H, W, float(lam), float(sigma), float(tau), float(alpha),
-            int(model == "huber"), int(iterations), backend.stream_handle(g))
-    backend.check_launch(rc, "rof")
+        backend.launch(getattr(lib, entry), g.data_ptr(),
+                       None if lam_weight is None else lam_weight.data_ptr(), u.data_ptr(),
+                       scratch.data_ptr(), H, W, float(lam), float(sigma), float(tau),
+                       float(alpha), int(model == "huber"), int(iterations),
+                       backend.stream_handle(g), op="rof")
     return u
 
 
+@profiling.spanned("dispatch")
 def rof_denoise(g: torch.Tensor, lam, sigma=0.5, tau=0.25, alpha=0.002,
                 iterations: int = 100, model: str = "huber",
                 lam_weight: torch.Tensor | None = None) -> torch.Tensor:
@@ -92,13 +94,13 @@ def _tgv(entry: str, planes: int, f: torch.Tensor, alpha0, alpha1, sigma, tau, d
     scratch = torch.empty((planes, H, W), dtype=torch.float32, device=f.device)
     lib = _build.library()
     with torch.cuda.device(f.device):
-        rc = getattr(lib, entry)(
-            f.data_ptr(), u.data_ptr(), scratch.data_ptr(), H, W, float(alpha0), float(alpha1),
-            float(sigma), float(tau), float(delta), int(iterations), backend.stream_handle(f))
-    backend.check_launch(rc, "tgv")
+        backend.launch(getattr(lib, entry), f.data_ptr(), u.data_ptr(), scratch.data_ptr(), H,
+                       W, float(alpha0), float(alpha1), float(sigma), float(tau), float(delta),
+                       int(iterations), backend.stream_handle(f), op="tgv")
     return u
 
 
+@profiling.spanned("dispatch")
 def tgv_denoise(f: torch.Tensor, alpha0=2.0, alpha1=1.0, sigma=0.5, tau=0.25, delta=0.1,
                 iterations: int = 100) -> torch.Tensor:
     """Whole TGV-L1 solve on the card: f (H, W) float32 -> u (H, W) float32.

@@ -33,6 +33,7 @@ from kangaroo_tpu_torch.ops import median as median_plain
 from kangaroo_tpu_torch.ops import median_cuda
 from kangaroo_tpu_torch.stereo import costvolume, dispatch, dtam_cuda, lr_cuda, sgm_cuda, wta_cuda
 from kangaroo_tpu_torch.stereo import sgm as sgm_plain
+from kangaroo_tpu_torch.utils import profiling
 from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
 
 pytestmark = pytest.mark.cuda
@@ -314,6 +315,36 @@ def test_dtam_wrappers_check_their_arguments(dev):
     d, a, qq, theta = dtam_cuda.dtam_run(vol, g, d0, d0, q, 100.0, 1.0, *DTAM_ARGS, 1e-5, 0)
     assert torch.equal(d, d0) and torch.equal(qq, q) and float(theta) == 100.0
     assert (dtam_cuda.launches, wta_cuda.sq_launches) == before
+
+
+def test_dtam_solve_records_its_dispatch_and_kernel_spans(dev, tmp_path):
+    """Under a profiler, ``dtam_run`` is a dispatch span holding the kernel
+    span of its C entry, each with device milliseconds from its events."""
+    vol, g, d0 = _dtam_inputs((32, 48, 64), dev)
+    with profiling.trace(str(tmp_path)):
+        dtam_cuda.dtam_solve(vol, g, d0, 20.0, 100.0, 0.7, 0.7, 0.002, 1e-5, iterations=10)
+    spans = profiling.spans()
+    (wrapper,) = [s for s in spans if s.layer == "dispatch"]
+    (kernel,) = [s for s in spans if s.layer == "kernel"]
+    assert (wrapper.name, kernel.name) == ("stereo.dtam_cuda.dtam_run", "kt_dtam_run")
+    assert kernel.parent == wrapper.id and kernel.request == wrapper.request
+    assert 0 < kernel.device_ms <= wrapper.device_ms
+    assert 0 < kernel.self_ms and kernel.host_ms <= wrapper.host_ms
+
+
+def test_kernel_spans_match_the_launch_counters(dev, tmp_path):
+    """One kernel span per counted launch, each inside a dispatch span."""
+    left, right, _ = synthetic.stereo_pair(96, 32, 16, seed=0, device="cpu")
+    profiling.reset_counts()
+    with profiling.trace(str(tmp_path)):
+        stereo_sgm.sgm_pipeline(left.to(dev), right.to(dev), stereo_sgm.SgmConfig(max_disp=16))
+    spans = profiling.spans()
+    counted = profiling.counts()
+    kernels = [s for s in spans if s.layer == "kernel"]
+    wrappers = {s.id: s for s in spans if s.layer == "dispatch"}
+    assert len(kernels) == sum(counted.values()) == 9
+    assert sum(s.name == "kt_sgm_path" for s in kernels) == counted["sgm"] == 4
+    assert all(s.parent in wrappers and s.device_ms is not None for s in kernels)
 
 
 def test_wta_sq_backward_is_the_plain_gradient(dev):
