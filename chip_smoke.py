@@ -158,7 +158,10 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    ``profiling.trace`` of an SGM frame naming the path kernels and the
    program's ``roo:`` ranges of the frame, its census volume and its SGM
    dispatch;
-4. CUDA-event times of each kernel, of both SGM frames, of one
+4. CUDA-event times of each kernel, of the running-mean view update
+   (``kt_cost_volume_add``, one view at 640x480/128 against its plain
+   version in turns: bit-equal, its counter by name, the device time a
+   launch and the byte bound), of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
    floor; the path kernel again with its data aliased into L2),
@@ -288,6 +291,9 @@ KERNELS = {
     "dtam": ("kangaroo_tpu_torch/csrc/dtam.cu", "kangaroo_tpu/stereo/dtam_pallas.py:71"),
     "separable_fuse": ("kangaroo_tpu_torch/csrc/separable_fuse.cu",
                        "kangaroo_tpu/fusion/separable_pallas.py:39"),
+    # no Pallas kernel: the JAX package leaves cost_volume_add to XLA
+    "cost_volume_add": ("kangaroo_tpu_torch/csrc/cost_volume_add.cu",
+                        "none (XLA: kangaroo_tpu/stereo/costvolume.py cost_volume_add)"),
 }
 # stated tolerances of kernel vs plain on the card (max abs error); the fuse:
 # val 1e-5 and weight 1e-4 where both updated (tests/test_separable.py's own
@@ -295,7 +301,8 @@ KERNELS = {
 # only counted and held to 1e-5 of the volume
 ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "sgm_segment": 1e-4, "sgm_diag_segment": 1e-4,
         "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
-        "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5}
+        "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5,
+        "cost_volume_add": 0.0}
 FUSE_WEIGHT_ATOL, FUSE_MAX_FLIP_SHARE = 1e-4, 1e-5
 # the fuse's gradient, kernel forward against the plain autograd: max abs
 # difference within this share of the gradient's largest entry
@@ -1144,8 +1151,9 @@ DEMO_RUNS = (
     ("stereo dtam", "stereo_demo", ["--mode", "dtam"], _DTAM, _DTAM, _stereo_files("dtam")),
     ("stereo wta", "stereo_demo", ["--mode", "wta"], {"wta"}, {"wta", "median", "lr_check"},
      _stereo_files("wta")),
-    ("stereo multiview", "stereo_demo", ["--mode", "multiview"], {"wta", "wta_sq", "dtam"},
-     _DTAM, _stereo_files("multiview")),
+    ("stereo multiview", "stereo_demo", ["--mode", "multiview"],
+     {"wta", "wta_sq", "dtam", "cost_volume_add"}, _DTAM | {"cost_volume_add"},
+     _stereo_files("multiview")),
     ("denoising", "denoising_demo", [], {"rof", "tgv"}, {"rof", "tgv"},
      ("noisy.png", "denoised_rof.png", "denoised_tgv.png", "blurry.png", "deconvolved.png",
       "corrupted.png", "inpainted.png")),
@@ -3172,11 +3180,14 @@ def main() -> int:
         disp_wta = mvs.solve(use_dtam=False)
         torch.cuda.synchronize()
         now = read_counts()
-        # the DTAM solve: its WTA start, one alternation launch, the search
-        # once an iteration; the WTA solve one more WTA launch
-        check_launched("multiview", now, ("wta", "dtam", "wta_sq"),
-                       {"wta": 2, "dtam": 1, "wta_sq": DTAM_ITERS})
+        # one running-mean update a view; the DTAM solve: its WTA start, one
+        # alternation launch, the search once an iteration; the WTA solve
+        # one more WTA launch
+        check_launched("multiview", now, ("cost_volume_add", "wta", "dtam", "wta_sq"),
+                       {"cost_volume_add": len(mv_track), "wta": 2, "dtam": 1,
+                        "wta_sq": DTAM_ITERS})
         apps["multiview"] = now
+        launches["cost_volume_add"] = now["cost_volume_add"]
         n_max = mvs.n.max().item()
         print(f"  accumulated {len(mv_track)} views onto the seeded keyframe: max n {n_max!r}, "
               f"counted cells {(mvs.n > 0).float().mean().item():.4f}")
@@ -4472,6 +4483,65 @@ def main() -> int:
 
     print(f"phase 4 the stereo apps' entry points at {W}x{H}/{D}:")
     smoke.phase("phase 4 apps", apps_timing_phase)
+
+    def cost_volume_add_timing_phase():
+        """kt_cost_volume_add at VGA/128 (the keyframe cell's size): one view
+        turned 3 degrees and moved 5 cm onto a keyframe seeded from its pair,
+        bit-equal to the plain version, counted once by name; events in
+        turns with the plain version (plain, kernel, kernel, plain), the
+        device time a launch (torch.profiler, 10 launches) and the bound."""
+        Dv = 128
+        kl, kr, _ = synthetic.stereo_pair(W, H, Dv, seed=3, device=dev)
+        K = Intrinsics.centered(MVS_FOCAL * W, W, H)
+        mvs = stereo.MultiViewStereo(K, MVS_BASELINE, stereo.StereoConfig(max_disp=Dv))
+        mvs.reset(kl, se3.identity(device=dev), right=kr)
+        c, s_ = np.cos(np.radians(3.0)), np.sin(np.radians(3.0))
+        T_wc = torch.tensor([[c, 0, s_, 0.05], [0, 1, 0, 0.01], [-s_, 0, c, 0.02]],
+                            dtype=torch.float32, device=dev)
+        args = (mvs.n, mvs.s, kl, torch.roll(kr, 3, 1), K.matrix(device=dev) @ se3.inverse(T_wc),
+                K, MVS_BASELINE, 1)
+        kern = lambda: costvolume.cost_volume_add(*args)  # noqa: E731
+        plain = lambda: costvolume._cost_volume_add_plain(*args)  # noqa: E731
+        reset_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        counted = read_counts()["cost_volume_add"]
+        want = plain()
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        for name, g, w in (("n", got[0], want[0]), ("s", got[1], want[1])):
+            smoke.compare("cost_volume_add", f"VGA/{Dv} one view, {name}", g, w,
+                          ATOL["cost_volume_add"])
+        in_view = float((got[0] - mvs.n).mean())
+        print(f"  bit-equal to the plain version: {same}; counter cost_volume_add {counted} "
+              f"(one call); cells in view {in_view:.4f}")
+        if not same or counted != 1:
+            smoke.failures.append(f"phase 4 cost_volume_add: bit-equal {same}, counted {counted}")
+        p1 = timing.time_fn(plain, warmup=1, runs=3)
+        k1 = timing.time_fn(kern, warmup=3, runs=20)
+        k2 = timing.time_fn(kern, warmup=0, runs=20)
+        p2 = timing.time_fn(plain, warmup=0, runs=3)
+        times["cost_volume_add"] = (min(k1["median_ms"], k2["median_ms"]),
+                                    min(p1["median_ms"], p2["median_ms"]))
+        kernels, _ = device_us(kern, reps=10)
+        named = [(n, us) for k, (n, us) in kernels.items() if "cost_volume_add_kernel" in k]
+        dev_ms = sum(us for _, us in named) / max(1, sum(n for n, _ in named)) / 1e3
+        # n and s read and written once, the two float32 images read once;
+        # 28 + 20 T float32 operations a cell (T = 9 taps), as the
+        # benchmark's cost_volume_add_roofline.rate counts them
+        b, ops = 4 * (4 * Dv * H * W + 2 * H * W), Dv * H * W * (28 + 20 * 9)
+        t_bytes, t_ops = 1e3 * b / HBM_BPS, 1e3 * ops / F32_OPS
+        bound["cost_volume_add"] = (max(t_bytes, t_ops),
+                                    "bytes" if t_bytes >= t_ops else "operations")
+        print(f"  cost_volume_add VGA/{Dv}: kernel {k1['median_ms']:.4f} / {k2['median_ms']:.4f} "
+              f"ms by events, device {dev_ms:.4f} ms a launch ({sum(n for n, _ in named)} "
+              f"launches profiled), plain {p1['median_ms']:.4f} / {p2['median_ms']:.4f} ms; "
+              f"bound {b / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP -> {bound['cost_volume_add'][0]:.4f} "
+              f"ms ({bound['cost_volume_add'][1]}), {100 * bound['cost_volume_add'][0] / dev_ms:.1f} "
+              f"% of it [{card}]")
+
+    print(f"phase 4 the running-mean view update at {W}x{H}/128:")
+    smoke.phase("phase 4 cost_volume_add", cost_volume_add_timing_phase)
 
     def run_stats(name, run, runs=10, profiled=True):
         """Events (median, min, max of ``runs``); with ``profiled`` also the

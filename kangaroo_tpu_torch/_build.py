@@ -97,6 +97,11 @@ SIGNATURES = {
     # voxel-per-thread design it is held against
     "kt_separable_fuse": _FUSE,
     "kt_separable_fuse_voxel": _FUSE,
+    # the running-mean view update (csrc/cost_volume_add.cu): n, s, img_v,
+    # img_c, KT_cv (3, 4) on the card, n_out, s_out, D, H, W, rad, fu, fv,
+    # u0, v0, baseline, tiny, stream
+    "kt_cost_volume_add": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                           _P],
 }
 
 _lock = threading.Lock()

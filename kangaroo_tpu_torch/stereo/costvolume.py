@@ -7,7 +7,8 @@ Volumes are (D, H, W); disparity images are (H, W) float32 with NaN for
 invalid, or int32. ``cost_vol_minimum_subpix``,
 ``cost_vol_minimum_square_penalty_subpix``, ``left_right_check`` and
 ``left_right_check_pair`` are the plain versions of the WTA, auxiliary-search
-and LR-check kernels (``stereo/dispatch.py`` picks between them).
+and LR-check kernels (``stereo/dispatch.py`` picks between them);
+``cost_volume_add`` picks between its plain version and its kernel itself.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..backend import f32_scalars
 from ..core import invalid as invalid_mod
 from ..utils import profiling
 from . import census as census_mod
+from . import costvolume_cuda
 
 _BIG = 1e10
 
@@ -299,9 +301,25 @@ def cost_volume_add(n: torch.Tensor, s: torch.Tensor, img_v: torch.Tensor, img_c
     the zero-mean SAD over the (2rad+1)^2 patch (img_v at integer taps,
     img_c bilinear) divided by the patch area. Returns the new (n, s).
 
-    All disparities at once as (D, H, W) tensor ops; the contributing
-    image's bilinear taps are sampled once and serve both its patch mean
-    and the SAD."""
+    On the CPU the plain version (``_cost_volume_add_plain``); any other
+    tensor takes the kernel (``csrc/cost_volume_add.cu``, one launch a
+    view, the same bits), which raises off an sm_90 card, with the plain
+    version's gradient."""
+    kw = dict(K=K, baseline=baseline, rad=rad)
+    if n.device.type == "cpu":
+        return _cost_volume_add_plain(n, s, img_v, img_c, KT_cv, **kw)
+    from .dispatch import _KernelOp  # dispatch imports this module
+
+    return _KernelOp.apply(costvolume_cuda.cost_volume_add, _cost_volume_add_plain, kw,
+                           n, s, img_v, img_c, KT_cv)
+
+
+def _cost_volume_add_plain(n: torch.Tensor, s: torch.Tensor, img_v: torch.Tensor,
+                           img_c: torch.Tensor, KT_cv: torch.Tensor, K, baseline,
+                           rad: int = 1):
+    """``cost_volume_add`` as (D, H, W) tensor ops, all disparities at once;
+    the contributing image's bilinear taps are sampled once and serve both
+    its patch mean and the SAD. The kernel's yardstick."""
     D, H, W = n.shape
     dev = n.device
     fv_img, fc_img = img_v.to(torch.float32), img_c.to(torch.float32)

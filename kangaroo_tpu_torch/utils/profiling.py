@@ -55,6 +55,7 @@ COUNTERS = {
     "wta_sq": ("stereo.wta_cuda", "sq_launches"),
     "dtam": ("stereo.dtam_cuda", "launches"),
     "separable_fuse": ("fusion.separable_cuda", "launches"),
+    "cost_volume_add": ("stereo.costvolume_cuda", "launches"),
 }
 
 # true while a torch.profiler records (torch's own flag, a C call)

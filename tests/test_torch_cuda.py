@@ -31,7 +31,8 @@ import torch
 from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
 from kangaroo_tpu_torch.ops import median as median_plain
 from kangaroo_tpu_torch.ops import median_cuda
-from kangaroo_tpu_torch.stereo import costvolume, dispatch, dtam_cuda, lr_cuda, sgm_cuda, wta_cuda
+from kangaroo_tpu_torch.stereo import (costvolume, costvolume_cuda, dispatch, dtam_cuda, lr_cuda,
+                                       sgm_cuda, wta_cuda)
 from kangaroo_tpu_torch.stereo import sgm as sgm_plain
 from kangaroo_tpu_torch.utils import profiling
 from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
@@ -1401,3 +1402,236 @@ def test_lr_pair_backward_is_the_plain_gradient(dev):
         grads.append([x.grad for x in xs])
     for g_op, g_plain in zip(*grads):
         torch.testing.assert_close(g_op, g_plain, atol=0, rtol=0)
+
+
+# --- the running-mean view update (csrc/cost_volume_add.cu) against its
+# plain version
+
+def _bits(t):
+    """A float32 tensor's bits, so that -0 differs from +0 and NaN equals
+    itself."""
+    return t.contiguous().view(torch.int32)
+
+
+def _same_bits(got, want):
+    return torch.equal(got, want) and (got.dtype != torch.float32
+                                       or torch.equal(_bits(got), _bits(want)))
+
+
+def _turn(axis, degrees):
+    """The rotation by ``degrees`` about the unit ``axis`` (Rodrigues)."""
+    a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    th = np.radians(degrees)
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def _pose(R=np.eye(3), t=(0.0, 0.0, 0.0)):
+    return np.hstack([R, np.asarray(t, np.float64)[:, None]]).astype(np.float32)
+
+
+def _handheld_poses(views, seed):
+    """T_wc of ``views`` frames of a camera that turns 0.297 degrees and
+    moves 8.1 mm a frame (the mean speeds of the handheld TUM RGB-D fr1/xyz
+    at 30 Hz) about and along directions drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    axis, along = rng.normal(size=(2, 3))
+    along /= np.linalg.norm(along)
+    return [_pose(_turn(axis, 0.297 * k), 0.0081 * k * along) for k in range(1, views + 1)]
+
+
+def _projection(K, T_wc, dev):
+    """MultiViewStereo.add's KT_cv of a view at T_wc onto a keyframe at the
+    identity."""
+    from kangaroo_tpu_torch.core import se3
+
+    return K.matrix(device=dev) @ se3.inverse(torch.from_numpy(T_wc).to(dev))
+
+
+def test_cost_volume_add_kernel_matches_plain_on_a_handheld_track(dev):
+    """VGA/128 seeded from its rectified pair, then 20 handheld uint8 views
+    through ``MultiViewStereo.add`` (the kernel, counted once a view) and
+    through the plain version from its own running state: the same bits
+    after every view, the inputs untouched."""
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    W, H, D = 640, 480, 128
+    left, right, _ = synthetic.stereo_pair(W, H, D, seed=3, device=dev)
+    K = Intrinsics.centered(0.9 * W, W, H)
+    mvs = stereo.MultiViewStereo(K, 0.1, stereo.StereoConfig(max_disp=D))
+    mvs.reset(left, torch.eye(3, 4, device=dev), right=right)
+    n_p, s_p = mvs.n, mvs.s
+    for k, T_wc in enumerate(_handheld_poses(20, seed=5)):
+        img = torch.roll(right, shifts=(k % 3, -k), dims=(0, 1))
+        T = torch.from_numpy(T_wc).to(dev)
+        n, s = mvs.n, mvs.s
+        ins = [t.clone() for t in (n, s, left, img, T)]
+        before = profiling.counts()["cost_volume_add"]
+        mvs.add(img, T)
+        assert profiling.counts()["cost_volume_add"] == before + 1
+        assert all(_same_bits(a, b) for a, b in zip(ins, (n, s, left, img, T)))
+        n_p, s_p = costvolume._cost_volume_add_plain(n_p, s_p, left, img,
+                                                     _projection(K, T_wc, dev), K, 0.1, 1)
+        assert _same_bits(mvs.n, n_p) and _same_bits(mvs.s, s_p), k
+    assert float(mvs.n.max()) == 21.0 and float((mvs.n > 10).float().mean()) > 0.25
+
+
+# a lateral view, a turn that takes most cells off the image, a step 1 m
+# forward that puts the near cells behind the camera, and a half turn that
+# puts every cell behind it
+SMALL_POSES = {"lateral": _pose(t=(0.1, 0.0, 0.0)),
+               "turn": _pose(_turn((0.2, 1.0, 0.1), 25.0), (0.02, 0.0, 0.01)),
+               "forward": _pose(t=(0.0, 0.0, 1.0)),
+               "half_turn": _pose(_turn((0.0, 1.0, 0.0), 180.0))}
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("rad", [0, 1, 2, 3])
+def test_cost_volume_add_kernel_matches_plain_off_the_image_and_behind(dev, rad, dtype):
+    """(24, 37, 61) from a running state, each pose of ``SMALL_POSES``:
+    the same bits as the plain version, the inputs untouched, one launch a
+    call; the half turn adds nothing, the step forward only the far
+    cells."""
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 24, 37, 61
+    rng = np.random.default_rng(40 + rad)
+
+    def image():
+        a = rng.uniform(0, 255, (H, W))
+        return torch.from_numpy(a.astype(np.uint8) if dtype == torch.uint8
+                                else a.astype(np.float32)).to(dev)
+
+    K = Intrinsics.centered(0.9 * W, W, H)
+    n = torch.from_numpy(rng.integers(0, 4, (D, H, W)).astype(np.float32)).to(dev)
+    s = n * torch.from_numpy(rng.uniform(0, 60, (D, H, W)).astype(np.float32)).to(dev)
+    img_v = image()
+    added = {}
+    for name, T_wc in SMALL_POSES.items():
+        img_c, KT = image(), _projection(K, T_wc, dev)
+        ins = [t.clone() for t in (n, s, img_v, img_c, KT)]
+        before = costvolume_cuda.launches
+        got = costvolume.cost_volume_add(n, s, img_v, img_c, KT, K, 0.1, rad)
+        assert costvolume_cuda.launches == before + 1
+        assert all(_same_bits(a, b) for a, b in zip(ins, (n, s, img_v, img_c, KT)))
+        want = costvolume._cost_volume_add_plain(n, s, img_v, img_c, KT, K, 0.1, rad)
+        assert all(_same_bits(g, w) for g, w in zip(got, want)), name
+        added[name] = got[0] - n
+    assert float(added["lateral"].mean()) > 0.2 and float(added["half_turn"].abs().max()) == 0
+    near, far = added["forward"][D // 2:], added["forward"][1:3]
+    assert float(near.abs().max()) == 0 and float(far.mean()) > 0.1
+
+
+def test_cost_volume_add_kernel_matches_plain_where_taps_round_across_an_integer(dev):
+    """A projection onto coordinates within a few units in the last place
+    below 8 and 16, where pu + 1 (pv + 1) can round up to the next integer:
+    those taps gather on their own, the others take the shared window; the
+    same bits as the plain version."""
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 32, 48, 64
+    K = Intrinsics.centered(0.9 * W, W, H)
+    ulp8, ulp16 = 2.0 ** -21, 2.0 ** -20  # the spacing of floats just below 8 and 16
+    KT = torch.tensor([[ulp8, 0, 0, 8 - 3 * ulp8], [0, ulp16, 0, 16 - 3 * ulp16], [0, 0, 0, 1]],
+                      dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(60)
+    img_v, img_c = (torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+                    for _ in range(2))
+    n, s = torch.zeros(D, H, W, device=dev), torch.zeros(D, H, W, device=dev)
+    got = costvolume.cost_volume_add(n, s, img_v, img_c, KT, K, 0.1)
+    want = costvolume._cost_volume_add_plain(n, s, img_v, img_c, KT, K, 0.1)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert float(got[0][1:].min()) == 1.0  # every cell past d = 0 in view
+    # the plain version's pu: P0 * ulp8 + (8 - 3 ulp8), over kz = 1
+    fu, base, tiny = (torch.tensor(v, dtype=torch.float32, device=dev)
+                      for v in (K.fu, 0.1, 1e-9))
+    z = fu * base / torch.maximum(torch.arange(D, dtype=torch.float32, device=dev), tiny)
+    u = torch.arange(W, dtype=torch.float32, device=dev)
+    pu = (z[1:, None] * (u - K.u0) / fu) * KT[0, 0] + KT[0, 3]
+    assert int((torch.floor(pu + 1) != torch.floor(pu) + 1).sum()) > 0
+
+
+def test_cost_volume_add_kernel_matches_plain_past_2_24_pixels(dev):
+    """4100x4100 at rad 1: past 2^24 pixels the plain version's float
+    offsets r + c round to even, and the kernel takes the taps as the plain
+    version gathers them (no shared window): the same bits."""
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 2, 4100, 4100
+    K = Intrinsics.centered(0.9 * W, W, H)
+    rng = np.random.default_rng(61)
+    img_v, img_c = (torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+                    for _ in range(2))
+    n, s = torch.ones(D, H, W, device=dev), torch.zeros(D, H, W, device=dev)
+    KT = _projection(K, SMALL_POSES["lateral"], dev)
+    got = costvolume.cost_volume_add(n, s, img_v, img_c, KT, K, 0.1)
+    want = costvolume._cost_volume_add_plain(n, s, img_v, img_c, KT, K, 0.1)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert float((got[0][1] - n[1]).mean()) > 0.9
+
+
+def test_cost_volume_add_checks_its_arguments(dev):
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 4, 12, 16
+    n, s = torch.zeros(D, H, W, device=dev), torch.zeros(D, H, W, device=dev)
+    img, KT = torch.zeros(H, W, dtype=torch.uint8, device=dev), torch.eye(3, 4, device=dev)
+    K = Intrinsics.centered(14.4, W, H)
+    before = profiling.counts()["cost_volume_add"]
+    bad = [(TypeError, (n.double(), s, img, img, KT), {}),
+           (TypeError, (n, s, img.to(torch.int32), img, KT), {}),
+           (ValueError, (n, s[:, :, 1:].contiguous(), img, img, KT), {}),
+           (ValueError, (n, s, img, img[1:].contiguous(), KT), {}),
+           (ValueError, (torch.zeros(D, W, H, device=dev).transpose(1, 2), s, img, img, KT), {}),
+           (ValueError, (n, s, img, img, KT[:, :3]), {}),
+           (ValueError, (n, s, img, img, KT.cpu()), {}),
+           (ValueError, (n, s, img, img, KT), {"rad": -1})]
+    for err, args, kw in bad:
+        with pytest.raises(err):
+            costvolume.cost_volume_add(*args, K, 0.1, **kw)
+    assert profiling.counts()["cost_volume_add"] == before
+
+
+def test_cost_volume_add_backward_is_the_plain_gradient(dev):
+    """s and KT_cv requiring grad: the kernel's forward, the plain
+    version's gradient, the same bits as the plain version's own."""
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 8, 20, 32
+    rng = np.random.default_rng(50)
+    K = Intrinsics.centered(0.9 * W, W, H)
+    n = torch.ones(D, H, W, device=dev)
+    s = torch.from_numpy(rng.uniform(0, 40, (D, H, W)).astype(np.float32)).to(dev)
+    img_v, img_c = (torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.uint8)).to(dev)
+                    for _ in range(2))
+    KT = _projection(K, SMALL_POSES["lateral"], dev)
+    w = torch.from_numpy(rng.normal(size=(D, H, W)).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (costvolume.cost_volume_add, costvolume._cost_volume_add_plain):
+        xs = [s.clone().requires_grad_(True), KT.clone().requires_grad_(True)]
+        _, s2 = fn(n, xs[0], img_v, img_c, xs[1], K, 0.1, 1)
+        (s2 * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    for g_op, g_plain in zip(*grads):
+        assert g_op is not None and _same_bits(g_op, g_plain)
+    assert float(grads[0][1].abs().max()) > 0
+
+
+def test_cost_volume_add_records_its_stage_dispatch_and_kernel_spans(dev, tmp_path):
+    from kangaroo_tpu_torch.containers import Intrinsics
+
+    D, H, W = 8, 20, 32
+    K = Intrinsics.centered(0.9 * W, W, H)
+    n, s = torch.zeros(D, H, W, device=dev), torch.zeros(D, H, W, device=dev)
+    img = torch.zeros(H, W, dtype=torch.uint8, device=dev)
+    with profiling.trace(str(tmp_path)):
+        costvolume.cost_volume_add(n, s, img, img, _projection(K, SMALL_POSES["lateral"], dev),
+                                   K, 0.1)
+    spans = profiling.spans()
+    (stage,), (wrapper,), (kernel,) = ([x for x in spans if x.layer == layer]
+                                       for layer in ("stage", "dispatch", "kernel"))
+    assert (stage.name, wrapper.name, kernel.name) == ("stereo.costvolume.cost_volume_add",
+                                                       "stereo.costvolume_cuda.cost_volume_add",
+                                                       "kt_cost_volume_add")
+    assert kernel.parent == wrapper.id and wrapper.parent == stage.id
+    assert 0 < kernel.device_ms <= wrapper.device_ms <= stage.device_ms

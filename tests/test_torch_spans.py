@@ -174,7 +174,7 @@ def test_counts_name_every_launch_counter_and_reset_zeros_them():
 
     assert list(profiling.counts()) == [
         "sgm", "sgm_8path", "sgm_segment", "sgm_diag_segment", "wta", "median", "lr_check",
-        "rof", "tgv", "wta_sq", "dtam", "separable_fuse"]
+        "rof", "tgv", "wta_sq", "dtam", "separable_fuse", "cost_volume_add"]
     sgm_cuda.diagonal_launches += 3
     dtam_cuda.launches += 2
     got = profiling.counts()
