@@ -2,7 +2,6 @@
 the comparison's numbers, and the clock of a frame's latency."""
 from __future__ import annotations
 
-import random
 import time
 
 import torch
@@ -10,19 +9,20 @@ import torch
 
 class Sample:
     """Which units of the window keep their answers for the comparison:
-    ``count`` units, ``stride`` apart, from an offset below ``stride``
-    drawn from the seed. A stride prime to the input pool's period makes
-    the kept units cover distinct inputs; ``stride`` times ``count`` over
-    the pool's period spreads them over the window, past the pool's first
-    wrap, up to about the units a window holds."""
+    unit 0 and every ``stride``-th unit after it, ``count`` of them, each
+    kept if the window reaches it. Every run reaches unit 0: a traced run
+    traces it first, and the window always runs it. So every run keeps an
+    answer, however soon its seconds are spent. The seed draws the inputs,
+    not the units. A stride prime to the input pool's period makes the kept
+    units cover distinct inputs; ``stride`` times ``count`` over the pool's
+    period spreads them past the pool's first wrap."""
 
-    def __init__(self, seed: int, stride: int, count: int):
-        self.first = random.Random(seed).randrange(stride)
-        self.stride, self.count = stride, count
+    def __init__(self, stride: int, count: int):
+        self.stride = stride
+        self.last = stride * (count - 1)  # the last unit kept
 
     def keeps(self, unit: int) -> bool:
-        k, r = divmod(unit - self.first, self.stride)
-        return unit >= self.first and r == 0 and k < self.count
+        return unit % self.stride == 0 and unit <= self.last
 
 
 def mismatch_share(a: torch.Tensor, b: torch.Tensor, tol: float) -> torch.Tensor:

@@ -50,7 +50,7 @@ class Driver:
         self.poses_np = [s[3] for s in scenes]
         self.poses = torch.from_numpy(np.stack(self.poses_np)).to(device)
         self.identity = torch.eye(3, 4, dtype=torch.float32, device=device)
-        self.sample = compare.Sample(seed, check["sample_stride"], check["sample_count"])
+        self.sample = compare.Sample(check["sample_stride"], check["sample_count"])
         self.clock = compare.Clock(device)
         self.kept: dict[int, tuple] = {}  # unit -> (volume, disparity)
         self.refs: dict[int, tuple] = {}  # scene -> reference (volume, disparity)

@@ -40,7 +40,7 @@ class Driver:
         pairs = [synthetic.stereo_pair(W, H, D, seed + j)[:2] for j in range(self.pool)]
         self.lefts = torch.from_numpy(np.stack([p[0] for p in pairs])).to(device)
         self.rights = torch.from_numpy(np.stack([p[1] for p in pairs])).to(device)
-        self.sample = compare.Sample(seed, check["sample_stride"], check["sample_count"])
+        self.sample = compare.Sample(check["sample_stride"], check["sample_count"])
         self.clock = compare.Clock(device)
         self.kept: dict[int, torch.Tensor] = {}  # unit -> disparities
         self.refs: dict[int, torch.Tensor] = {}  # first pair -> reference disparities

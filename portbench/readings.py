@@ -26,7 +26,7 @@ def readings(workload: str, seed: int, control: bool, device, root: Path = ROOT)
 
     cell = {w["name"]: w for w in spec.benchmark(root)["workloads"]}[workload]
     drv, _, _, check = spec.build(cell, seed, device, root / "portbench")
-    for unit in range(drv.sample.stride * drv.sample.count):
+    for unit in range(drv.sample.last + 1):
         drv.run_unit(unit)
     drv.free()
     out = {"workload": workload, "seed": seed, "program": drv.check(check["limits"])[0]}

@@ -11,8 +11,8 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# each cell at a size the CPU runs in seconds: the same settings, paths and
-# limits, fewer pixels, disparities, frames and iterations
+# each cell at a size the CPU runs in seconds: the same settings, paths,
+# samples and limits, fewer pixels, disparities, frames and iterations
 TINY = {
     "sgm-kitti": ({"width": 64, "height": 48}, {"max_disp": 16}),
     "mvs-vga": ({"width": 64, "height": 48, "focal": 57.6},
@@ -22,8 +22,6 @@ TINY_TRAFFIC = {
     "batch8": {"batch": 2, "pool": 4, "trace_units": 1},
     "keyframe20": {"views": 4, "pool": 2, "trace_units": 1},
 }
-# the first unit kept, which a window always reaches, however busy the CPU
-TINY_SAMPLE = {"sample_stride": 1, "sample_count": 1}
 
 
 def _edit(path: Path, fn) -> None:
@@ -74,8 +72,6 @@ def tiny_root(tmp_path: Path) -> Path:
     for name, traffic in TINY_TRAFFIC.items():
         _edit(tmp_path / "portbench" / "traffic" / f"{name}.json",
               lambda w, traffic=traffic: w.update(traffic))
-    for path in (tmp_path / "portbench" / "workloads").glob("*.json"):
-        _edit(path, lambda w: w.update(TINY_SAMPLE))
     return tmp_path
 
 

@@ -45,6 +45,33 @@ def test_traced_run_reads_its_ranges_and_gives_a_breakdown(tiny_root, run_cell, 
     assert "sgm_roofline.rate" not in res["metrics"]  # nothing to read, nothing said
 
 
+# cells whose window ends with its trace on these seeds: a sample offset
+# drawn from the seed below the stride (7 and 5) would be 5 and 4, past the
+# trace's 4 and 3 units, and the run would keep nothing to compare
+ENDS_WITH_ITS_TRACE = [("sgm-kitti.batch8", "batch8", 1883583489),
+                       ("mvs-vga.keyframe20", "keyframe20", 2147483605)]
+
+
+@pytest.mark.parametrize("cell,mix,seed", ENDS_WITH_ITS_TRACE)
+def test_a_window_spent_by_its_trace_still_compares_an_answer(tiny_root, run_cell, cell, mix,
+                                                              seed):
+    """A ``--trace 1`` run given 0 seconds, with the cell's own sample and
+    traced units: the window ends with its trace, and the run still
+    compares the answers it kept, and is correct."""
+    real = json.loads((spec.ROOT / "portbench" / "traffic" / f"{mix}.json").read_text())
+    path = tiny_root / "portbench" / "traffic" / f"{mix}.json"
+    tiny = json.loads(path.read_text())
+    tiny["trace_units"] = real["trace_units"]
+    path.write_text(json.dumps(tiny))
+    rc, res, err = run_cell(tiny_root, cell, seed=seed, seconds=0, trace=1)
+    per_unit = tiny["batch"] if "batch" in tiny else tiny["views"]
+    assert rc == 0 and res["attempted"] == real["trace_units"] * per_unit  # the trace alone
+    compared = int(err.split("compared ")[-1].split(" frames")[0])
+    assert compared > 0 and res["correct"] is True and res["failed"] == 0
+    assert all(c["value"] is not None and c["value"] <= c["limit"]
+               for c in res["checks"].values())
+
+
 def _block(out: torch.Tensor) -> torch.Tensor:
     out = out.clone()
     out[..., 16:24, 24:32] = 1e3

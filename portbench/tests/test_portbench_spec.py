@@ -143,17 +143,60 @@ def test_a_run_without_the_card_prints_no_result(capsys):
     assert rc != 0 and out == "" and "CUDA" in err
 
 
-@pytest.mark.parametrize("cell", ["mvs-vga.keyframe20", "sgm-kitti.batch8"])
+CELL_MIX = {"mvs-vga.keyframe20": "keyframe20", "sgm-kitti.batch8": "batch8"}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_MIX))
 def test_the_kept_units_cover_distinct_inputs_past_the_pool_s_wrap(cell):
-    """Each cell keeps units of distinct inputs, some after the pool has
-    wrapped once, whatever offset the seed draws."""
+    """Each cell keeps unit 0 and every stride-th unit after it: units of
+    distinct inputs, some after the pool has wrapped once."""
     from portbench import compare
 
     check = spec.workload(cell)
-    mix = spec.traffic({"mvs-vga.keyframe20": "keyframe20", "sgm-kitti.batch8": "batch8"}[cell])
+    mix = spec.traffic(CELL_MIX[cell])
     period = mix["pool"] // mix.get("batch", 1)
-    for seed in range(2**31, 2**31 + 40):
-        sample = compare.Sample(seed, check["sample_stride"], check["sample_count"])
-        kept = [u for u in range(200) if sample.keeps(u)]
-        assert len(kept) == check["sample_count"]
-        assert len({u % period for u in kept}) == len(kept) and kept[-1] >= period
+    stride, count = check["sample_stride"], check["sample_count"]
+    sample = compare.Sample(stride, count)
+    kept = [u for u in range(200) if sample.keeps(u)]
+    assert kept == [k * stride for k in range(count)] and sample.last == kept[-1]
+    assert len({u % period for u in kept}) == len(kept) and kept[-1] >= period
+
+
+def _cheap_inputs(monkeypatch):
+    """Stand-ins of the generators, of the right shapes and types: the
+    sample does not depend on what the inputs hold."""
+    import numpy as np
+
+    from portbench.data import synthetic
+
+    def pair(w, h, d, seed):
+        return np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint8), np.zeros((h, w), np.float32)
+
+    def track(w, h, d, K, baseline, views, seed, device):
+        img = torch.zeros(h, w, dtype=torch.uint8, device=device)
+        return img, img, img.expand(views, h, w), synthetic.track_poses(views, seed)
+
+    monkeypatch.setattr(synthetic, "stereo_pair", pair)
+    monkeypatch.setattr(synthetic, "handheld_track", track)
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_MIX))
+def test_every_run_keeps_an_answer_whatever_the_seed(tiny_root, monkeypatch, cell):
+    """Over 1,000 seeds, the first unit that the cell's driver keeps, with
+    the cell's own sample, is one that every run reaches: unit 0, which an
+    untraced window runs however soon its seconds are spent, and which a
+    traced run traces first."""
+    import random
+
+    _cheap_inputs(monkeypatch)
+    cells = {w["name"]: w for w in spec.benchmark(tiny_root)["workloads"]}
+    mix = spec.traffic(CELL_MIX[cell], tiny_root / "portbench")
+    # the units that an untraced run of 0 s and a traced run both reach
+    reached = set(range(1)) & set(range(mix["trace_units"]))
+    check = spec.workload(cell, tiny_root / "portbench")
+    draw = random.Random(5)
+    seeds = [1883583489, 2**31 + 2**30] + [draw.randrange(2**31 + 2**30) for _ in range(998)]
+    for seed in seeds:
+        drv, *_ = spec.build(cells[cell], seed, torch.device("cpu"), tiny_root / "portbench")
+        kept = [u for u in range(drv.sample.last + 1) if drv.sample.keeps(u)]
+        assert kept[0] in reached and len(kept) == check["sample_count"], seed
