@@ -152,16 +152,20 @@ builds the kernels from ``kangaroo_tpu_torch/csrc`` on first use. Phases:
    ``kangaroo_tpu_torch/examples`` at its defaults in this process (the
    kernels of its path launched and no other, the JAX demo's files
    written), the ``roo`` names' representative calls on the card against
-   CPU copies (no launch), ``debug_mode`` raising on a NaN made on the
-   card, ``device_memory_report`` naming the card, and, after phase 4 (so
-   that no profile phase 4 counts launches in follows it), a
-   ``profiling.trace`` of an SGM frame naming the path kernels and the
-   program's ``roo:`` ranges of the frame, its census volume and its SGM
-   dispatch;
+   CPU copies (no launch but the census kernels'), ``debug_mode`` raising
+   on a NaN made on the card, ``device_memory_report`` naming the card,
+   and, after phase 4 (so that no profile phase 4 counts launches in
+   follows it), a ``profiling.trace`` of two SGM frames naming the path
+   kernels and the program's ``roo:`` ranges of the frame, its census
+   volume and its SGM dispatch;
 4. CUDA-event times of each kernel, of the running-mean view update
    (``kt_cost_volume_add``, one view at 640x480/128 against its plain
    version in turns: bit-equal, its counter by name, the device time a
-   launch and the byte bound), of both SGM frames, of one
+   launch and the byte bound), of the census transform and its Hamming
+   volume (``kt_census``, ``kt_census_volume``) on a batch of 8 KITTI pairs
+   at 128 disparities against their plain versions in turns (bit-equal,
+   one launch a side and one volume by the counters, device times and the
+   byte bounds), of both SGM frames, of one
    horizontal, vertical and diagonal direction through the path kernel
    and through the warp-per-line design in turns (and the chained byte
    floor; the path kernel again with its data aliased into L2),
@@ -294,6 +298,11 @@ KERNELS = {
     # no Pallas kernel: the JAX package leaves cost_volume_add to XLA
     "cost_volume_add": ("kangaroo_tpu_torch/csrc/cost_volume_add.cu",
                         "none (XLA: kangaroo_tpu/stereo/costvolume.py cost_volume_add)"),
+    # no Pallas kernels: the JAX package runs census and its volume as XLA
+    "census": ("kangaroo_tpu_torch/csrc/census.cu",
+               "none (XLA: kangaroo_tpu/stereo/census.py census)"),
+    "census_volume": ("kangaroo_tpu_torch/csrc/census.cu",
+                      "none (XLA: kangaroo_tpu/stereo/census.py census_cost_volume)"),
 }
 # stated tolerances of kernel vs plain on the card (max abs error); the fuse:
 # val 1e-5 and weight 1e-4 where both updated (tests/test_separable.py's own
@@ -302,7 +311,7 @@ KERNELS = {
 ATOL = {"sgm": 1e-4, "sgm_8path": 1e-4, "sgm_segment": 1e-4, "sgm_diag_segment": 1e-4,
         "wta": 1e-5, "median": 0.0, "lr_check": 0.0,
         "rof": 1e-4, "tgv": 1e-4, "wta_sq": 1e-5, "dtam": 1e-4, "separable_fuse": 1e-5,
-        "cost_volume_add": 0.0}
+        "cost_volume_add": 0.0, "census": 0.0, "census_volume": 0.0}
 FUSE_WEIGHT_ATOL, FUSE_MAX_FLIP_SHARE = 1e-4, 1e-5
 # the fuse's gradient, kernel forward against the plain autograd: max abs
 # difference within this share of the gradient's largest entry
@@ -517,16 +526,18 @@ def card_line() -> str:
 # counters and the timing helpers.
 
 
-def _no_launches(ctx, name, fn):
+def _no_launches(ctx, name, fn, want=None):
     """Run ``fn()`` with the launch counts set to 0 just before and read just
-    after: these paths launch no kernel, and the smoke says so."""
+    after: these paths launch no kernel (none but ``want``'s, as many times
+    as it says), and the smoke says so."""
+    want = want or {}
     ctx.reset_counts()
     out = fn()
     ctx.sync()
     launched = {k: v for k, v in ctx.read_counts().items() if v}
-    print(f"  {'ok  ' if not launched else 'FAIL'} {name}: kernel launches "
+    print(f"  {'ok  ' if launched == want else 'FAIL'} {name}: kernel launches "
           f"{launched or 'none'}")
-    if launched:
+    if launched != want:
         ctx.smoke.failures.append(f"phase 3 {name}: launched {launched}")
     return out
 
@@ -1126,8 +1137,9 @@ def rig_checks(ctx):
 
 # (run, demo module, arguments, kernels it must launch, kernels it may launch,
 # the files the JAX demo writes); "{input}" and "{rig}" are filled in
-_SGM4 = {"sgm", "wta", "median", "lr_check"}
-_DTAM = {"wta", "median", "lr_check", "wta_sq", "dtam"}
+_CENSUS = {"census", "census_volume"}
+_SGM4 = {"sgm", "wta", "median", "lr_check"} | _CENSUS
+_DTAM = {"wta", "median", "lr_check", "wta_sq", "dtam"} | _CENSUS
 _KF_FILES = ("kf_render.png", "kf_depth.png", "kf_mesh.ply", "kf_save.vol")
 
 
@@ -1149,7 +1161,8 @@ DEMO_RUNS = (
      _stereo_files("sgm", ("heightmap_sgm.ply",))),
     ("stereo sgm --rig", "stereo_demo", ["--rig", "{rig}"], _SGM4, _SGM4, _stereo_files("sgm")),
     ("stereo dtam", "stereo_demo", ["--mode", "dtam"], _DTAM, _DTAM, _stereo_files("dtam")),
-    ("stereo wta", "stereo_demo", ["--mode", "wta"], {"wta"}, {"wta", "median", "lr_check"},
+    ("stereo wta", "stereo_demo", ["--mode", "wta"], {"wta"} | _CENSUS,
+     {"wta", "median", "lr_check"} | _CENSUS,
      _stereo_files("wta")),
     ("stereo multiview", "stereo_demo", ["--mode", "multiview"],
      {"wta", "wta_sq", "dtam", "cost_volume_add"}, _DTAM | {"cost_volume_add"},
@@ -1234,7 +1247,8 @@ def demo_checks(ctx):
 
 def roo_checks(ctx):
     """The reference-namespace shim's representative calls on CUDA tensors
-    against the same calls on CPU copies, with no kernel launched: floats
+    against the same calls on CPU copies, with no kernel launched but the
+    census kernels (``Census`` twice, ``CensusStereoVolume`` once): floats
     within ROO_RTOL relative and ROO_ATOL absolute (SGM within the kernels'
     1e-4), integers exactly, NaN at the same places."""
     from kangaroo_tpu_torch import BoundingBox, TsdfVolume
@@ -1271,7 +1285,8 @@ def roo_checks(ctx):
                 "DenseStereoSubpix": roo.DenseStereoSubpix(a["left"], a["right"], 6),
                 "ConvertImage uint8": roo.ConvertImage(a["img"], "uint8")}
 
-    got = _no_launches(ctx, "roo calls on the card", lambda: calls(ctx.dev))
+    got = _no_launches(ctx, "roo calls on the card", lambda: calls(ctx.dev),
+                       {"census": 2, "census_volume": 1})
     want = calls("cpu")
     bad = []
     for name, g in got.items():
@@ -1320,10 +1335,13 @@ def debug_profiling_checks(ctx):
 
 
 def trace_check(ctx):
-    """A profiling.trace of one SGM frame: its Chrome trace names the path
+    """A profiling.trace of two SGM frames: its Chrome trace names the path
     kernels and the spans of the frame (entry), its census volume (stage)
-    and its SGM kernel wrapper (dispatch). Run after phase 4, so that no profile that phase 4 counts
-    launches in follows this profile."""
+    and its SGM kernel wrapper (dispatch). Two frames, since the profiler
+    drops the first launches of a short profile, and a frame's SGM kernels
+    come among its first few since census runs as kernels. Run after phase
+    4, so that no profile that phase 4 counts launches in follows this
+    profile."""
     import os
 
     from kangaroo_tpu_torch.apps import stereo_sgm
@@ -1331,7 +1349,8 @@ def trace_check(ctx):
 
     logdir = Path(ctx.tmp) / "trace"
     with profiling.trace(str(logdir)):
-        stereo_sgm.sgm_pipeline(ctx.left, ctx.right, ctx.sgm_cfg)
+        for _ in range(2):
+            stereo_sgm.sgm_pipeline(ctx.left, ctx.right, ctx.sgm_cfg)
     traces = os.listdir(logdir)
     text = (logdir / traces[0]).read_text() if len(traces) == 1 else ""
     ranges = [profiling.PREFIX + n for n in ("apps.stereo_sgm.sgm_pipeline",
@@ -2263,11 +2282,16 @@ def main() -> int:
             "8-path": stereo_sgm.SgmConfig(do_diagonal=True)}
     H, W, D = 480, 640, cfgs["4-path"].max_disp
     left, right, gt = synthetic.stereo_pair(W, H, D, seed=0, device=dev)
-    frame_kernels = {"4-path": ("sgm", "wta", "median", "lr_check"),
-                     "8-path": ("sgm", "sgm_8path", "wta", "median", "lr_check")}
-    # launches a frame of a single-device SGM frame: a median of each
-    # image, one LR launch for both directions
-    frame_want = {"median": 2, "lr_check": 1}
+    frame_kernels = {"4-path": ("census", "census_volume", "sgm", "wta", "median", "lr_check"),
+                     "8-path": ("census", "census_volume", "sgm", "sgm_8path", "wta", "median",
+                                "lr_check")}
+    # launches a frame of a single-device SGM frame: the census of each
+    # image and one volume (on the inputs' device, a mesh frame too), a
+    # median of each image, one LR launch for both directions (a mesh frame:
+    # on each shard)
+    census_want = {"census": 2, "census_volume": 1}
+    tail_want = {"median": 2, "lr_check": 1}
+    frame_want = {**census_want, **tail_want}
 
     def check_per_frame(name, frame, prev, now, want):
         for k, n in want.items():
@@ -2275,14 +2299,27 @@ def main() -> int:
                 smoke.failures.append(f"phase 3 {name}: {k} launched {now[k] - prev[k]} times "
                                       f"in frame {frame}, not {n}")
 
+    @contextlib.contextmanager
+    def plain_census():
+        """``census`` and ``census_cost_volume`` as their plain versions for
+        the block, for the frames of plain versions that reach them through
+        the apps."""
+        kernels = census.census, census.census_cost_volume
+        census.census, census.census_cost_volume = (census._census_plain,
+                                                    census._census_cost_volume_plain)
+        try:
+            yield
+        finally:
+            census.census, census.census_cost_volume = kernels
+
     def plain_frame(left, right, cfg):
         """The frame composed of the plain versions, called by name (the
         volume filter, which has no kernel, as the frame calls it)."""
         bits = census.norm_bits(cfg.census_window)
-        vol = census.census_cost_volume(census.census(left, cfg.census_window),
-                                        census.census(right, cfg.census_window),
-                                        cfg.max_disp, -1, bits,
-                                        dtype=stereo_sgm._volume_dtype(cfg, bits))
+        vol = census._census_cost_volume_plain(census._census_plain(left, cfg.census_window),
+                                               census._census_plain(right, cfg.census_window),
+                                               cfg.max_disp, -1, bits,
+                                               dtype=stereo_sgm._volume_dtype(cfg, bits))
         if cfg.bilateral_filter:
             vol = bilateral.bilateral_volume(vol, stereo_sgm._intensity(left), cfg.bilateral_gs,
                                              cfg.bilateral_gr, cfg.bilateral_size,
@@ -2345,9 +2382,10 @@ def main() -> int:
                 "bad1px_frac": float((err > 1.0).mean())}
 
     # the multi-device frames on a virtual mesh of the card, and the batch
-    mesh_kernels = {"4-path": ("sgm", "sgm_segment", "wta", "median", "lr_check"),
-                    "8-path": ("sgm", "sgm_segment", "sgm_diag_segment", "wta", "median",
-                               "lr_check")}
+    mesh_kernels = {"4-path": ("census", "census_volume", "sgm", "sgm_segment", "wta", "median",
+                               "lr_check"),
+                    "8-path": ("census", "census_volume", "sgm", "sgm_segment",
+                               "sgm_diag_segment", "wta", "median", "lr_check")}
     slice_launches = {}
     # every op of the mesh path as its plain version (``plain_mesh_frame``)
     plain_ops = types.SimpleNamespace(
@@ -2366,7 +2404,8 @@ def main() -> int:
         kernel_ops = sharding.fast
         sharding.fast = plain_ops
         try:
-            return stereo_sgm.sgm_pipeline(left, right, cfg, mesh=vmesh)
+            with plain_census():
+                return stereo_sgm.sgm_pipeline(left, right, cfg, mesh=vmesh)
         finally:
             sharding.fast = kernel_ops
 
@@ -2399,7 +2438,7 @@ def main() -> int:
                     smoke.failures.append(f"phase 3 {name} mesh: {k} was not launched in "
                                           f"frame {f}")
             check_per_frame(f"{name} mesh", f, prev, now,
-                            {k: n * MESH_SHARDS for k, n in frame_want.items()})
+                            {**census_want, **{k: n * MESH_SHARDS for k, n in tail_want.items()}})
             prev = now
         slice_launches[name] = prev
         if (tuple(disp.shape) != (H, W) or disp.dtype != torch.float32
@@ -2454,14 +2493,16 @@ def main() -> int:
             smoke.failures.append(f"phase 3 batch: quality {q}")
 
     dcfg = stereo.StereoConfig(max_disp=D, census_window="16x16", dtam_iterations=DTAM_ITERS)
-    dtam_kernels = ("dtam", "wta_sq", "wta", "median", "lr_check")
+    dtam_kernels = ("census", "census_volume", "dtam", "wta_sq", "wta", "median", "lr_check")
 
     def plain_dtam(left, right, cfg, state=None, iterations=None):
         """The DTAM frame composed of the plain versions, called by name:
         the cold solve, or ``iterations`` steps resumed from ``state``."""
         left_p = stereo.preprocess_intensity(left, cfg)
         right_p = stereo.preprocess_intensity(right, cfg)
-        vol = stereo.cost_volume(left_p, right_p, cfg, -1)
+        with plain_census():
+            vol = stereo.cost_volume(left_p, right_p, cfg, -1)
+            vol_r = stereo.cost_volume(left_p, right_p, cfg, 1)
         g = costvolume.exponential_edge_weight(left_p, cfg.g_alpha, cfg.g_beta)
         if state is None:
             d0 = costvolume.cost_vol_minimum_subpix(vol, -1)
@@ -2470,8 +2511,7 @@ def main() -> int:
             iterations = cfg.dtam_iterations
         d = stereo.dtam_iterate_plain(vol, g, *state, cfg.lam, cfg.sigma_q, cfg.sigma_d,
                                       cfg.huber_alpha, cfg.beta, iterations)[0]
-        disp_r = costvolume.cost_vol_minimum_subpix(stereo.cost_volume(left_p, right_p, cfg, 1),
-                                                    1)
+        disp_r = costvolume.cost_vol_minimum_subpix(vol_r, 1)
         d = median_plain.median_filter_reject_invalid(d, cfg.median_max_bad, 2)
         return costvolume.left_right_check(d, disp_r, -1, cfg.max_disp_diff, cfg.max_disp)
 
@@ -2487,13 +2527,15 @@ def main() -> int:
 
     def dtam_launched(name, frame, prev, now, want=None):
         """Every kernel of the DTAM path was launched in this frame; the
-        auxiliary search once per iteration."""
+        auxiliary search once per iteration, the census of both images
+        and a volume for each of them."""
         print(f"  {name} frame {frame}: launches so far { {k: now[k] for k in dtam_kernels} }")
         for k in dtam_kernels:
             if now[k] <= prev[k]:
                 smoke.failures.append(f"phase 3 {name}: {k} was not launched in frame {frame}")
         if want is not None:
-            check_per_frame(name, frame, prev, now, {"wta_sq": want, "median": 1, "lr_check": 1})
+            check_per_frame(name, frame, prev, now, {"wta_sq": want, "median": 1, "lr_check": 1,
+                                                     "census": 4, "census_volume": 2})
 
     def dtam_phase():
         reset_counts()
@@ -2912,9 +2954,10 @@ def main() -> int:
         now = {k: v for k, v in read_counts().items() if v}
         for k, v in now.items():
             multi_device_launches[k] += v
-        want = {"wta": 1, "median": 1, "lr_check": 1}
+        want = {"wta": 1, "median": 1, "lr_check": 1, "census": 4, "census_volume": 2}
         print(f"  {'ok  ' if now == want else 'FAIL'} DTAM mesh frame: kernel launches {now} "
-              f"(the sharded solve is plain; the right WTA, median and LR check kernels)")
+              f"(the sharded solve is plain; the census of both images and both volumes, the "
+              f"right WTA, median and LR check kernels)")
         if now != want:
             smoke.failures.append(f"phase 3 DTAM mesh: launches {now}")
         if tuple(disp.shape) != (H, W) or disp.device != dev:
@@ -2953,14 +2996,15 @@ def main() -> int:
                 smoke.failures.append(f"phase 3 frame_parallel: frame {k} differs")
 
     def census_icp_phase():
-        """sharded_census_wta against the single-device WTA of the census
-        volume (exactly), sharded_icp_point_plane against the single-device
-        system on a KinectFusion frame (1e-4 of each field's largest entry),
-        no kernel launched."""
+        """sharded_census_wta against the single-device WTA of the plain
+        census volume (exactly), sharded_icp_point_plane against the
+        single-device system on a KinectFusion frame (1e-4 of each field's
+        largest entry), no kernel launched but the census of both images on
+        each shard."""
         reset_counts()
         got = sharding.sharded_census_wta(left, right, D, vmesh, "9x7")
-        cl, cr = census.census(left, "9x7"), census.census(right, "9x7")
-        want = costvolume.cost_vol_minimum(census.census_cost_volume(cl, cr, D, -1, 64), D)
+        cl, cr = census._census_plain(left, "9x7"), census._census_plain(right, "9x7")
+        want = costvolume.cost_vol_minimum(census._census_cost_volume_plain(cl, cr, D, -1, 64), D)
         same = got.dtype == torch.int32 and torch.equal(got, want)
         print(f"  {'ok  ' if same else 'FAIL'} sharded_census_wta ({vmesh.size} shards of "
               f"{D // vmesh.size} disparities) equal to the single-device WTA")
@@ -2983,7 +3027,7 @@ def main() -> int:
             if not ok:
                 smoke.failures.append(f"phase 3 sharded ICP {name}: {err} of {scale}")
         launched = {k: v for k, v in read_counts().items() if v}
-        if launched:
+        if launched != {"census": 2 * vmesh.size}:
             smoke.failures.append(f"phase 3 sharded census / ICP: launched {launched}")
 
     print(f"phase 3 KinectFusion(mesh=make_mesh(devices=[{str(dev)!r}] * {MESH_SHARDS})) at 256^3 "
@@ -3147,11 +3191,14 @@ def main() -> int:
         lh, rh = resample.box_half(left_p), resample.box_half(right_p)
         ccfg = dataclasses.replace(cfg, max_disp=max(cfg.max_disp // 2, 8), coarse_init=False,
                                    dtam_iterations=cfg.coarse_iterations)
-        d_c = plain_dtam_solve(stereo.cost_volume(lh, rh, ccfg, -1), lh, ccfg)
+        with plain_census():
+            vols = [stereo.cost_volume(lh, rh, ccfg, -1),
+                    stereo.cost_volume(left_p, right_p, cfg, -1),
+                    stereo.cost_volume(left_p, right_p, cfg, 1)]
+        d_c = plain_dtam_solve(vols[0], lh, ccfg)
         d_init = 2.0 * resample.resample(d_c, W, H, "bilinear")
-        d = plain_dtam_solve(stereo.cost_volume(left_p, right_p, cfg, -1), left_p, cfg, d_init)
-        disp_r = costvolume.cost_vol_minimum_subpix(stereo.cost_volume(left_p, right_p, cfg, 1),
-                                                    1)
+        d = plain_dtam_solve(vols[1], left_p, cfg, d_init)
+        disp_r = costvolume.cost_vol_minimum_subpix(vols[2], 1)
         d = median_plain.median_filter_reject_invalid(d, cfg.median_max_bad, 2)
         return costvolume.left_right_check(d, disp_r, -1, cfg.max_disp_diff, cfg.max_disp)
 
@@ -3217,11 +3264,12 @@ def main() -> int:
         torch.cuda.synchronize()
         now = read_counts()
         # two solves (coarse and fine), the coarse one's WTA start and the
-        # right disparity's WTA; the fine solve starts from the coarse one
+        # right disparity's WTA; the fine solve starts from the coarse one;
+        # three volumes (coarse, fine, right), each from its pair's census
         check_launched("DTAM coarse_init", now, dtam_kernels,
                        {"dtam": 2, "wta_sq": coarse_cfg.coarse_iterations + DTAM_ITERS,
                         "wta": 2, "median": 1,
-                        "lr_check": 1})
+                        "lr_check": 1, "census": 6, "census_volume": 3})
         apps["coarse"] = now
         if tuple(disp.shape) != (H, W) or disp.dtype != torch.float32:
             smoke.failures.append(f"phase 3 coarse: output {tuple(disp.shape)} {disp.dtype}")
@@ -4543,6 +4591,78 @@ def main() -> int:
     print(f"phase 4 the running-mean view update at {W}x{H}/128:")
     smoke.phase("phase 4 cost_volume_add", cost_volume_add_timing_phase)
 
+    def census_timing_phase():
+        """kt_census and kt_census_volume on a batch of 8 KITTI pairs at 128
+        disparities (the SGM cell's shapes): the batched frame's counters
+        (one census launch a side, one volume), each kernel bit-equal to its
+        plain version, events in turns with it (plain, kernel, kernel,
+        plain), the device time a launch (CUDA events around 50 calls back
+        to back: the profiler of this process drops the first launches of a
+        short profile, all 10 of each kernel's in its first call) and the
+        byte bound as the benchmark's census_roofline.rate and
+        census_volume_roofline.rate count it (a call: one side's 8 uint8
+        images read and their 4 words of 4 bytes a pixel written; the two
+        census images read at 16 bytes a pixel and the bfloat16 volume
+        written)."""
+        Wk, Hk, Dk, Bk = 1242, 375, 128, 8
+        pairs = [synthetic.stereo_pair(Wk, Hk, Dk, seed=k, device=dev) for k in range(Bk)]
+        lefts, rights = (torch.stack([p[i] for p in pairs]) for i in (0, 1))
+        reset_counts()
+        stereo_sgm.sgm_pipeline_batched(lefts, rights, stereo_sgm.SgmConfig(max_disp=Dk))
+        torch.cuda.synchronize()
+        counted = {k: read_counts()[k] for k in ("census", "census_volume")}
+        print(f"  sgm_pipeline_batched of {Bk} pairs at {Wk}x{Hk}/{Dk}: launches {counted} "
+              "(one census a side, one volume)")
+        if counted != {"census": 2, "census_volume": 1}:
+            smoke.failures.append(f"phase 4 census: the batch launched {counted}")
+        bits = census.norm_bits("16x16")
+        cl, cr = (census.census(x).reshape(Bk * Hk, Wk, -1) for x in (lefts, rights))
+        pixels = Bk * Hk * Wk
+        cases = {
+            "census": (lambda: census.census(lefts), lambda: census._census_plain(lefts),
+                       pixels * (1 + 4 * 4)),
+            "census_volume": (
+                lambda: census.census_cost_volume(cl, cr, Dk, -1, bits, torch.bfloat16),
+                lambda: census._census_cost_volume_plain(cl, cr, Dk, -1, bits, torch.bfloat16),
+                pixels * (2 * 4 * 4 + Dk * 2)),
+        }
+
+        def halves(t):  # words as two exact float halves; a volume as it is
+            return torch.stack([t & 0xFFFF, t >> 16]) if t.dtype == torch.int64 else t
+
+        def back_to_back_ms(run, reps=50):
+            run()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                run()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+
+        for name, (kern, plain, b) in cases.items():
+            got, want = kern(), plain()
+            smoke.compare(name, f"KITTI/{Dk} batch of {Bk}, one side", halves(got), halves(want),
+                          ATOL[name])
+            del got, want
+            p1 = timing.time_fn(plain, warmup=1, runs=3)
+            k1 = timing.time_fn(kern, warmup=3, runs=20)
+            k2 = timing.time_fn(kern, warmup=0, runs=20)
+            p2 = timing.time_fn(plain, warmup=0, runs=3)
+            times[name] = (min(k1["median_ms"], k2["median_ms"]),
+                           min(p1["median_ms"], p2["median_ms"]))
+            dev_ms = back_to_back_ms(kern)
+            bound[name] = (1e3 * b / HBM_BPS, "bytes")
+            print(f"  {name} KITTI/{Dk}, batch of {Bk}: kernel {k1['median_ms']:.4f} / "
+                  f"{k2['median_ms']:.4f} ms by events, {dev_ms:.4f} ms a launch back to back, "
+                  f"plain {p1['median_ms']:.2f} / {p2['median_ms']:.2f} ms; bound {b / 1e6:.1f} MB "
+                  f"-> {bound[name][0]:.4f} ms (bytes), {100 * bound[name][0] / dev_ms:.1f} % of it "
+                  f"[{card}]")
+
+    print("phase 4 the census transform and its Hamming volume at 1242x375/128, a batch of 8:")
+    smoke.phase("phase 4 census", census_timing_phase)
+
     def run_stats(name, run, runs=10, profiled=True):
         """Events (median, min, max of ``runs``); with ``profiled`` also the
         launches and device busy time of one run (torch.profiler), host
@@ -4626,7 +4746,7 @@ def main() -> int:
     smoke.phase("phase 4 output side", output_times, out_ctx)
     print(f"phase 4 the host side at {W}x{H} (256^3 volume):")
     smoke.phase("phase 4 host side", host_side_times, out_ctx)
-    print("phase 3 host side, run last: profiling.trace of an SGM frame")
+    print("phase 3 host side, run last: profiling.trace of two SGM frames")
     smoke.phase("phase 3 profiling.trace", trace_check, out_ctx)
     torch.cuda.synchronize()
     scratch.cleanup()

@@ -102,6 +102,11 @@ SIGNATURES = {
     # u0, v0, baseline, tiny, stream
     "kt_cost_volume_add": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                            _P],
+    # the census transform (csrc/census.cu): img, img_is_u8, out, B, H, W,
+    # window, stream; and its Hamming volume: left, right, vol, vol_is_bf16,
+    # D, rows, W, K, sd, inv_bits, stream
+    "kt_census": [_P, _I, _P, _I, _I, _I, _I, _P],
+    "kt_census_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

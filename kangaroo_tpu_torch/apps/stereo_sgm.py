@@ -197,8 +197,9 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
     """SGM over a batch of (B, H, W) rectified pairs on one device; returns
     (B, H, W) disparity, each frame equal to ``sgm_pipeline``'s.
 
-    The frames stack along the rows: census runs per frame (its window must
-    not read across a seam), the cost volume on the stacked census images
+    The frames stack along the rows: census runs once a side on the stack,
+    each frame clamped at its own borders (its window must not read across a
+    seam), the cost volume on the stacked census images
     (its shifts are along x), one aggregation re-seeds the vertical paths at
     every seam (``seam_period=H``, kernel 7), WTA, re-anchor and LR check
     run stacked (row-local), the median on the stack of frames, each with
@@ -212,8 +213,8 @@ def sgm_pipeline_batched(lefts: torch.Tensor, rights: torch.Tensor,
         return torch.stack([sgm_pipeline(lefts[k], rights[k], cfg) for k in range(B)])
     bits = census_mod.norm_bits(cfg.census_window)
     vol_dtype = _volume_dtype(cfg, bits)
-    cl = torch.cat([census_mod.census(lefts[k], cfg.census_window) for k in range(B)])
-    cr = torch.cat([census_mod.census(rights[k], cfg.census_window) for k in range(B)])
+    cl = census_mod.census(lefts, cfg.census_window).reshape(B * H, W, -1)
+    cr = census_mod.census(rights, cfg.census_window).reshape(B * H, W, -1)
     vol = census_mod.census_cost_volume(cl, cr, cfg.max_disp, -1, bits, dtype=vol_dtype)
     agg_l = fast.semi_global_matching(vol, _intensity(lefts.reshape(B * H, W)), cfg.p1,
                                       cfg.p2, cfg.do_horiz, cfg.do_vert, cfg.do_reverse,

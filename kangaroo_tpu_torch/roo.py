@@ -27,10 +27,14 @@ Pixel-format conversions (`ConvertImage<To, From>`) are the functions in
 As the JAX package's shim, this one binds the plain modules
 (`SemiGlobalMatching` is `stereo.sgm.semi_global_matching`,
 `CostVolMinimumSubpix` and `LeftRightCheck` are `stereo.costvolume`'s), so
-no name here launches a CUDA kernel. The kernels of `csrc/` are reached
-through the app entry points (`apps.stereo_sgm.sgm_pipeline`,
-`apps.stereo`, `apps.kinectfusion`, `variational.rof.denoise`,
-`variational.tgv.denoise`) and `stereo.dispatch`.
+no name here launches a CUDA kernel of its own; `Census`,
+`CensusStereoVolume` and `CostVolumeAdd` are plain modules' functions that
+route a CUDA tensor to their kernels (`csrc/census.cu`,
+`csrc/cost_volume_add.cu`), which compute the plain versions' bits. The
+other kernels of `csrc/` are reached through the app entry points
+(`apps.stereo_sgm.sgm_pipeline`, `apps.stereo`, `apps.kinectfusion`,
+`variational.rof.denoise`, `variational.tgv.denoise`) and
+`stereo.dispatch`.
 """
 
 from __future__ import annotations

@@ -7,14 +7,19 @@ for uint32 and no popcount on the CPU, so the words hold values below 2**32
 in int64 and the popcount is a SWAR sequence. The words compare exactly
 with ``kangaroo_tpu``'s uint32 words cast to int64.
 
-These are plain PyTorch on every device; the JAX package runs them as XLA
-outside any Pallas kernel.
+``census`` and ``census_cost_volume`` on a CUDA tensor run the kernels of
+``csrc/census.cu`` (``census_cuda``), bit-equal to the plain versions
+``_census_plain`` and ``_census_cost_volume_plain``, which the CPU runs;
+arguments the kernels do not take raise there. The JAX package runs
+them as XLA outside any Pallas kernel. ``census_stereo`` is plain PyTorch
+on every device.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils import profiling
+from . import census_cuda
 
 # (offsets, capacity_bits): capacity matches sizeof(T)*8, the reference's
 # score normaliser (cu_census.cu:293)
@@ -26,17 +31,27 @@ _WINDOWS = {
 
 
 def shift_clamped(img: torch.Tensor, r: int, c: int) -> torch.Tensor:
-    """img sampled at (y+r, x+c) with clamped borders."""
-    H, W = img.shape
+    """img sampled at (y+r, x+c) with clamped borders; over the last two
+    axes, so each frame of a (..., H, W) stack is clamped at its own."""
+    H, W = img.shape[-2:]
     ys = (torch.arange(H, device=img.device) + r).clamp_(0, H - 1)
     xs = (torch.arange(W, device=img.device) + c).clamp_(0, W - 1)
-    return img.index_select(0, ys).index_select(1, xs)
+    return img.index_select(-2, ys).index_select(-1, xs)
 
 
 @profiling.spanned("stage")
 def census(img: torch.Tensor, window: str = "16x16") -> torch.Tensor:
-    """Census-transform a grayscale (H, W) image -> (H, W, K) int64 words
-    holding 32 bits each; a bit is set when neighbour < centre."""
+    """Census-transform a grayscale (H, W) image, or each frame of a
+    (B, H, W) stack at its own borders -> (..., H, W, K) int64 words holding
+    32 bits each; a bit is set when neighbour < centre. A CUDA image takes
+    the kernel, one launch for the whole stack (uint8 or float32)."""
+    if img.device.type != "cpu":
+        return census_cuda.census(img.contiguous(), window)
+    return _census_plain(img, window)
+
+
+def _census_plain(img: torch.Tensor, window: str = "16x16") -> torch.Tensor:
+    """``census`` as one pass a window offset; the kernel's yardstick."""
     offsets, _ = _WINDOWS[window]
     n_words = -(-len(offsets) // 32)
     words = [torch.zeros(img.shape, dtype=torch.int64, device=img.device)
@@ -73,7 +88,20 @@ def census_cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     """vol[d, y, x] = Hamming(left[y, x], right[y, x + sd*d]) / bits, 0.5 where
     x + sd*d is outside the image. ``left``/``right`` are (H, W, K) census
     images. With a power-of-two ``bits`` every cost k/bits is exact in
-    bfloat16, so ``dtype=torch.bfloat16`` halves the volume losslessly."""
+    bfloat16, so ``dtype=torch.bfloat16`` halves the volume losslessly.
+    CUDA images take the kernel, one launch (up to ``census_cuda.MAX_WORDS``
+    words, a bfloat16 or float32 volume, sd = -1 or +1)."""
+    if left.device.type != "cpu":
+        return census_cuda.census_cost_volume(left.contiguous(), right.contiguous(), max_disp,
+                                              sd, bits, dtype)
+    return _census_cost_volume_plain(left, right, max_disp, sd, bits, dtype)
+
+
+def _census_cost_volume_plain(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                              sd: int = -1, bits: int | None = None,
+                              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``census_cost_volume`` as one pass a disparity; the kernel's
+    yardstick."""
     H, W, K = left.shape
     inv_bits = 1.0 / (bits if bits is not None else K * 32)
     sd = int(sd)

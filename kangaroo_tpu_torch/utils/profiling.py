@@ -56,6 +56,8 @@ COUNTERS = {
     "dtam": ("stereo.dtam_cuda", "launches"),
     "separable_fuse": ("fusion.separable_cuda", "launches"),
     "cost_volume_add": ("stereo.costvolume_cuda", "launches"),
+    "census": ("stereo.census_cuda", "launches"),
+    "census_volume": ("stereo.census_cuda", "volume_launches"),
 }
 
 # true while a torch.profiler records (torch's own flag, a C call)

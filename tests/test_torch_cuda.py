@@ -23,6 +23,9 @@ tiles and the fuse on plane tiles the designs they replaced
 ``kt_median_reject_invalid_pixel`` (another exact sorting network selects
 the same value; +0 and -0 count as equal), and the LR check on rows, one
 way and as the pair of both directions, ``kt_lr_check_pixel`` exactly.
+The census transform and its Hamming volume (``csrc/census.cu``) equal
+their plain versions bit for bit: integer words, and integer counts scaled
+by a power of two.
 """
 import numpy as np
 import pytest
@@ -31,8 +34,8 @@ import torch
 from kangaroo_tpu_torch.apps import stereo, stereo_sgm, synthetic
 from kangaroo_tpu_torch.ops import median as median_plain
 from kangaroo_tpu_torch.ops import median_cuda
-from kangaroo_tpu_torch.stereo import (costvolume, costvolume_cuda, dispatch, dtam_cuda, lr_cuda,
-                                       sgm_cuda, wta_cuda)
+from kangaroo_tpu_torch.stereo import (census, costvolume, costvolume_cuda, dispatch, dtam_cuda,
+                                       lr_cuda, sgm_cuda, wta_cuda)
 from kangaroo_tpu_torch.stereo import sgm as sgm_plain
 from kangaroo_tpu_torch.utils import profiling
 from kangaroo_tpu_torch.variational import deconvolution, rof, solvers_cuda, tgv
@@ -343,7 +346,7 @@ def test_kernel_spans_match_the_launch_counters(dev, tmp_path):
     counted = profiling.counts()
     kernels = [s for s in spans if s.layer == "kernel"]
     wrappers = {s.id: s for s in spans if s.layer == "dispatch"}
-    assert len(kernels) == sum(counted.values()) == 9
+    assert len(kernels) == sum(counted.values()) == 12
     assert sum(s.name == "kt_sgm_path" for s in kernels) == counted["sgm"] == 4
     assert all(s.parent in wrappers and s.device_ms is not None for s in kernels)
 
@@ -1635,3 +1638,110 @@ def test_cost_volume_add_records_its_stage_dispatch_and_kernel_spans(dev, tmp_pa
                                                        "kt_cost_volume_add")
     assert kernel.parent == wrapper.id and wrapper.parent == stage.id
     assert 0 < kernel.device_ms <= wrapper.device_ms <= stage.device_ms
+
+
+# --- the census transform and its Hamming volume (csrc/census.cu) against
+# their plain versions, bit for bit
+
+CENSUS_WINDOWS = ["9x7", "11x11", "16x16"]
+# (H, W): single pixels, rows and columns shorter than every window, and a
+# KITTI frame
+CENSUS_SHAPES = [(1, 1), (1, 7), (7, 1), (2, 3), (3, 40), (375, 1242)]
+
+
+def _census_images(shape, dtype, dev, seed=0):
+    """Few grey levels (equal neighbours set no bit), each frame of a stack
+    bright in its first row and dark in its last (a window that read across
+    a seam would see it); float32 images hold NaNs too."""
+    rng = np.random.default_rng(seed)
+    img = (rng.integers(0, 6, shape) * 40 + 20).astype(np.float32)
+    img[..., 0, :] = 255
+    img[..., -1, :] = 0
+    if dtype == torch.float32:
+        img[rng.random(shape) < 0.02] = np.nan
+    return torch.from_numpy(img).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("B", [None, 1, 3], ids=["image", "B1", "B3"])
+@pytest.mark.parametrize("shape", CENSUS_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("window", CENSUS_WINDOWS)
+def test_census_kernel_matches_plain(dev, window, shape, B, dtype):
+    img = _census_images(shape if B is None else (B,) + shape, dtype, dev)
+    before = profiling.counts()["census"]
+    got = census.census(img, window)
+    assert profiling.counts()["census"] == before + 1  # one launch, the stack too
+    want = census._census_plain(img, window)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+    if B == 3:  # each frame at its own borders
+        assert all(torch.equal(got[k], census._census_plain(img[k], window)) for k in range(B))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("D", [1, 4, "W+3"])
+@pytest.mark.parametrize("shape", CENSUS_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("window", CENSUS_WINDOWS)
+def test_census_volume_kernel_matches_plain(dev, window, shape, D, sd, dtype):
+    D = shape[1] + 3 if D == "W+3" else D
+    left = census.census(_census_images(shape, torch.uint8, dev, 1), window)
+    right = census.census(_census_images(shape, torch.uint8, dev, 2), window)
+    bits = census.norm_bits(window)
+    before = profiling.counts()["census_volume"]
+    got = census.census_cost_volume(left, right, D, sd, bits, dtype)
+    assert profiling.counts()["census_volume"] == before + 1
+    want = census._census_cost_volume_plain(left, right, D, sd, bits, dtype)
+    assert got.dtype == dtype and got.shape == want.shape == (D,) + shape
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("bits", [None, 100])
+def test_census_volume_kernel_matches_plain_on_any_words(dev, K, bits):
+    """Words of every value below 2**32, 1 to 4 a pixel, the default and a
+    scale that is no power of two (its float32 products round)."""
+    rng = np.random.default_rng(K)
+    left, right = (torch.from_numpy(rng.integers(0, 2**32, (9, 70, K), dtype=np.int64)).to(dev)
+                   for _ in range(2))
+    for sd in (-1, 1):
+        got = census.census_cost_volume(left, right, 33, sd, bits)
+        want = census._census_cost_volume_plain(left, right, 33, sd, bits)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_census_kernels_record_their_stage_dispatch_and_kernel_spans(dev, tmp_path):
+    img = _census_images((2, 20, 32), torch.uint8, dev)
+    with profiling.trace(str(tmp_path)):
+        words = census.census(img, "16x16")
+        census.census_cost_volume(words[0], words[1], 8, -1, 256, torch.bfloat16)
+    spans = profiling.spans()
+    stages, wrappers, kernels = ([x for x in spans if x.layer == layer]
+                                 for layer in ("stage", "dispatch", "kernel"))
+    assert [s.name for s in stages] == ["stereo.census.census", "stereo.census.census_cost_volume"]
+    assert [s.name for s in wrappers] == ["stereo.census_cuda.census",
+                                          "stereo.census_cuda.census_cost_volume"]
+    assert [s.name for s in kernels] == ["kt_census", "kt_census_volume"]
+    for stage, wrapper, kernel in zip(stages, wrappers, kernels):
+        assert kernel.parent == wrapper.id and wrapper.parent == stage.id
+        assert 0 < kernel.device_ms <= wrapper.device_ms <= stage.device_ms
+
+
+def test_batched_sgm_matches_its_frames_with_one_census_launch_a_side(dev):
+    """3 KITTI-sized pairs at 128 disparities: the batched frame equals
+    ``sgm_pipeline`` frame by frame, bit for bit, with one census launch for
+    the lefts, one for the rights and one volume launch."""
+    W, H, D = 1242, 375, 128
+    pairs = [synthetic.stereo_pair(W, H, D, seed=k, device=dev)[:2] for k in range(3)]
+    lefts, rights = (torch.stack([p[i] for p in pairs]) for i in (0, 1))
+    cfg = stereo_sgm.SgmConfig(max_disp=D)
+    before = profiling.counts()
+    got = stereo_sgm.sgm_pipeline_batched(lefts, rights, cfg)
+    now = profiling.counts()
+    assert (now["census"] - before["census"], now["census_volume"] - before["census_volume"]) \
+        == (2, 1)
+    for k in range(3):
+        want = stereo_sgm.sgm_pipeline(lefts[k], rights[k], cfg)
+        assert torch.equal(_bits(got[k]), _bits(want)), k
+    assert float(got.isfinite().float().mean()) > 0.8

@@ -3,7 +3,9 @@ the CPU: off without a profiler, nesting and shared request ids under one,
 host stamps on the profiler's clock, the spans of the stereo paths' layers,
 and the launch counters by name. The card's cases (device times of the
 spans, kernel spans against the counters) are in ``test_torch_cuda.py``."""
+import statistics
 import time
+import types
 
 import pytest
 import torch
@@ -85,7 +87,10 @@ def test_nesting_parents_requests_and_self_time():
     assert all(s.device_ms is None for s in got)  # no CUDA: no events
 
 
-def test_spans_share_the_profiler_clock():
+def _clock_offsets() -> list[int]:
+    """The 16 host stamps of 8 spans (4 entries, each around a stage of 1 ms
+    of host work) against their ranges' own stamps on the profiler's clock:
+    the absolute differences in ns."""
     with _profile() as prof:
         with profiling.span("warm-up", "entry"):
             pass
@@ -98,9 +103,31 @@ def test_spans_share_the_profiler_clock():
               if ev.name().startswith(profiling.PREFIX)}
     spans = [s for s in profiling.spans() if s.name != "warm-up"]
     assert len(spans) == 8
+    offsets = []
     for s in spans:
         start, end = ranges[profiling.PREFIX + s.name]
-        assert abs(s.start_ns - start) < 50_000 and abs(s.end_ns - end) < 50_000, s
+        offsets += [abs(s.start_ns - start), abs(s.end_ns - end)]
+    return offsets
+
+
+def _share_the_clock(offsets) -> bool:
+    """Each stamp lies a return path from its range's: the median offset
+    under 50 us and each under 500 us. A process descheduled between a
+    range and its stamp, among several test processes, moves one offset,
+    not the median."""
+    return statistics.median(offsets) < 50_000 and max(offsets) < 500_000
+
+
+def test_spans_share_the_profiler_clock():
+    offsets = _clock_offsets()
+    assert _share_the_clock(offsets), offsets
+
+
+def test_a_spans_clock_1_ms_off_the_profilers_fails_the_check(monkeypatch):
+    monkeypatch.setattr(profiling, "time",
+                        types.SimpleNamespace(time_ns=lambda: time.time_ns() + 1_000_000))
+    offsets = _clock_offsets()
+    assert not _share_the_clock(offsets), offsets
 
 
 def test_launch_opens_a_kernel_span_and_checks_the_code():
@@ -174,7 +201,8 @@ def test_counts_name_every_launch_counter_and_reset_zeros_them():
 
     assert list(profiling.counts()) == [
         "sgm", "sgm_8path", "sgm_segment", "sgm_diag_segment", "wta", "median", "lr_check",
-        "rof", "tgv", "wta_sq", "dtam", "separable_fuse", "cost_volume_add"]
+        "rof", "tgv", "wta_sq", "dtam", "separable_fuse", "cost_volume_add", "census",
+        "census_volume"]
     sgm_cuda.diagonal_launches += 3
     dtam_cuda.launches += 2
     got = profiling.counts()
