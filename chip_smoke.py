@@ -4663,6 +4663,40 @@ def main() -> int:
     print("phase 4 the census transform and its Hamming volume at 1242x375/128, a batch of 8:")
     smoke.phase("phase 4 census", census_timing_phase)
 
+    def sgm_horizontal_timing_phase():
+        """The horizontal kernel (sgm_cols_kernel) alone: both horizontal
+        directions added onto a float32 aggregate, on the SGM cell's stack
+        of 8 KITTI frames at 128 disparities (3000 x 1242 x 128 bf16) and on
+        one KITTI frame (375 rows), by CUDA events (median of 20 pairs) and
+        device time (torch.profiler, 20 pairs back to back; it may drop a
+        short profile's first launches, so the launches it saw are printed
+        beside the time a launch), beside the pair's byte floor (each launch
+        reads the volume and the aggregate and writes the aggregate)."""
+        gen = torch.Generator(dev).manual_seed(26)
+        for what, S in (("KITTI/128 batch of 8", 8 * 375), ("KITTI/128 frame", 375)):
+            vol = torch.rand((128, S, 1242), generator=gen, device=dev).to(torch.bfloat16)
+            img = torch.rand((S, 1242), generator=gen, device=dev)
+            acc = torch.rand((128, S, 1242), generator=gen, device=dev)
+
+            def pair():
+                for step in ((1, 0), (-1, 0)):
+                    sgm_cuda.aggregate_direction(vol, img, step, acc=acc)
+
+            ev = timing.time_fn(pair, warmup=3, runs=20)
+            us, n, _ = per_launch(pair, "sgm_cols_kernel", reps=20)
+            floor = 2 * (vol.numel() * vol.element_size() + 2 * acc.numel() * acc.element_size())
+            floor_ms = 1e3 * floor / HBM_BPS
+            device = (f"device {2 * us / 1e3:.4f} ms a pair ({100 * floor_ms / (2 * us / 1e3):.1f} % "
+                      f"of the floor)" if n else "device not seen")
+            print(f"  horizontal pair, {what} {tuple(vol.shape)} bf16: {ev['median_ms']:.4f} ms "
+                  f"by events (min {ev['min_ms']:.4f}, max {ev['max_ms']:.4f}), {device}, "
+                  f"{n} launches of sgm_cols_kernel seen in 20 pairs; byte floor "
+                  f"{floor / 1e9:.3f} GB -> {floor_ms:.4f} ms [{card}]")
+            del vol, img, acc
+
+    print("phase 4 the SGM horizontal pair at 1242x375/128, a batch of 8 and a frame:")
+    smoke.phase("phase 4 SGM horizontal", sgm_horizontal_timing_phase)
+
     def run_stats(name, run, runs=10, profiled=True):
         """Events (median, min, max of ``runs``); with ``profiled`` also the
         launches and device busy time of one run (torch.profiler), host

@@ -36,49 +36,75 @@
 //
 // What bounds it on the H100: each step of a path line reads D costs and D
 // accumulator values and writes D outputs, and the recurrence is sequential
-// along the line (up to H or W steps). The byte floor (the volume, and the
-// f32 aggregate in and out once a direction) is far below the measured
-// time, which does not change when the data fits in L2: the SM's copy
-// instructions bound it (one 4-byte cp.async a thread and element; a
-// step's dependent chain, two shuffles, the recurrence and a five-step
-// xor-shuffle min, is the smaller part). PERF.md has the measurements.
+// along the line (up to H or W steps); a step's dependent chain is two
+// shuffles, the recurrence and a five-step xor-shuffle min.
+// - The row-stepped kernel (vertical and diagonal directions): its byte floor
+//   (the volume, and the f32 aggregate in and out once a direction) is far
+//   below the measured time, which does not change when the data fits in
+//   L2: the SM's copy instructions bound it (one 4-byte cp.async a thread
+//   and element, and the stage's reads and writes in shared memory).
+// - The horizontal kernel (one warp a row, each lane's costs and outputs
+//   straight between device memory and registers): a row's step chain
+//   alone takes ≈ 0.34 µs (as long with the data in L2), so a row takes
+//   ≈ 0.42 ms at W = 1242 and a stack of rows needs several rows on each
+//   SM at once. But each 16-byte access of a lane lies in its own d-plane,
+//   planes lie megabytes apart (7.5 MB in the SGM cell's stacked bf16
+//   volume, 15 MB in its aggregate), so every vector instruction touches
+//   32 pages; address translation, not bytes, bounds it: more than 4 rows
+//   an SM run slower, and the same kernel on an aggregate laid out with
+//   its 32 planes in one page runs ≈ 1.6 x faster. Adding each interior
+//   output vector onto the aggregate by one vector reduction, where a load
+//   and a store touched those pages twice, is the largest gain found.
+// PERF.md has the measurements.
 //
 // Design. A warp follows one line; lane l holds disparities d = 32k + l, so
 // d - 1 and d + 1 come from the lanes beside it (warp shuffles, the last
 // lane's from the first lane's next k) and lastBest from a five-step
-// xor-shuffle min. The lines a block follows are adjacent in memory at every
-// step, and the block stages their data through a ring of stages in shared
-// memory that kCopiers more warps fill with cp.async several stages ahead
-// and write back, while the line warps step through the stage at hand; one
-// barrier a stage hands stages over. So nothing from device memory is on a
-// step's chain, and every access to device memory is a run along a row:
+// xor-shuffle min. A seed's values are selected, not branched to, so a step
+// has no branch. Nothing from device memory is on a step's chain, and every
+// access to device memory is a run along a row.
 // - Vertical and diagonal directions (sgm_rows_kernel): lines are numbered
 //   by their intercept k = x - sx*sy*y (N lines, N + S - 1 on a diagonal)
 //   and all step one row at a time from the entry row. A block owns
 //   kLines adjacent intercepts, so at each row its pixels are kLines
-//   adjacent columns of that row: a stage is up to kRowsPerStage rows, each
-//   a (D, kLines) tile of costs and accumulator read as runs of kLines. A
-//   line whose column is off the image at a row idles there; its first
-//   pixel in the image is exactly the pixel whose predecessor is off the
-//   image: a seed. A segment's line warps read the carry in with plain
-//   loads at the entry row and write the carry out at the last, once a
-//   line; a seam period's frames are the grid's y, each block stepping the
-//   rows of one frame.
-// - Horizontal directions (sgm_cols_kernel): a block owns up to kMaxRows
-//   rows; a stage is kChunk columns of them, a (rows, D, kChunk) tile read
-//   as runs of kChunk.
-// The outputs go into the stage's accumulator tile and are written back as
-// runs once the block has passed its next barrier. A tile's rows are an odd
-// number of words apart, so the 32 lanes reading one column hit 32 banks.
-// A bf16 run is copied as the 4-byte words that cover it, starting half a
-// word in where the run's first element is odd: its element offset is the
-// parity of its address in half-words. So the word of a run's first or last
-// element may also hold the half-word before or after the run, which can lie
-// outside the tensor's storage. Each such word is 4-byte aligned and holds
-// an element of the tensor, so it never crosses an aligned 4-byte boundary
-// of the buffer: on the card no read leaves the page an element lies in.
-// The extra half-word lands in shared memory and is never read from there.
-// A seed's values are selected, not branched to, so a step has no branch.
+//   adjacent columns of that row. The block stages their data through a
+//   ring of stages in shared memory that kCopiers more warps fill with
+//   cp.async several stages ahead and write back, while the line warps step
+//   through the stage at hand; one barrier a stage hands stages over. A
+//   stage is up to kRowsPerStage rows, each a (D, kLines) tile of costs and
+//   accumulator read as runs of kLines. A line whose column is off the
+//   image at a row idles there; its first pixel in the image is exactly the
+//   pixel whose predecessor is off the image: a seed. A segment's line warps
+//   read the carry in with plain loads at the entry row and write the carry
+//   out at the last, once a line; a seam period's frames are the grid's y,
+//   each block stepping the rows of one frame. The outputs go into the
+//   stage's accumulator tile and are written back as runs once the block has
+//   passed its next barrier. A tile's rows are an odd number of words apart,
+//   so the 32 lanes reading one column hit 32 banks. A bf16 run is copied as
+//   the 4-byte words that cover it, starting half a word in where the run's
+//   first element is odd (the parity of its address in half-words).
+// - Horizontal directions (sgm_cols_kernel): a warp follows one row, and no
+//   warp shares anything; kColsRowsPerSm rows are resident on each SM, the
+//   grid's warps taking the rows in turn. A lane's costs at its d-planes
+//   are runs along the row, each read as aligned vectors of W words (16
+//   bytes; 8 for a bf16 volume at D > 128, to stay within the registers),
+//   one vector a chunk of C columns, loaded a chunk ahead of the steps that
+//   use it. Each run starts at its own byte phase (rows and planes lie any
+//   number of elements apart, a view at any element), so a chunk's costs
+//   are the window at that phase of two neighbouring vectors: whole words
+//   picked by a barrel shifter of selects, a bf16 run odd in half-words
+//   shifted half a word by a funnel shift. The outputs go the other way:
+//   each group of 4 columns' Lr is shifted into the aligned 16-byte vector
+//   of the output run that it completes, which is stored whole, or added
+//   onto the aggregate by one red.global.add.v4.f32 (round to nearest, as
+//   prior + Lr; subnormal sums flush to zero, which no aggregate of costs
+//   in [0, 1] and penalties reaches), or word by word where the vector
+//   reaches past the row's ends. The intensities of a chunk are read by C
+//   lanes, each computing the P2' of its column once.
+// Every vector read holds an element of the row it serves and is aligned
+// to its size, so it never crosses the page that element lies in; the
+// elements it holds beyond the row, which can lie outside the tensor's
+// storage, are never used, and are never written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,20 +112,20 @@
 #include <cstdint>
 #include <type_traits>
 
+
 namespace {
 
 constexpr float kBig = 1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kLines = 8;           // adjacent lines a block of the row-stepped kernel (PERF.md)
-constexpr int kCopiers = 4;         // copying warps a block
+constexpr int kCopiers = 4;         // copying warps a block of the row-stepped kernel
 constexpr int kRowsPerStage = 8;    // image rows a stage of the row-stepped kernel, at most
-constexpr int kChunk = 16;          // columns a stage of the horizontal kernel
-constexpr int kMaxRows = 4;         // rows a block of the horizontal kernel
 constexpr int kMaxAhead = 8;        // stages in flight, at most
 constexpr int kRingBudget = 112 * 1024;  // two blocks fit on an SM
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kCopierThreads = 32 * kCopiers;
-static_assert(kLines + kCopiers <= 32 && kMaxRows + kCopiers <= 32, "32 warps a block");
+static_assert(kLines + kCopiers <= 32, "32 warps a block");
+constexpr int kColsRowsPerSm = 4;   // rows resident an SM in the horizontal kernel (PERF.md)
 
 struct PathArgs {
   const void* vol;   // (D, S, N), element strides vol_sd, vol_sy, 1
@@ -220,15 +246,14 @@ __device__ __forceinline__ float tile_cost(const float* run, int o, int s, __nv_
 }
 
 // One path step of one line: cost[k] is the cost at d = 32k + lane (kBig
-// for d >= D); lim the largest d on the lattice at this pixel; the pixel's
-// output (and accumulator) is slot[d * stride] in shared memory. A seed
-// takes Lr = C and lastBest = 0; the recurrence's value is computed on
-// every step and selected, so the step has no branch.
+// for d >= D); lim the largest d on the lattice at this pixel; w[k] gets the
+// pixel's Lr (0 off the lattice). A seed takes Lr = C and lastBest = 0; the
+// recurrence's value is computed on every step and selected, so the step
+// has no branch.
 template <int DPT>
-__device__ __forceinline__ void path_step(float (&prev)[DPT], float& best, const float (&cost)[DPT],
-                                          bool seed, float p2, int lim, const PathArgs& a,
-                                          int lane, float* slot, int stride) {
-  const int D = a.D;
+__device__ __forceinline__ void path_recur(float (&prev)[DPT], float& best,
+                                           const float (&cost)[DPT], bool seed, float p2, int lim,
+                                           int D, float P1, int lane, float (&w)[DPT]) {
   const float best_p2 = best + p2;
   // the carry at d - 1 and d + 1: from the lane below and above, and across
   // the wrap from lane 31 of k - 1 and lane 0 of k + 1
@@ -244,22 +269,36 @@ __device__ __forceinline__ void path_step(float (&prev)[DPT], float& best, const
     const int d = 32 * k + lane;
     const float down = d == 0 ? kBig : (lane > 0 ? below[k] : below[k > 0 ? k - 1 : 0]);
     const float up = d >= D - 1 ? kBig : (lane < 31 ? above[k] : above[k + 1 < DPT ? k + 1 : k]);
-    const float cm = fminf(fminf(prev[k], fminf(down, up) + a.P1), best_p2);
+    const float cm = fminf(fminf(prev[k], fminf(down, up) + P1), best_p2);
     const bool valid = d <= lim && d < D;
     const float v = valid ? (seed ? cost[k] : cm + cost[k] - best) : kBig;
     prev[k] = v;
     local_min = fminf(local_min, v);
-    if (d < D) {
-      float* o = slot + d * stride;
-      const float prior = *o;
-      const float w = valid ? v : 0.f;
-      *o = a.accumulate ? prior + w : w;
-    }
+    w[k] = valid ? v : 0.f;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     local_min = fminf(local_min, __shfl_xor_sync(kFullMask, local_min, o));
   best = seed ? 0.f : local_min;
+}
+
+// path_recur, with the pixel's output (and accumulator) at slot[d * stride]
+// in shared memory
+template <int DPT>
+__device__ __forceinline__ void path_step(float (&prev)[DPT], float& best, const float (&cost)[DPT],
+                                          bool seed, float p2, int lim, const PathArgs& a,
+                                          int lane, float* slot, int stride) {
+  float w[DPT];
+  path_recur<DPT>(prev, best, cost, seed, p2, lim, a.D, a.P1, lane, w);
+#pragma unroll
+  for (int k = 0; k < DPT; ++k) {
+    const int d = 32 * k + lane;
+    if (d < a.D) {
+      float* o = slot + d * stride;
+      const float prior = *o;
+      *o = a.accumulate ? prior + w[k] : w[k];
+    }
+  }
 }
 
 // the largest d on the lattice at column x: a segment's lattice is that of
@@ -419,95 +458,255 @@ __global__ void __launch_bounds__(32 * (kLines + kCopiers))
   if (copier) store(n_stages - 1);
 }
 
-// Horizontal directions: block b follows rows b * R .. b * R + R - 1, warp
-// r row r, kChunk columns a stage; kCopiers more warps copy. A stage
-// holds, per row, costs (D, pc words), accumulator / output (D, pa) and the
-// intensities (kChunk).
-template <typename T, int DPT>
-__global__ void __launch_bounds__(32 * (kMaxRows + kCopiers))
-    sgm_cols_kernel(const PathArgs a, int R, int ring) {
-  extern __shared__ float smem[];
-  constexpr int pc = odd_pitch(run_words<T>(kChunk)), pa = odd_pitch(kChunk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool copier = warp >= R;
-  const int ctid = threadIdx.x - 32 * R;
-  const int D = a.D, S = a.S, N = a.N, sx = a.sx;
-  const T* __restrict__ vol = static_cast<const T*>(a.vol);
-  const int y0 = static_cast<int>(blockIdx.x) * R, rows = min(R, S - y0);
-  const int row_words = D * (pc + pa) + kChunk, stage_words = R * row_words;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  const int ahead = ring - 2;
-  // chunk n holds steps t = n * kChunk + j (column sx > 0 ? t : N - 1 - t)
-  // at slot x - x_lo(n)
-  auto x_lo = [&](int n) { return sx > 0 ? n * kChunk : N - (n + 1) * kChunk; };
-  auto stage = [&](int n) { return smem + (n % ring) * stage_words; };
-  auto load = [&](int n) {
-    float* st = stage(n);
-    const int xl = x_lo(n), s_lo = max(0, -xl), s_hi = min(kChunk, N - xl);
-    for (int r = 0; r < rows; ++r) {
-      float* sr = st + r * row_words;
-      const long long y = y0 + r;
-      stage_runs<T, kChunk>(sr, pc, vol, y * a.vol_sy + xl, a.vol_sd, D, s_lo, s_hi, ctid);
-      if (a.accumulate)
-        stage_runs<float, kChunk>(sr + D * pc, pa, a.out, y * a.out_sy + xl, a.out_sd, D, s_lo,
-                                  s_hi, ctid);
-      stage_runs<float, kChunk>(sr + D * (pc + pa), kChunk, a.img, y * a.img_sy + xl, 0, 1, s_lo,
-                                s_hi, ctid);
-    }
-  };
-  auto store = [&](int n) {
-    const float* st = stage(n);
-    const int xl = x_lo(n), s_lo = max(0, -xl), s_hi = min(kChunk, N - xl);
-    for (int r = 0; r < rows; ++r)
-      store_runs<kChunk>(a.out, static_cast<long long>(y0 + r) * a.out_sy + xl, a.out_sd,
-                         st + r * row_words + D * pc, pa, D, s_lo, s_hi, ctid);
-  };
-
-  const int par_base = half_parity(vol, 0);
-  const int par_sd = static_cast<int>(a.vol_sd & 1), par_sy = static_cast<int>(a.vol_sy & 1);
-  float prev[DPT];
+// x[s .. s + kOut) for a run-time s in [0, kMaxShift]: a barrel shifter of
+// selects, a stage a bit of s
+template <int kIn, int kOut, int kMaxShift>
+__device__ __forceinline__ void shift_words(const unsigned (&x)[kIn], int s,
+                                            unsigned (&out)[kOut]) {
+  static_assert(kOut + kMaxShift <= kIn, "the shifted words lie in x");
+  unsigned t[kIn];
 #pragma unroll
-  for (int k = 0; k < DPT; ++k) prev[k] = kBig;
-  float best = 0.f, there = 0.f;
+  for (int i = 0; i < kIn; ++i) t[i] = x[i];
+#pragma unroll
+  for (int b = 1; b <= kMaxShift; b <<= 1) {
+#pragma unroll
+    for (int i = 0; i + b < kIn; ++i) t[i] = (s & b) ? t[i + b] : t[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) out[i] = t[i];
+}
 
-  if (copier) {
-    for (int i = 0; i < ahead; ++i) {
-      if (i < n_chunks) load(i);
-      cp_async_commit();
+// bytes [p, p + 4W) of the 8W bytes of lo then hi as W words; p < 4W, a
+// multiple of the element's size
+template <typename T, int W>
+__device__ __forceinline__ void window(const unsigned (&lo)[W], const unsigned (&hi)[W], int p,
+                                       unsigned (&out)[W]) {
+  unsigned x[2 * W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    x[i] = lo[i];
+    x[W + i] = hi[i];
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    shift_words<2 * W, W, W - 1>(x, p >> 2, out);
+  } else {  // whole words, then half a word where p is odd in half-words
+    unsigned s[W + 1];
+    shift_words<2 * W, W + 1, W - 1>(x, p >> 2, s);
+    const unsigned half = (p & 2) << 3;
+#pragma unroll
+    for (int i = 0; i < W; ++i) out[i] = __funnelshift_r(s[i], s[i + 1], half);
+  }
+}
+
+// element e of a window, as float32
+template <typename T, int W>
+__device__ __forceinline__ float window_cost(const unsigned (&win)[W], int e) {
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(win[e]);
+  } else {
+    return __uint_as_float(e & 1 ? win[e >> 1] & 0xffff0000u : win[e >> 1] << 16);
+  }
+}
+
+// W aligned words from p, as 16-byte (W = 2: one 8-byte) loads
+template <int W>
+__device__ __forceinline__ void load_words(const char* p, unsigned (&v)[W]) {
+  if constexpr (W == 2) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = u.x;
+    v[1] = u.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i / 4);
+      v[i] = u.x;
+      v[i + 1] = u.y;
+      v[i + 2] = u.z;
+      v[i + 3] = u.w;
     }
   }
-  for (int n = 0; n < n_chunks; ++n) {
-    if (copier) cp_async_wait_dyn(ahead - 1);
-    __syncthreads();
-    if (copier) {
-      if (n > 0) store(n - 1);
-      if (n + ahead < n_chunks) load(n + ahead);
-      cp_async_commit();
-      continue;
-    }
-    if (warp >= rows) continue;  // uniform across the warp
-    float* sr = stage(n) + warp * row_words;
-    const int xl = x_lo(n), y = y0 + warp;
-    const int par_row = (par_base + (y & par_sy) + xl) & 1;
-    for (int j = 0; j < kChunk; ++j) {
-      const int t = n * kChunk + j;
-      if (t >= N) break;
-      const int x = sx > 0 ? t : N - 1 - t, s = x - xl;
-      const float here = sr[D * (pc + pa) + s];
-      const float p2 = a.P2 / (1.0f + fabsf(there - here));
-      float cost[DPT];
+}
+
+// A lane's runs along its row of the volume (costs) and of the output, one
+// a k, as aligned vectors numbered from the run's anchor, column 0 (SX > 0)
+// or column N (SX < 0), in the direction of the steps: cost vector m is
+// W words at cv + SX * 4W * m, its first element column crel + SX * C * m;
+// output vector h 4 words at ov + SX * 4 * h, its first column
+// orel + SX * 4 * h.
+template <int DPT>
+struct Runs {
+  const char* cv[DPT];
+  float* ov[DPT];
+  int cp[DPT];  // the cost run's anchor's byte phase
+  int crel[DPT];
+  int oq[DPT];  // the output run's anchor's phase in words
+  int orel[DPT];
+};
+
+// the cost vectors m of each k (zero where a vector holds no element of
+// the row)
+template <int DPT, int W, int C, int SX>
+__device__ __forceinline__ void load_costs(const Runs<DPT>& r, int m, int N,
+                                           unsigned (&v)[DPT][W]) {
 #pragma unroll
-      for (int k = 0; k < DPT; ++k) {
-        const int d = 32 * k + lane;
-        cost[k] = d < D ? tile_cost(sr + d * pc, par_row ^ (d & par_sd), s, T{}) : kBig;
+  for (int k = 0; k < DPT; ++k) {
+    const int rel = r.crel[k] + SX * C * m;
+    if (rel < N && rel + C > 0) {
+      load_words<W>(r.cv[k] + SX * 4 * W * m, v[k]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i) v[k][i] = 0u;
+    }
+  }
+}
+
+// Output vector h of each k: the columns of the groups before (wprev) and
+// at h (wcur) that it holds, each group's Lr in memory order, shifted by
+// the run's phase. A vector inside the row is written whole, or added onto
+// the output by one vector reduction (red.global.add.v4.f32: the same
+// round-to-nearest sum as prior + Lr); one reaching past the row's ends
+// word by word.
+template <int DPT, int SX>
+__device__ __forceinline__ void store_outputs(const Runs<DPT>& r, int h, int N, int D, int lane,
+                                              bool accumulate, const float (&wprev)[DPT][4],
+                                              const float (&wcur)[DPT][4]) {
+#pragma unroll
+  for (int k = 0; k < DPT; ++k) {
+    const int rel = r.orel[k] + SX * 4 * h;
+    if (32 * k + lane >= D || rel >= N || rel + 4 <= 0) continue;
+    // memory order: the lower group, then the higher; the vector starts
+    // 4 - oq words into the lower, so 3 - oq words into x
+    const float(&lo)[4] = SX > 0 ? wprev[k] : wcur[k];
+    const float(&hi)[4] = SX > 0 ? wcur[k] : wprev[k];
+    const unsigned x[7] = {__float_as_uint(lo[1]), __float_as_uint(lo[2]), __float_as_uint(lo[3]),
+                           __float_as_uint(hi[0]), __float_as_uint(hi[1]), __float_as_uint(hi[2]),
+                           __float_as_uint(hi[3])};
+    unsigned v[4];
+    shift_words<7, 4, 3>(x, 3 - r.oq[k], v);
+    const float4 w = make_float4(__uint_as_float(v[0]), __uint_as_float(v[1]),
+                                 __uint_as_float(v[2]), __uint_as_float(v[3]));
+    float* p = r.ov[k] + SX * 4 * h;
+    if (rel >= 0 && rel + 4 <= N) {
+      if (accumulate) {
+        atomicAdd(reinterpret_cast<float4*>(p), w);
+      } else {
+        *reinterpret_cast<float4*>(p) = w;
       }
-      path_step<DPT>(prev, best, cost, t == 0, p2, lattice_lim<false>(a, x), a, lane,
-                     sr + D * pc + s, pa);
-      there = here;
+    } else {
+      const float o[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (rel + i >= 0 && rel + i < N) p[i] = accumulate ? p[i] + o[i] : o[i];
     }
   }
-  __syncthreads();
-  if (copier) store(n_chunks - 1);
+}
+
+// One row y of a horizontal direction, step (SX, 0), by one warp. A chunk
+// is C columns: one cost vector of W words a k, kGroups output vectors of 4
+// columns. Its costs are loaded a chunk ahead, its outputs stored at each
+// group's end.
+template <typename T, int DPT, int SX>
+__device__ __forceinline__ void cols_row(const PathArgs& a, int y, int lane) {
+  constexpr int W = std::is_same<T, float>::value || DPT <= 4 ? 4 : 2;
+  constexpr int C = 4 * W / static_cast<int>(sizeof(T));
+  constexpr int kGroups = C / 4;
+  const int D = a.D, N = a.N;
+  const bool accumulate = a.accumulate;
+
+  Runs<DPT> r;
+#pragma unroll
+  for (int k = 0; k < DPT; ++k) {
+    // lanes past D read the last plane's run, and never store
+    const int d = min(32 * k + lane, D - 1);
+    const T* row = static_cast<const T*>(a.vol) + d * a.vol_sd + y * a.vol_sy;
+    const uintptr_t c = reinterpret_cast<uintptr_t>(SX > 0 ? row : row + N);
+    r.cp[k] = static_cast<int>(c % (4 * W));
+    r.cv[k] = reinterpret_cast<const char*>(c - r.cp[k]);
+    r.crel[k] = (SX > 0 ? 0 : N) - r.cp[k] / static_cast<int>(sizeof(T));
+    float* orow = a.out + d * a.out_sd + y * a.out_sy;
+    const uintptr_t o = reinterpret_cast<uintptr_t>(SX > 0 ? orow : orow + N);
+    r.oq[k] = static_cast<int>(o % 16) / 4;
+    r.ov[k] = reinterpret_cast<float*>(o - 4 * r.oq[k]);
+    r.orel[k] = (SX > 0 ? 0 : N) - r.oq[k];
+  }
+  // lane j < C reads the intensity of step g * C + j
+  const float* irow = a.img + y * a.img_sy;
+  auto intensity = [&](int g) {
+    const int t = g * C + lane;
+    return lane < C && t < N ? __ldg(irow + (SX > 0 ? t : N - 1 - t)) : 0.f;
+  };
+
+  unsigned cur[DPT][W], nxt[DPT][W];
+  load_costs<DPT, W, C, SX>(r, 0, N, cur);
+  load_costs<DPT, W, C, SX>(r, 1, N, nxt);
+  float next_here = intensity(0), last_here = 0.f;
+  float prev[DPT], wprev[DPT][4], wcur[DPT][4];
+#pragma unroll
+  for (int k = 0; k < DPT; ++k) {
+    prev[k] = kBig;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wprev[k][i] = wcur[k][i] = 0.f;
+  }
+  float best = 0.f;
+  const int n_chunks = (N + C - 1) / C;
+  for (int g = 0; g < n_chunks; ++g) {
+    // the chunk's costs, the window of its vectors g and g + 1 in memory
+    // order; then vector g + 2 for the next chunk
+    unsigned win[DPT][W];
+#pragma unroll
+    for (int k = 0; k < DPT; ++k) {
+      if constexpr (SX > 0) {
+        window<T, W>(cur[k], nxt[k], r.cp[k], win[k]);
+      } else {
+        window<T, W>(nxt[k], cur[k], r.cp[k], win[k]);
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) cur[k][i] = nxt[k][i];
+    }
+    load_costs<DPT, W, C, SX>(r, g + 2, N, nxt);
+    // lane j's P2' for step g * C + j, from its intensity and the step's
+    // before (lane j - 1's, or the last chunk's last)
+    const float here = next_here;
+    next_here = intensity(g + 1);
+    const float before = __shfl_sync(kFullMask, here, (lane + 31) & 31);
+    const float p2_lane = a.P2 / (1.0f + fabsf((lane == 0 ? last_here : before) - here));
+    last_here = __shfl_sync(kFullMask, here, C - 1);
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * q + j, t = g * C + e;
+        if (t < N) {  // uniform across the warp
+          float cost[DPT], w[DPT];
+#pragma unroll
+          for (int k = 0; k < DPT; ++k)
+            cost[k] = 32 * k + lane < D ? window_cost<T, W>(win[k], SX > 0 ? e : C - 1 - e) : kBig;
+          path_recur<DPT>(prev, best, cost, t == 0, __shfl_sync(kFullMask, p2_lane, e),
+                          lattice_lim<false>(a, SX > 0 ? t : N - 1 - t), D, a.P1, lane, w);
+#pragma unroll
+          for (int k = 0; k < DPT; ++k) wcur[k][SX > 0 ? j : 3 - j] = w[k];
+        }
+      }
+      store_outputs<DPT, SX>(r, g * kGroups + q, N, D, lane, accumulate, wprev, wcur);
+#pragma unroll
+      for (int k = 0; k < DPT; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wprev[k][i] = wcur[k][i];
+    }
+  }
+  // the vector past the last group: the tail of the last group's columns
+  store_outputs<DPT, SX>(r, n_chunks * kGroups, N, D, lane, accumulate, wprev, wcur);
+}
+
+// Horizontal directions, step (SX, 0): the grid's warps take the rows in
+// turn, warp w rows w, w + (warps in the grid), ...
+template <typename T, int DPT, int SX>
+__global__ void __launch_bounds__(32 * kColsRowsPerSm) sgm_cols_kernel(const PathArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int warps = static_cast<int>(gridDim.x * (blockDim.x >> 5));
+  for (int y = static_cast<int>(blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)); y < a.S;
+       y += warps)
+    cols_row<T, DPT, SX>(a, y, lane);
 }
 
 // stages in the ring: up to kMaxAhead + 2 within the budget, at least 3
@@ -565,22 +764,44 @@ cudaError_t launch_rows(const PathArgs& a, cudaStream_t stream) {
                        ring * rows * row, stream, a, rows, ring);
 }
 
+// the current device's SM count, read once
+cudaError_t sm_count(int& n) {
+  static std::atomic<int> sms{0};
+  n = sms.load(std::memory_order_relaxed);
+  if (n) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) sms.store(n, std::memory_order_relaxed);
+  return e;
+}
+
+// The horizontal kernel: kColsRowsPerSm rows resident on each SM, or
+// fewer where the rows are few, spread over every SM (a block a SM).
+template <typename T, int DPT>
+cudaError_t launch_cols(const PathArgs& a, cudaStream_t stream) {
+  int n = 0;
+  const cudaError_t e = sm_count(n);
+  if (e != cudaSuccess) return e;
+  const int warps = a.S < n * kColsRowsPerSm ? a.S : n * kColsRowsPerSm;
+  const int rows = (warps + n - 1) / n;
+  const dim3 grid((warps + rows - 1) / rows);
+  if (a.sx > 0) {
+    sgm_cols_kernel<T, DPT, 1><<<grid, 32 * rows, 0, stream>>>(a);
+  } else {
+    sgm_cols_kernel<T, DPT, -1><<<grid, 32 * rows, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 // a segment (vertical or diagonal) through the row-stepped kernel's segment
 // build; a whole-image direction through the row-stepped or the horizontal
 // kernel
 template <typename T, int DPT>
 cudaError_t launch_typed(const PathArgs& a, bool segment, cudaStream_t stream) {
-  static std::atomic<unsigned long long> cols_raised{0};
   if (segment) return launch_rows<T, DPT, true>(a, stream);
   if (a.sy != 0) return launch_rows<T, DPT, false>(a, stream);
-  const size_t row =
-      4 * (static_cast<size_t>(a.D) * (odd_pitch(run_words<T>(kChunk)) + odd_pitch(kChunk)) +
-           kChunk);
-  const int rows = units_per_stage(row, kMaxRows > a.S ? a.S : kMaxRows);
-  const int ring = ring_depth(rows * row);
-  if (!ring) return cudaErrorInvalidValue;
-  return launch_kernel(sgm_cols_kernel<T, DPT>, cols_raised, dim3((a.S + rows - 1) / rows),
-                       rows + kCopiers, ring * rows * row, stream, a, rows, ring);
+  return launch_cols<T, DPT>(a, stream);
 }
 
 template <typename T>

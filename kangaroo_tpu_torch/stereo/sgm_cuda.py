@@ -31,6 +31,9 @@ from . import sgm as _plain
 # segments with a carry (kernel 6), both ``kt_sgm_segment``
 launches = 0
 diagonal_launches = 0
+# the horizontal directions among ``launches`` (``sgm_cols_kernel``); a
+# part of a counted total, so not one of ``profiling.COUNTERS``
+horizontal_launches = 0
 segment_launches = 0
 diag_segment_launches = 0
 
@@ -129,7 +132,7 @@ def _path(vol, img, out, step, sd, P1, P2, accumulate, op) -> None:
     ``kt_sgm_path`` (kernel 1, or 5 for a diagonal step): writes Lr into
     ``out``, or adds it onto ``out`` in place with ``accumulate``. Each
     tensor is read and written through its strides (unit along N)."""
-    global launches, diagonal_launches
+    global launches, diagonal_launches, horizontal_launches
     D, S, N = vol.shape
     with torch.cuda.device(vol.device):
         backend.launch(_build.library().kt_sgm_path, vol.data_ptr(),
@@ -141,6 +144,7 @@ def _path(vol, img, out, step, sd, P1, P2, accumulate, op) -> None:
         diagonal_launches += 1
     else:
         launches += 1
+        horizontal_launches += int(step[1] == 0)
 
 
 def aggregate_direction(vol: torch.Tensor, img: torch.Tensor, step, P1: float = 0.01,

@@ -16,7 +16,8 @@ but TGV amplifies any last-bit difference); the DTAM auxiliary search
 order, each rounded on its own, so 0 is expected). The whole-image path
 kernel and the segment kernel (``csrc/sgm_path.cu``) equal the warp-per-line
 design (``csrc/sgm.cu``, ``kt_sgm_segment_lines``) exactly: the same
-operations per element in the same order; so do the ROF and TGV solves on
+operations per element in the same order (the horizontal directions also
+equal the plain version exactly); so do the ROF and TGV solves on
 tiles and the fuse on plane tiles the designs they replaced
 (``kt_rof_denoise_steps``, ``kt_tgv_denoise_steps``,
 ``kt_separable_fuse_voxel``). The median on tiles equals
@@ -733,27 +734,72 @@ def test_sgm_path_kernel_matches_segment_kernel_and_plain(dev, shape, step, sd, 
     torch.testing.assert_close(got[m], want[m], atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("offset", range(8))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("step", PATH_STEPS)
-def test_sgm_path_kernel_on_row_shard_views(dev, step, dtype):
-    """A row shard of a wider volume (rows 37..96, columns 1..641: odd
-    element offsets) read through its strides and added in place into a
-    view of a wider accumulator, as the warp-per-line design does; nothing
-    outside the view changes."""
-    vol, img = _segment_inputs((64, 121, 643), dev, dtype, seed=42)
-    v, i = vol[:, 37:97, 1:642], img[37:97, 1:642]
-    acc = torch.from_numpy(np.random.default_rng(43).random((64, 70, 646),
+def test_sgm_path_kernel_on_row_shard_views(dev, step, dtype, offset):
+    """A row and column block of a wider volume (rows 37..96, 641 columns
+    from ``offset``: every element offset of a 16-byte vector of bf16, and
+    of two of float32) read through its strides and added in place into a
+    view of a wider accumulator (641 columns from 7 - ``offset``), as the
+    warp-per-line design does; nothing outside the view changes."""
+    vol, img = _segment_inputs((64, 121, 650), dev, dtype, seed=42)
+    cols = slice(offset, offset + 641)
+    v, i = vol[:, 37:97, cols], img[37:97, cols]
+    acc = torch.from_numpy(np.random.default_rng(43).random((64, 70, 650),
                                                             dtype=np.float32)).to(dev)
+    inside = (slice(None), slice(4, 64), slice(7 - offset, 648 - offset))
     got = acc.clone()
-    view = got[:, 4:64, 2:643]
+    view = got[inside]
     assert sgm_cuda.aggregate_direction(v, i, step, acc=view) is view
     want = acc.clone()
-    sgm_cuda._launch_lines(v, i, want[:, 4:64, 2:643], want[:, 4:64, 2:643], step, -1, 0, 641,
-                           0, 0.01, 0.02, "sgm_segment")
+    sgm_cuda._launch_lines(v, i, want[inside], want[inside], step, -1, 0, 641, 0, 0.01, 0.02,
+                           "sgm_segment")
     assert torch.equal(got, want)
     outside = torch.ones(acc.shape, dtype=torch.bool, device=dev)
-    outside[:, 4:64, 2:643] = False
+    outside[inside] = False
     assert torch.equal(got[outside], acc[outside])
+
+
+# the horizontal kernel (sgm_cols_kernel) alone: every DPT and both sides of
+# each of its edges, rows shorter than a vector, KITTI-wide rows, and from
+# one row to a stack of 8 KITTI frames (a single frame's d-planes lie at
+# different 16-byte phases); against the warp-per-line design and the plain
+# version, exactly
+HORIZONTAL_SHAPES = ([(D, 3, N) for D in (1, 31, 32, 33, 64, 127, 128, 129, 256)
+                      for N in (1, 7, 8, 9, 17, 1242)]
+                     + [(128, S, 1242) for S in (1, 375, 3000)])
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sd", [-1, 1])
+@pytest.mark.parametrize("step", [(1, 0), (-1, 0)])
+@pytest.mark.parametrize("shape", HORIZONTAL_SHAPES)
+def test_sgm_horizontal_kernel_matches_lines_design_and_plain(dev, shape, step, sd, dtype,
+                                                              accumulate):
+    vol, img = _segment_inputs(shape, dev, dtype, seed=46)
+    acc = (torch.rand(shape, generator=torch.Generator(dev).manual_seed(47), device=dev)
+           if accumulate else None)
+    before = (sgm_cuda.horizontal_launches, sgm_cuda.launches)
+    got = sgm_cuda.aggregate_direction(vol, img, step, 0.01, 0.02, sd,
+                                       acc=None if acc is None else acc.clone())
+    assert (sgm_cuda.horizontal_launches, sgm_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, _segment_direction(vol, img, step, sd, acc))
+    want = sgm_plain.aggregate_direction(vol, img, step, 0.01, 0.02, sd,
+                                         acc=None if acc is None else acc.clone())
+    assert torch.equal(got, want)
+
+
+def test_batched_kitti_pipeline_launches_two_horizontal_kernels(dev):
+    """A stack of 8 KITTI pairs at 128 disparities (the benchmark cell's
+    batch): its aggregation is 4 launches, 2 of them the horizontal kernel."""
+    pairs = [synthetic.stereo_pair(1242, 375, 128, seed=k, device=dev) for k in range(8)]
+    lefts, rights = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    before = (sgm_cuda.horizontal_launches, sgm_cuda.launches + sgm_cuda.segment_launches)
+    stereo_sgm.sgm_pipeline_batched(lefts, rights, stereo_sgm.SgmConfig(max_disp=128))
+    assert (sgm_cuda.horizontal_launches,
+            sgm_cuda.launches + sgm_cuda.segment_launches) == (before[0] + 2, before[1] + 4)
 
 
 @pytest.mark.parametrize("step", PATH_STEPS)
